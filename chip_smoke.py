@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (tieredstorage_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--segment-mib N] [--out PATH]
+
+Phases, in order, each printing its seconds:
+
+1. build   — compile csrc/ with nvcc for sm_90a (one nvcc per source, in
+             parallel) and print the card's name and power limit;
+2. kernels — each CUDA kernel against its plain PyTorch version on the card,
+             bit for bit, at the shapes the main path gives it: the AES-256
+             keystream (16 rows x 262 145 blocks), the GHASH tree (16 rows of
+             4 MiB with a real context's operands) and GHASH level 1
+             (256 x 1 KiB). Kernel and plain times are medians of CUDA-event
+             timed runs; the bound is the least time the card could take;
+3. main    — the port's RemoteStorageManager over a filesystem store:
+             copy one encrypted segment (1 GiB by default, 4 MiB chunks,
+             Kafka-sized indexes), read it back whole, 64 ranged 1 MiB reads
+             at seeded offsets, every index through fetch_index (all compared
+             byte for byte), a flipped ciphertext byte that must fail with
+             AuthenticationError, and a delete that must leave the store
+             empty. Launch counts are zeroed just before and read just after;
+4. counts  — every kernel must have launched on the main path.
+
+The last three lines are the card (`nvidia-smi` name, power limit), one JSON
+object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
+failed check exits non-zero before those lines. Without CUDA the script exits
+2 and prints no result. The full record is also written to --out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+MIB = 1 << 20
+CHUNK = 4 * MIB
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and 32-bit
+#: integer logic ops/s taken as one op per CUDA-core lane per clock — the
+#: 67 TFLOP/s float32 figure counts an FMA as two, i.e. 132 SMs x 128 lanes
+#: x 1.98 GHz = 33.5e12 lane-ops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "nvidia-smi: no output"
+
+
+def time_cuda(fn, runs: int, warmup: int = 1) -> float:
+    """Median milliseconds of `fn` over `runs` CUDA-event timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
+
+
+def kernel_phase(seed: int, device) -> dict:
+    from tieredstorage_tpu_torch.ops import _cuda, aes_bitsliced, gcm, ghash_cuda
+    from tieredstorage_tpu_torch.ops.aes import key_expansion
+
+    rng = np.random.default_rng(seed)
+    key, aad = rng.bytes(32), rng.bytes(32)
+    out = {}
+
+    # AES-256 keystream at the 64 MiB window: 16 rows x (262 144 data + 1 tag-mask) blocks.
+    rows, n_blocks = 16, CHUNK // 16 + 1
+    rk = torch.from_numpy(key_expansion(key)).to(device)
+    ivs = torch.from_numpy(rng.integers(0, 256, (rows, 12), dtype=np.uint8)).to(device)
+    got = aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks)
+    want = aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want), "AES keystream kernel disagrees with its plain version")
+    del got, want
+    gates = _cuda.sbox_gates()
+    words = rows * ((n_blocks + 31) // 32)
+    ops_per_word = 14 * 16 * gates + 13 * 528 + 15 * 128
+    ops = words * ops_per_word
+    nbytes = rows * n_blocks * 16 + rows * 12 + 240
+    out["aes_ctr_keystream"] = dict(
+        name="aes_ctr_keystream", route="cuda",
+        source="tieredstorage_tpu_torch/csrc/aes_ctr.cu",
+        replaces="tieredstorage_tpu/ops/aes_pallas.py:111",
+        max_abs_err=err,
+        ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks), 10),
+        plain_ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks), 3),
+        shape=f"B={rows}, n_blocks={n_blocks}", ops=ops, bytes=nbytes, sbox_gates=gates,
+    )
+
+    # GHASH tree: 16 rows of 4 MiB against a real 4 MiB context's operands.
+    ctx = gcm.make_context(key, aad, CHUNK)
+    w1 = torch.from_numpy(np.array(ctx.agg_mats[0])).to(device)
+    step = torch.from_numpy(np.array(ctx.step_mat)).to(device)
+    ops_t = ghash_cuda.GhashOperands.build(w1, step)
+    data = torch.from_numpy(rng.integers(0, 256, (rows, CHUNK), dtype=np.uint8)).to(device)
+    got = ghash_cuda.ghash_tree(data, ops_t)
+    want = ghash_cuda.ghash_tree_plain(data, w1, step)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want), "GHASH tree kernel disagrees with its plain version")
+    k = ops_t.k_bytes
+    out["ghash_tree"] = dict(
+        name="ghash_tree", route="cuda", source="tieredstorage_tpu_torch/csrc/ghash.cu",
+        replaces="tieredstorage_tpu/ops/ghash_pallas.py:278",
+        max_abs_err=err,
+        ms=time_cuda(lambda: ghash_cuda.ghash_tree(data, ops_t), 5),
+        plain_ms=time_cuda(lambda: ghash_cuda.ghash_tree_plain(data, w1, step), 2),
+        shape=f"uint8[{rows}, {CHUNK}], K={k}, G={CHUNK // k}",
+        ops=rows * CHUNK * 8 * 128 // 32 * 2,
+        bytes=rows * CHUNK + ops_t.w1_words.numel() * 4 + 128 * 16 + rows * 128,
+    )
+    del data
+
+    # GHASH level 1: 256 rows of 1 KiB (a 1 KiB context's level-1 operand).
+    small = gcm.make_context(key, aad, 1024)
+    w1s = torch.from_numpy(np.array(small.agg_mats[0])).to(device)
+    ops_s = ghash_cuda.GhashOperands.build(w1s, None)
+    data = torch.from_numpy(rng.integers(0, 256, (256, 1024), dtype=np.uint8)).to(device)
+    got = ghash_cuda.ghash_level1(data, ops_s)
+    want = ghash_cuda.ghash_level1_plain(data, w1s)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(torch.equal(got, want), "GHASH level-1 kernel disagrees with its plain version")
+    out["ghash_level1"] = dict(
+        name="ghash_level1", route="cuda", source="tieredstorage_tpu_torch/csrc/ghash.cu",
+        replaces="tieredstorage_tpu/ops/ghash_pallas.py:134",
+        max_abs_err=err,
+        ms=time_cuda(lambda: ghash_cuda.ghash_level1(data, ops_s), 20),
+        plain_ms=time_cuda(lambda: ghash_cuda.ghash_level1_plain(data, w1s), 5),
+        shape="uint8[256, 1024]",
+        ops=256 * 1024 * 8 * 128 // 32 * 2,
+        bytes=256 * 1024 + ops_s.w1_words.numel() * 4 + 256 * 128,
+    )
+    for rec in out.values():
+        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = rec["ops"] / INT32_OPS_PER_S * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        # No single PyTorch call computes AES-CTR or GHASH.
+        rec["library_ms"] = None
+    return out
+
+
+def write_segment(root: Path, seed: int, size: int):
+    """A segment of `size` seeded bytes with Kafka-sized indexes: 8 B of
+    offset index and 12 B of time index per 4 KiB of log, a small producer
+    snapshot and a leader-epoch checkpoint."""
+    from tieredstorage_tpu_torch.metadata import (
+        KafkaUuid,
+        LogSegmentData,
+        RemoteLogSegmentId,
+        RemoteLogSegmentMetadata,
+        TopicIdPartition,
+        TopicPartition,
+    )
+
+    rng = np.random.default_rng(seed)
+    files = {
+        "log": root / "00000000000000000000.log",
+        "offset": root / "00000000000000000000.index",
+        "time": root / "00000000000000000000.timeindex",
+        "snapshot": root / "00000000000000000000.snapshot",
+    }
+    with open(files["log"], "wb") as f:
+        for _ in range(size // (64 * MIB)):
+            f.write(rng.bytes(64 * MIB))
+        f.write(rng.bytes(size % (64 * MIB)))
+    entries = size // 4096
+    files["offset"].write_bytes(rng.bytes(8 * entries))
+    files["time"].write_bytes(rng.bytes(12 * entries))
+    files["snapshot"].write_bytes(rng.bytes(1234))
+    leader_epoch = b"0\n2\n0 0\n1 524288\n"
+    tip = TopicIdPartition(KafkaUuid(rng.bytes(16)), TopicPartition("smoke", 0))
+    md = RemoteLogSegmentMetadata(
+        remote_log_segment_id=RemoteLogSegmentId(tip, KafkaUuid(rng.bytes(16))),
+        start_offset=0, end_offset=entries - 1, segment_size_in_bytes=size,
+    )
+    sd = LogSegmentData(
+        log_segment=files["log"], offset_index=files["offset"], time_index=files["time"],
+        producer_snapshot_index=files["snapshot"], transaction_index=None,
+        leader_epoch_index=leader_epoch,
+    )
+    return md, sd, files, leader_epoch
+
+
+def main_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.transform.api import AuthenticationError
+
+    seg_dir, store = work / "segment", work / "store"
+    seg_dir.mkdir()
+    store.mkdir()
+    md, sd, files, leader_epoch = write_segment(seg_dir, seed, segment_bytes)
+    pub, priv = generate_key_pair_pem_files(work, prefix="smoke")
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store),
+        "chunk.size": CHUNK,
+        "key.prefix": "smoke/",
+        "compression.enabled": False,
+        "transform.device": device,
+        "encryption.enabled": True,
+        "encryption.key.pair.id": "k1",
+        "encryption.key.pairs": "k1",
+        "encryption.key.pairs.k1.public.key.file": str(pub),
+        "encryption.key.pairs.k1.private.key.file": str(priv),
+    })
+    source = files["log"].read_bytes()
+    rec: dict = {"segment_bytes": segment_bytes, "chunk_bytes": CHUNK}
+
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    rec["copy_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        fetched = stream.read()
+    rec["fetch_s"] = time.perf_counter() - t
+    check(fetched == source, "whole-segment fetch differs from the source")
+    del fetched
+
+    rng = np.random.default_rng(seed + 1)
+    latencies = []
+    for off in rng.integers(0, segment_bytes - MIB, 64):
+        off = int(off)
+        t = time.perf_counter()
+        with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+            part = stream.read()
+        latencies.append((time.perf_counter() - t) * 1e3)
+        check(part == source[off : off + MIB], f"ranged read at {off} differs from the source")
+
+    for index_type, want in (
+        (IndexType.OFFSET, files["offset"].read_bytes()),
+        (IndexType.TIMESTAMP, files["time"].read_bytes()),
+        (IndexType.PRODUCER_SNAPSHOT, files["snapshot"].read_bytes()),
+        (IndexType.LEADER_EPOCH, leader_epoch),
+    ):
+        check(rsm.fetch_index(md, index_type).read() == want, f"{index_type.name} index differs")
+
+    # Flip one ciphertext byte of chunk 7 on disk: the fetch must fail on the tag.
+    [log_obj] = [p for p in store.rglob("*.log")]
+    victim = 7 % max(1, segment_bytes // CHUNK)
+    pos = victim * (CHUNK + 28) + 12 + 1000
+    with open(log_obj, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        with rsm.fetch_log_segment(md, victim * CHUNK, victim * CHUNK + 99) as stream:
+            stream.read()
+        raise SmokeFailure("a tampered chunk was served")
+    except SmokeFailure:
+        raise
+    except Exception as e:  # the cause chain must hold the tag failure
+        chain, cur = [], e
+        while cur is not None:
+            chain.append(cur)
+            cur = cur.__cause__ or cur.__context__
+        check(any(isinstance(c, AuthenticationError) for c in chain),
+              f"tampered fetch failed without AuthenticationError: {e!r}")
+    rec["tamper_rejected"] = True
+
+    rsm.delete_log_segment_data(md)
+    left = [p for p in store.rglob("*") if p.is_file()]
+    check(not left, f"delete left {len(left)} objects")
+    rsm.close()
+    rec["launches"] = _cuda.launch_counts()
+    gib = segment_bytes / (1 << 30)
+    rec["copy_gib_s"] = gib / rec["copy_s"]
+    rec["fetch_gib_s"] = gib / rec["fetch_s"]
+    rec["ranged_1mib_p50_ms"] = float(np.percentile(latencies, 50))
+    rec["ranged_1mib_p99_ms"] = float(np.percentile(latencies, 99))
+    stats = rsm.transform_backend.dispatch_stats.as_dict()
+    rec["dispatch_stats"] = stats
+    return rec
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--segment-mib", type=int, default=1024,
+                        help="segment size (default 1024 = Kafka's log.segment.bytes)")
+    parser.add_argument("--out", default="chiprun_out/chip_smoke.json")
+    args = parser.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    from tieredstorage_tpu_torch.ops import _cuda
+
+    device = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record: dict = {"seed": args.seed}
+
+    t = time.perf_counter()
+    _cuda.library()
+    record["build_s"] = time.perf_counter() - t
+    print(f"phase build: {record['build_s']:.1f} s (nvcc {_cuda.BUILD_LOG.get('seconds', 0.0):.1f} s)")
+    for line in str(_cuda.BUILD_LOG.get("log", "")).splitlines():
+        if "registers" in line or "spill" in line or "error" in line or "warning" in line:
+            print("  ptxas:", line.strip())
+    card = card_line()
+    print(f"card: {card}")
+    record["card"] = card
+
+    t = time.perf_counter()
+    kernels = kernel_phase(args.seed, device)
+    record["kernels_s"] = time.perf_counter() - t
+    print(f"phase kernels: {record['kernels_s']:.1f} s")
+    for rec in kernels.values():
+        print(f"  {rec['name']}: {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f} ms, "
+              f"bound {rec['bound_ms']:.3f} ms by {rec['bound_by']}) at {rec['shape']}")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        t = time.perf_counter()
+        main_rec = main_path(args.seed, args.segment_mib * MIB, work)
+        record["main_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase main: {record['main_s']:.1f} s")
+    record["main_path"] = main_rec
+    print("main path: " + json.dumps({k: main_rec[k] for k in (
+        "segment_bytes", "copy_gib_s", "fetch_gib_s", "ranged_1mib_p50_ms",
+        "ranged_1mib_p99_ms", "tamper_rejected")}))
+
+    launches = main_rec["launches"]
+    missing = [name for name in kernels if launches.get(name, 0) <= 0]
+    check(not missing, f"kernels never launched on the main path: {missing}")
+    line = {"kernels": []}
+    for name, rec in kernels.items():
+        entry = {k: rec[k] for k in (
+            "name", "route", "source", "replaces")}
+        entry["launches"] = launches[name]
+        entry.update({k: rec[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        line["kernels"].append(entry)
+    record["kernel_line"] = line
+    record["all_kernels"] = kernels
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=2, default=str))
+
+    print(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These need an NVIDIA GPU with sm_90a and nvcc (the kernels have no CPU
+mode), so they carry the `cuda` marker and skip elsewhere. The file imports
+neither JAX nor the JAX package, so it runs on the machine with the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tieredstorage_tpu_torch.ops import _cuda, aes_bitsliced, gcm, ghash_cuda
+from tieredstorage_tpu_torch.ops.aes import key_expansion
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+def _on(device, a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+@pytest.mark.parametrize("batch,n_blocks,first", [(1, 1, 1), (3, 1000, 2**32 - 50), (2, 257, 7)])
+def test_aes_keystream_kernel_matches_plain(device, batch, n_blocks, first):
+    rng = np.random.default_rng(n_blocks)
+    rk = _on(device, key_expansion(rng.bytes(32)))
+    ivs = _on(device, rng.integers(0, 256, (batch, 12), dtype=np.uint8))
+    before = _cuda.launch_counts()["aes_ctr_keystream"]
+    got = aes_bitsliced.ctr_keystream_batch(rk, ivs, first, n_blocks)
+    assert _cuda.launch_counts()["aes_ctr_keystream"] == before + 1
+    assert torch.equal(got, aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, first, n_blocks))
+
+
+@pytest.mark.parametrize("k,groups,rows", [(256, 3, 5), (2048, 4, 2), (48, 1, 7)])
+def test_ghash_kernels_match_plain(device, k, groups, rows):
+    rng = np.random.default_rng(k + groups)
+    w1 = _on(device, rng.integers(0, 2, (8, k, 128), dtype=np.int8))
+    step = _on(device, rng.integers(0, 2, (128, 128), dtype=np.int8))
+    ops = ghash_cuda.GhashOperands.build(w1, step)
+    data = _on(device, rng.integers(0, 256, (rows, groups * k), dtype=np.uint8))
+    flat = data.reshape(rows * groups, k)
+    assert torch.equal(ghash_cuda.ghash_level1(flat, ops), ghash_cuda.ghash_level1_plain(flat, w1))
+    if groups > 1:
+        assert torch.equal(ghash_cuda.ghash_tree(data, ops), ghash_cuda.ghash_tree_plain(data, w1, step))
+
+
+def test_packed_window_on_card_matches_cpu(device):
+    rng = np.random.default_rng(3)
+    ctx = gcm.make_context(rng.bytes(32), rng.bytes(32), 4096 * 3 + 5)
+    packed = rng.integers(0, 256, (3, ctx.chunk_bytes + 16), dtype=np.uint8)
+    want = gcm.gcm_window_packed(ctx, None, torch.from_numpy(packed.copy()), decrypt=False)
+    got = gcm.gcm_window_packed(ctx, None, _on(device, packed), decrypt=False)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("varlen", [False, True], ids=["fixed", "varlen"])
+def test_window_program_does_not_wait_for_the_device(device, varlen):
+    """A warm window program only enqueues: no host->device copy from
+    pageable memory (or other sync) makes the host wait for earlier
+    kernels, so the backend's staging pipeline can overlap windows."""
+    rng = np.random.default_rng(4)
+    key, aad = rng.bytes(32), rng.bytes(32)
+    if varlen:
+        ctx = gcm.make_varlen_context(key, aad, 5000)
+        width = ctx.max_bytes
+        packed = np.zeros((2, width + 16), np.uint8)
+        packed[:, width + 12:] = np.asarray([5000, 17], "<u4").view(np.uint8).reshape(2, 4)
+        run = lambda t: gcm.gcm_varlen_window_packed(ctx, None, t, None, decrypt=False, donate=True)  # noqa: E731
+    else:
+        ctx = gcm.make_context(key, aad, 4096 * 3)
+        packed = rng.integers(0, 256, (2, ctx.chunk_bytes + 16), dtype=np.uint8)
+        run = lambda t: gcm.gcm_window_packed(ctx, None, t, decrypt=False, donate=True)  # noqa: E731
+    run(_on(device, packed))  # device constants built, kernels loaded
+    staged = _on(device, packed)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # about a second of device work ahead of the window
+    run(staged)
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()  # the host got here while the device was still busy
+    torch.cuda.synchronize()
+
+
+def test_cuda_wrappers_refuse_bad_operands(device):
+    ops = ghash_cuda.GhashOperands.build(torch.zeros((8, 32, 128), dtype=torch.int8), None)
+    with pytest.raises(ValueError, match="operands on cpu"):
+        ghash_cuda.ghash_level1(torch.zeros((2, 32), dtype=torch.uint8, device=device), ops)

@@ -1,0 +1,248 @@
+"""The port's RemoteStorageManager end to end on the CPU, and segments that
+cross-read with the JAX package's RSM in both directions.
+
+chunk.size=4096 with an odd tail; encryption on, compression off (the
+slice's configuration). The port runs with transform.device=cpu; the JAX
+RSM uses its default CPU backend, whose wire format is the TPU backend's.
+Both need `cryptography` only on the JAX side (the JAX RSM's RSA keys).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tieredstorage_tpu import metadata as jax_metadata
+from tieredstorage_tpu.manifest.segment_indexes import IndexType as JaxIndexType
+from tieredstorage_tpu.rsm import RemoteStorageManager as JaxRemoteStorageManager
+from tieredstorage_tpu_torch import metadata
+from tieredstorage_tpu_torch.config.configdef import ConfigException
+from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
+from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+from tieredstorage_tpu_torch.transform.api import AuthenticationError
+
+CHUNK = 4096
+SEGMENT_SIZE = 5 * CHUNK + 777
+
+
+def _write_segment(root: Path, mod, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    files = {
+        "log": (root / "00000000000000000023.log", rng.bytes(SEGMENT_SIZE)),
+        "offset": (root / "00000000000000000023.index", rng.bytes(8 * 6)),
+        "time": (root / "00000000000000000023.timeindex", rng.bytes(12 * 6)),
+        "snapshot": (root / "00000000000000000023.snapshot", rng.bytes(40)),
+        "txn": (root / "00000000000000000023.txnindex", rng.bytes(33)),
+    }
+    for path, data in files.values():
+        path.write_bytes(data)
+    tip = mod.TopicIdPartition(mod.KafkaUuid(b"\x01" * 16), mod.TopicPartition("topic", 7))
+    md = mod.RemoteLogSegmentMetadata(
+        remote_log_segment_id=mod.RemoteLogSegmentId(tip, mod.KafkaUuid(b"\x02" * 16)),
+        start_offset=23, end_offset=2000, segment_size_in_bytes=SEGMENT_SIZE,
+    )
+    sd = mod.LogSegmentData(
+        log_segment=files["log"][0], offset_index=files["offset"][0],
+        time_index=files["time"][0], producer_snapshot_index=files["snapshot"][0],
+        transaction_index=files["txn"][0], leader_epoch_index=b"0\n1\n0 23\n",
+    )
+    contents = {k: v[1] for k, v in files.items()}
+    contents["leader_epoch"] = b"0\n1\n0 23\n"
+    return md, sd, contents
+
+
+INDEXES = {
+    "offset": "OFFSET", "time": "TIMESTAMP", "snapshot": "PRODUCER_SNAPSHOT",
+    "leader_epoch": "LEADER_EPOCH", "txn": "TRANSACTION",
+}
+
+
+@pytest.fixture(scope="module")
+def keys(tmp_path_factory):
+    """One RSA pair generated by the port (read by both packages)."""
+    return generate_key_pair_pem_files(tmp_path_factory.mktemp("keys"), prefix="rsm")
+
+
+def _configs(store: Path, keys, backend_class: str, extra=None) -> dict:
+    pub, priv = keys
+    configs = {
+        "storage.backend.class": backend_class,
+        "storage.root": str(store),
+        "chunk.size": CHUNK,
+        "key.prefix": "test/",
+        "encryption.enabled": True,
+        "encryption.key.pair.id": "key1",
+        "encryption.key.pairs": "key1",
+        "encryption.key.pairs.key1.public.key.file": str(pub),
+        "encryption.key.pairs.key1.private.key.file": str(priv),
+    }
+    configs.update(extra or {})
+    return configs
+
+
+def _port_rsm(store: Path, keys) -> RemoteStorageManager:
+    rsm = RemoteStorageManager()
+    rsm.configure(_configs(
+        store, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        {"transform.device": "cpu"},
+    ))
+    return rsm
+
+
+def _jax_rsm(store: Path, keys) -> JaxRemoteStorageManager:
+    rsm = JaxRemoteStorageManager()
+    rsm.configure(_configs(store, keys, "tieredstorage_tpu.storage.filesystem.FileSystemStorage"))
+    return rsm
+
+
+def _read_everything(rsm, md, index_type, contents):
+    with rsm.fetch_log_segment(md, 0) as stream:
+        assert stream.read() == contents["log"]
+    for start, end in ((0, 99), (CHUNK - 5, 2 * CHUNK + 10), (SEGMENT_SIZE - 300, None)):
+        with rsm.fetch_log_segment(md, start, end) as stream:
+            stop = SEGMENT_SIZE if end is None else end + 1
+            assert stream.read() == contents["log"][start:stop]
+    for name, enum_name in INDEXES.items():
+        assert rsm.fetch_index(md, getattr(index_type, enum_name)).read() == contents[name]
+
+
+def test_port_rsm_lifecycle(tmp_path, keys):
+    store = tmp_path / "store"
+    store.mkdir()
+    md, sd, contents = _write_segment(tmp_path, metadata)
+    rsm = _port_rsm(store, keys)
+    assert rsm.copy_log_segment_data(md, sd) is None
+    files = sorted(p.name.rsplit(".", 1)[1] for p in store.rglob("*") if p.is_file())
+    assert files == ["indexes", "log", "rsm-manifest"]
+    [manifest_path] = store.rglob("*.rsm-manifest")
+    manifest = json.loads(manifest_path.read_text())
+    assert manifest["chunkIndex"] == {
+        "type": "fixed", "originalChunkSize": CHUNK, "originalFileSize": SEGMENT_SIZE,
+        "transformedChunkSize": CHUNK + 28, "finalTransformedChunkSize": 777 + 28,
+    }
+    assert manifest["encryption"]["dataKey"].startswith("key1:")
+    _read_everything(rsm, md, IndexType, contents)
+    assert rsm.transform_backend.dispatch_stats.windows > 0
+
+    # A flipped ciphertext byte fails the fetch with the tag check as cause.
+    [log_obj] = store.rglob("*.log")
+    raw = bytearray(log_obj.read_bytes())
+    raw[(CHUNK + 28) + 12 + 5] ^= 0x01
+    log_obj.write_bytes(bytes(raw))
+    with pytest.raises(Exception) as info:
+        with rsm.fetch_log_segment(md, CHUNK, CHUNK + 10) as stream:
+            stream.read()
+    assert isinstance(info.value.__cause__, AuthenticationError)
+
+    rsm.delete_log_segment_data(md)
+    assert [p for p in store.rglob("*") if p.is_file()] == []
+    with pytest.raises(RemoteResourceNotFoundException):
+        rsm.fetch_segment_manifest(md)
+    rsm.close()
+
+
+def test_failed_copy_rolls_back_uploaded_objects(tmp_path, keys, monkeypatch):
+    store = tmp_path / "store"
+    store.mkdir()
+    md, sd, _ = _write_segment(tmp_path, metadata)
+    rsm = _port_rsm(store, keys)
+
+    def boom(*args, **kwargs):
+        raise OSError("manifest upload failed")
+
+    monkeypatch.setattr(rsm, "_upload_manifest", boom)
+    with pytest.raises(Exception, match="Failed to copy segment"):
+        rsm.copy_log_segment_data(md, sd)
+    assert [p for p in store.rglob("*") if p.is_file()] == []
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_segments_cross_read_between_packages(tmp_path, keys, writer):
+    store = tmp_path / "store"
+    store.mkdir()
+    md_port, sd_port, contents = _write_segment(tmp_path, metadata)
+    md_jax, sd_jax, _ = _write_segment(tmp_path, jax_metadata)
+    if writer == "jax":
+        _jax_rsm(store, keys).copy_log_segment_data(md_jax, sd_jax)
+        reader, md, index_type = _port_rsm(store, keys), md_port, IndexType
+    else:
+        _port_rsm(store, keys).copy_log_segment_data(md_port, sd_port)
+        reader, md, index_type = _jax_rsm(store, keys), md_jax, JaxIndexType
+    _read_everything(reader, md, index_type, contents)
+    reader.delete_log_segment_data(md)
+    assert [p for p in store.rglob("*") if p.is_file()] == []
+
+
+@pytest.mark.parametrize(
+    "key", ["tracing.enabled", "fetch.chunk.cache.class", "cache.device.bytes",
+            "lifecycle.enabled", "upload.rate.limit.bytes.per.second"],
+)
+def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
+    configs = _configs(
+        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        {"transform.device": "cpu", key: "1"},
+    )
+    with pytest.raises(ConfigException, match=f"{key} is not yet ported"):
+        RemoteStorageManager().configure(configs)
+
+
+def test_unported_codec_is_refused(tmp_path, keys):
+    configs = _configs(
+        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        {"transform.device": "cpu", "compression.enabled": True,
+         "compression.codec": "tpu-huff-v1"},
+    )
+    with pytest.raises(ConfigException, match="only 'zstd'"):
+        RemoteStorageManager().configure(configs)
+
+
+def test_default_device_without_gpu_fails_configure(tmp_path, keys, monkeypatch):
+    """No fallback: without a GPU the default transform device refuses."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    configs = _configs(
+        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage"
+    )
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RemoteStorageManager().configure(configs)
+
+
+def test_custom_metadata_keeps_fetches_working_after_a_prefix_change(tmp_path, keys):
+    store = tmp_path / "store"
+    store.mkdir()
+    md, sd, contents = _write_segment(tmp_path, metadata)
+    backend = "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage"
+    include = {"transform.device": "cpu",
+               "custom.metadata.fields.include": "REMOTE_SIZE,OBJECT_PREFIX,OBJECT_KEY"}
+    writer = RemoteStorageManager()
+    writer.configure(_configs(store, keys, backend, include))
+    custom = writer.copy_log_segment_data(md, sd)
+    assert custom
+    reader = RemoteStorageManager()
+    reader.configure(_configs(store, keys, backend, {**include, "key.prefix": "moved/"}))
+    with reader.fetch_log_segment(md.with_custom_metadata(custom), 10, 5000) as stream:
+        assert stream.read() == contents["log"][10:5001]
+    with pytest.raises(RemoteResourceNotFoundException):
+        reader.fetch_segment_manifest(md)  # without the fields, the new prefix misses
+
+
+def test_unencrypted_copy_round_trips(tmp_path, keys):
+    store = tmp_path / "store"
+    store.mkdir()
+    md, sd, contents = _write_segment(tmp_path, metadata)
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": CHUNK, "transform.device": "cpu",
+    })
+    rsm.copy_log_segment_data(md, sd)
+    with rsm.fetch_log_segment(md, 10, 5000) as stream:
+        assert stream.read() == contents["log"][10:5001]
+    assert rsm.fetch_index(md, IndexType.LEADER_EPOCH).read() == contents["leader_epoch"]
+    assert isinstance(rsm.fetch_index(md, IndexType.OFFSET), io.BytesIO)

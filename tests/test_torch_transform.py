@@ -1,0 +1,129 @@
+"""CudaTransformBackend (on the CPU) against the JAX package's TpuTransformBackend.
+
+Same chunks, same fixed IVs, same key: the wire bytes must be identical and
+must read back through either backend. The port's backend runs with
+device="cpu", where every kernel wrapper takes its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from tieredstorage_tpu.security.aes import DataKeyAndAAD as JaxDataKeyAndAAD
+from tieredstorage_tpu.transform.api import DetransformOptions as JaxDetransformOptions
+from tieredstorage_tpu.transform.api import TransformOptions as JaxTransformOptions
+from tieredstorage_tpu.transform.tpu import TpuTransformBackend
+from tieredstorage_tpu_torch.config.configdef import ConfigException
+from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+from tieredstorage_tpu_torch.transform.api import (
+    AuthenticationError,
+    DetransformOptions,
+    TransformOptions,
+)
+from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+
+
+def _inputs(seed: int, sizes: list[int]):
+    rng = np.random.default_rng(seed)
+    key, aad = rng.bytes(32), rng.bytes(32)
+    chunks = [rng.bytes(n) for n in sizes]
+    ivs = [rng.bytes(12) for _ in sizes]
+    return key, aad, chunks, ivs
+
+
+def _cpu_backend(**configs) -> CudaTransformBackend:
+    backend = CudaTransformBackend()
+    backend.configure({"device": "cpu", **configs})
+    return backend
+
+
+def test_transform_matches_tpu_backend_and_cross_reads():
+    """Two fixed windows, then a varlen one (a short final chunk); the
+    whole-list detransform is one varlen window on both sides."""
+    sizes = [4096] * 5 + [1000]
+    key, aad, chunks, ivs = _inputs(len(sizes), sizes)
+    jax_backend = TpuTransformBackend()
+    jax_backend.preferred_batch_chunks = 2
+    ours = _cpu_backend(**{"batch.chunks": 2})
+    windows = [chunks[i : i + 2] for i in range(0, len(chunks), 2)]
+
+    want = [
+        c for w in jax_backend.transform_windows(
+            windows, JaxTransformOptions(encryption=JaxDataKeyAndAAD(key, aad), ivs=ivs)
+        ) for c in w
+    ]
+    got = [
+        c for w in ours.transform_windows(
+            windows, TransformOptions(encryption=DataKeyAndAAD(key, aad), ivs=ivs)
+        ) for c in w
+    ]
+    assert got == want
+    assert ours.dispatch_stats.windows == len(windows)
+    assert ours.dispatch_stats.donated_buffers == len(windows)
+    assert ours.dispatch_stats.dispatches_per_window == 1.0
+
+    assert ours.detransform(want, DetransformOptions(encryption=DataKeyAndAAD(key, aad))) == chunks
+    assert jax_backend.detransform(
+        got, JaxDetransformOptions(encryption=JaxDataKeyAndAAD(key, aad))
+    ) == chunks
+
+
+def test_tampered_tag_raises_authentication_error():
+    key, aad, chunks, ivs = _inputs(7, [4096, 4096])
+    ours = _cpu_backend()
+    enc = DataKeyAndAAD(key, aad)
+    stored = ours.transform(chunks, TransformOptions(encryption=enc, ivs=ivs))
+    bad = bytearray(stored[1])
+    bad[-1] ^= 0x80
+    with pytest.raises(AuthenticationError, match=r"chunks \[1\]"):
+        ours.detransform([stored[0], bytes(bad)], DetransformOptions(encryption=enc))
+    flipped = bytearray(stored[0])
+    flipped[100] ^= 0x01
+    with pytest.raises(AuthenticationError):
+        ours.detransform([bytes(flipped)], DetransformOptions(encryption=enc))
+
+
+def test_staging_buffers_are_reused_across_windows():
+    key, aad, chunks, ivs = _inputs(8, [4096] * 8)
+    ours = _cpu_backend(**{"batch.chunks": 2})
+    windows = [chunks[i : i + 2] for i in range(0, len(chunks), 2)]
+    opts = TransformOptions(encryption=DataKeyAndAAD(key, aad), ivs=ivs)
+    list(ours.transform_windows(windows, opts))
+    first = ours._staging.allocations
+    list(ours.transform_windows(windows, opts))
+    assert ours._staging.allocations == first  # the second pass allocates nothing
+    assert first <= ours.pipeline_depth + 1
+
+
+@pytest.mark.parametrize(
+    "configs,match",
+    [({"batch.enabled": "true"}, "batching is not yet ported"),
+     ({"mesh.devices": 2}, "multi-GPU")],
+    ids=["batch", "mesh"],
+)
+def test_unported_backend_options_are_refused(configs, match):
+    with pytest.raises(ConfigException, match=match):
+        CudaTransformBackend().configure({"device": "cpu", **configs})
+
+
+def test_default_device_without_gpu_raises_at_configure(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CudaTransformBackend().configure({})
+
+
+def test_identity_and_compression_paths():
+    key, aad, chunks, _ = _inputs(9, [4096, 100])
+    ours = _cpu_backend()
+    assert ours.transform(chunks, TransformOptions()) == chunks
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ours.transform(chunks, TransformOptions(compression=True, compression_codec="tpu-huff-v1"))
+    pytest.importorskip("zstandard")
+    opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(key, aad))
+    stored = ours.transform(chunks, opts)
+    back = ours.detransform(stored, DetransformOptions(
+        compression=True, encryption=DataKeyAndAAD(key, aad), max_original_chunk_size=4096,
+    ))
+    assert back == chunks

@@ -1,0 +1,509 @@
+"""CUDA transform backend: batched AES-GCM windows on the GPU.
+
+Counterpart of tieredstorage_tpu/transform/tpu.py, pluggable at
+`transform.backend.class`. Whole windows of chunks (256 chunks / 64 MiB) go
+to the device as ONE packed uint8[batch, n_bytes + 16] buffer — per-row
+IV / length metadata riding the tail columns — through ONE window program
+(ops/gcm.py: the CUDA keystream kernel, XOR, the CUDA GHASH kernel, tag
+fold) whose output `output || tag` is written in place into the staged
+buffer. One window costs one host→device copy, one program, one
+device→host copy.
+
+Staging is a pinned host buffer from a pool keyed by window shape (the
+`bucket_max_bytes` ladder keeps the shapes few, so steady-state windows
+allocate nothing) and a `non_blocking` copy; the result comes back into the
+same pinned buffer, and a CUDA event marks it ready. `transform_windows`
+keeps `pipeline_depth` windows in flight and waits only on the oldest
+window's event — host staging of window k overlaps the device work of the
+windows before it.
+
+Wire format is the JAX package's and the reference's: per chunk
+`IV || ciphertext || tag` (after an optional per-chunk zstd frame).
+
+The device comes from `transform.device` (default `cuda:0`; `cpu` runs the
+plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
+`configure`, never falls back. Cross-request batching
+(`transform.batch.enabled`) and multi-GPU meshes (`transform.mesh.devices`
+> 1) are not yet ported and are refused.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hmac
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+try:  # Optional dependency: only the zstd codec path needs it.
+    import zstandard
+except ImportError:  # pragma: no cover - exercised only without zstandard
+    zstandard = None
+
+from tieredstorage_tpu_torch.config.configdef import ConfigException
+from tieredstorage_tpu_torch.ops import gcm as gcm_ops
+from tieredstorage_tpu_torch.ops.gcm import (
+    gcm_varlen_window_packed,
+    gcm_window_packed,
+    make_context,
+    make_varlen_context,
+)
+from tieredstorage_tpu_torch.security.aes import IV_SIZE, TAG_SIZE
+from tieredstorage_tpu_torch.transform.api import (
+    ZSTD,
+    AuthenticationError,
+    DetransformOptions,
+    TransformBackend,
+    TransformOptions,
+)
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Per-backend device-interaction counters for the window path: one
+    window is one host→device copy, ONE window program, one device→host
+    copy, and its output reuses the staged buffer (donated_buffers ==
+    windows). Guarded by the owning backend's `_stats_lock`."""
+
+    windows: int = 0
+    dispatches: int = 0
+    h2d_transfers: int = 0
+    d2h_fetches: int = 0
+    bytes_in: int = 0
+    #: Payload-scale intermediates the window programs wrote to device memory
+    #: (ops.gcm.planned_hbm_roundtrips).
+    hbm_roundtrips: int = 0
+    #: Staged window buffers the program wrote its output into.
+    donated_buffers: int = 0
+    #: Rows of the last staged window.
+    rows_per_device: int = 0
+
+    @property
+    def dispatches_per_window(self) -> float:
+        return round(self.dispatches / self.windows, 3) if self.windows else 0.0
+
+    @property
+    def hbm_roundtrips_per_window(self) -> float:
+        return round(self.hbm_roundtrips / self.windows, 3) if self.windows else 0.0
+
+    @property
+    def bytes_per_dispatch(self) -> int:
+        return int(self.bytes_in / self.dispatches) if self.dispatches else 0
+
+    def as_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["dispatches_per_window"] = self.dispatches_per_window
+        out["hbm_roundtrips_per_window"] = self.hbm_roundtrips_per_window
+        out["bytes_per_dispatch"] = self.bytes_per_dispatch
+        return out
+
+
+class _StagingPool:
+    """Host staging buffers by window shape, pinned when the device is a GPU."""
+
+    #: Buffers kept per shape: pipeline_depth windows in flight plus the one
+    #: being built.
+    KEEP = 4
+
+    def __init__(self) -> None:
+        self._free: dict[tuple, list[torch.Tensor]] = collections.defaultdict(list)
+        self._lock = threading.Lock()
+        self.allocations = 0
+
+    def acquire(self, shape: tuple, pinned: bool) -> torch.Tensor:
+        with self._lock:
+            free = self._free[shape]
+            if free:
+                return free.pop()
+            self.allocations += 1
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=pinned)
+
+    def release(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            free = self._free[tuple(buf.shape)]
+            if len(free) < self.KEEP:
+                free.append(buf)
+
+
+@dataclasses.dataclass
+class _StagedWindow:
+    ivs: np.ndarray
+    sizes: list
+    n_bytes: int
+    host: torch.Tensor                 # staging buffer; holds the result when ready
+    out: torch.Tensor                  # device result (the staged buffer itself)
+    ready: Optional[object] = None     # torch.cuda.Event after the device→host copy
+
+
+class CudaTransformBackend(TransformBackend):
+    preferred_batch_chunks = 256
+    # Window byte cap: with pipeline_depth=3 up to 4 windows are staged at
+    # once, each pinning its buffer plus the keystream and GHASH
+    # intermediates (~4x window bytes of device memory).
+    preferred_batch_bytes = 64 << 20
+    #: Staged windows kept in flight before waiting on the oldest.
+    pipeline_depth = 3
+
+    def __init__(self, device=None):
+        self._device_spec = "cuda:0" if device is None else str(device)
+        self._device: Optional[torch.device] = None
+        self._stats_lock = threading.Lock()
+        self.dispatch_stats = DispatchStats()
+        self._staging = _StagingPool()
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    @property
+    def device(self) -> torch.device:
+        """The resolved device; a CUDA device without CUDA raises."""
+        if self._device is None:
+            dev = torch.device(self._device_spec)
+            if dev.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        f"transform device {dev} requested but CUDA is not available; "
+                        "set transform.device=cpu to run the plain versions on the CPU"
+                    )
+                if (dev.index or 0) >= torch.cuda.device_count():
+                    raise RuntimeError(f"transform device {dev} does not exist")
+            elif dev.type != "cpu":
+                raise ValueError(f"Unsupported transform device {dev}")
+            self._device = dev
+        return self._device
+
+    def configure(self, configs: dict) -> None:
+        values = _definition().parse(configs)
+        if values["batch.enabled"]:
+            raise ConfigException(
+                "transform.batch.enabled: cross-request batching is not yet ported "
+                "to tieredstorage_tpu_torch"
+            )
+        if values["mesh.devices"] > 1:
+            raise ConfigException(
+                "transform.mesh.devices > 1: multi-GPU windows are not yet ported "
+                "to tieredstorage_tpu_torch"
+            )
+        self.preferred_batch_chunks = values["batch.chunks"]
+        self.preferred_batch_bytes = values["batch.bytes"]
+        self.pipeline_depth = values["pipeline.depth"]
+        self._device_spec = values["device"]
+        self._device = None
+        _ = self.device  # fail at configure, not at the first window
+
+    def _zstd_pool(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 4))
+        return self._pool
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    # ------------------------------------------------------------- transform
+    def transform(self, chunks: Sequence[bytes], opts: TransformOptions) -> list[bytes]:
+        out = list(chunks)
+        if not out:
+            return []
+        if opts.compression:
+            out = self._compress_batch(out, opts)
+        if opts.encryption is not None:
+            out = self._encrypt_finish(self._encrypt_dispatch(out, opts))
+        return out
+
+    def transform_windows(self, windows, opts: TransformOptions):
+        """Pipelined staging: `_encrypt_dispatch` only ENQUEUES window k (the
+        host→device copy, the window program, the device→host copy and its
+        event) and returns; `_encrypt_finish`, pipeline_depth windows later,
+        waits on that one event. Steady-state cost is max(stage times)."""
+        if opts.encryption is None:
+            for window in windows:
+                yield self.transform(window, opts)
+            return
+        pending: collections.deque = collections.deque()
+        iv_offset = 0
+        for window in windows:
+            chunks = list(window)
+            # Deterministic IVs (tests) are a flat per-chunk sequence: slice
+            # the window's share so windowed == monolithic byte-for-byte.
+            w_opts = opts
+            if opts.ivs is not None:
+                w_opts = dataclasses.replace(
+                    opts, ivs=opts.ivs[iv_offset : iv_offset + len(chunks)]
+                )
+                iv_offset += len(chunks)
+            if opts.compression:
+                chunks = self._compress_batch(chunks, w_opts)
+            pending.append(self._encrypt_dispatch(chunks, w_opts) if chunks else None)
+            while len(pending) > max(1, self.pipeline_depth):
+                yield self._finish_or_empty(pending.popleft())
+        while pending:
+            yield self._finish_or_empty(pending.popleft())
+
+    def _finish_or_empty(self, staged) -> list[bytes]:
+        return [] if staged is None else self._encrypt_finish(staged)
+
+    def _compress_batch(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
+        if opts.compression_codec != ZSTD:
+            raise NotImplementedError(
+                f"Codec {opts.compression_codec!r} is not yet ported to tieredstorage_tpu_torch"
+            )
+        if zstandard is None:
+            raise ModuleNotFoundError(
+                "The 'zstandard' package is required for the 'zstd' codec "
+                "but is not installed"
+            )
+        level = opts.compression_level
+        return list(
+            self._zstd_pool().map(
+                lambda c: zstandard.ZstdCompressor(
+                    level=level, write_content_size=True
+                ).compress(c),
+                chunks,
+            )
+        )
+
+    def _make_ivs(self, n: int, opts: TransformOptions) -> np.ndarray:
+        if opts.ivs is not None:
+            if len(opts.ivs) < n:
+                raise ValueError("Not enough IVs for the chunk batch")
+            return np.stack(
+                [np.frombuffer(iv, dtype=np.uint8) for iv in opts.ivs[:n]]
+            )
+        return np.frombuffer(os.urandom(IV_SIZE * n), dtype=np.uint8).reshape(n, IV_SIZE)
+
+    def _build_packed(
+        self, payloads: list, sizes: list[int], ivs: np.ndarray, n_bytes: int,
+        varlen: bool,
+    ) -> torch.Tensor:
+        """One packed host window uint8[B, n_bytes + 16] in a staging buffer:
+        left-aligned payload rows with a zero tail (varlen GHASH requires
+        it) and the per-row metadata the window program reads from the tail
+        columns ([iv 12 B][length u32 LE 4 B])."""
+        host = self._staging.acquire(
+            (len(payloads), n_bytes + TAG_SIZE), self.device.type == "cuda"
+        )
+        packed = host.numpy()
+        for i, p in enumerate(payloads):
+            packed[i, : sizes[i]] = np.frombuffer(p, dtype=np.uint8)
+            packed[i, sizes[i] : n_bytes] = 0
+        packed[:, n_bytes : n_bytes + IV_SIZE] = ivs
+        packed[:, n_bytes + IV_SIZE :] = (
+            np.asarray(sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
+            if varlen else 0
+        )
+        return host
+
+    def _stage_packed(self, host: torch.Tensor) -> torch.Tensor:
+        """Ship one packed window to the device — the window's single
+        host→device copy (on the CPU the staging buffer is the window)."""
+        device = self.device
+        if device.type == "cuda":
+            staged = torch.empty(host.shape, dtype=torch.uint8, device=device)
+            staged.copy_(host, non_blocking=True)
+        else:
+            staged = host
+        with self._stats_lock:
+            self.dispatch_stats.h2d_transfers += 1
+            self.dispatch_stats.rows_per_device = host.shape[0]
+        return staged
+
+    def _launch_packed(
+        self, ctx, host: torch.Tensor, staged: torch.Tensor, varlen: bool, *,
+        decrypt: bool,
+    ):
+        """ONE window program for a staged window, its output written into the
+        staged buffer; then the device→host copy back into the staging
+        buffer and the event that marks it ready."""
+        before = gcm_ops.thread_dispatches()
+        rt_before = gcm_ops.thread_hbm_roundtrips()
+        if varlen:
+            out = gcm_varlen_window_packed(ctx, None, staged, None, decrypt=decrypt, donate=True)
+        else:
+            out = gcm_window_packed(ctx, None, staged, decrypt=decrypt, donate=True)
+        ready = None
+        if out.device.type == "cuda":
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(out.device))
+        with self._stats_lock:
+            self.dispatch_stats.dispatches += gcm_ops.thread_dispatches() - before
+            self.dispatch_stats.hbm_roundtrips += gcm_ops.thread_hbm_roundtrips() - rt_before
+            if out.data_ptr() == staged.data_ptr():
+                self.dispatch_stats.donated_buffers += 1
+        return out, ready
+
+    def _run_window(self, enc, payloads, sizes, ivs, *, decrypt: bool) -> _StagedWindow:
+        varlen = len(set(sizes)) != 1
+        if varlen:
+            ctx = make_varlen_context(enc.data_key, enc.aad, max(sizes))
+            n_bytes = ctx.max_bytes
+        else:
+            ctx = make_context(enc.data_key, enc.aad, sizes[0])
+            n_bytes = ctx.chunk_bytes
+        host = self._build_packed(payloads, sizes, ivs, n_bytes, varlen)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                staged = self._stage_packed(host)
+                out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
+        else:
+            staged = self._stage_packed(host)
+            out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
+        with self._stats_lock:
+            self.dispatch_stats.windows += 1
+            self.dispatch_stats.bytes_in += sum(sizes)
+        return _StagedWindow(ivs, sizes, n_bytes, host, out, ready)
+
+    def _fetch(self, staged: _StagedWindow) -> np.ndarray:
+        """Wait for a window's result to reach its staging buffer."""
+        if staged.ready is not None:
+            staged.ready.synchronize()
+        with self._stats_lock:
+            self.dispatch_stats.d2h_fetches += 1
+        return staged.host.numpy()
+
+    def _encrypt_dispatch(self, chunks: list[bytes], opts: TransformOptions) -> _StagedWindow:
+        """Stage and launch an encrypt window; returns before the device is done."""
+        sizes = [len(c) for c in chunks]
+        ivs = self._make_ivs(len(chunks), opts)
+        return self._run_window(opts.encryption, chunks, sizes, ivs, decrypt=False)
+
+    def _encrypt_finish(self, staged: _StagedWindow) -> list[bytes]:
+        """Wait on a staged window and materialize the wire format
+        (IV || ct || tag per chunk)."""
+        host = self._fetch(staged)
+        n_bytes = staged.n_bytes
+        out = [
+            staged.ivs[i].tobytes()
+            + host[i, : staged.sizes[i]].tobytes()
+            + host[i, n_bytes:].tobytes()
+            for i in range(len(staged.sizes))
+        ]
+        self._staging.release(staged.host)
+        return out
+
+    # ----------------------------------------------------------- detransform
+    def detransform(self, chunks: Sequence[bytes], opts: DetransformOptions) -> list[bytes]:
+        out = list(chunks)
+        if not out:
+            return []
+        if opts.encryption is not None:
+            out = self._decrypt_batch(out, opts)
+        if opts.compression:
+            if opts.compression_codec != ZSTD:
+                raise NotImplementedError(
+                    f"Codec {opts.compression_codec!r} is not yet ported to tieredstorage_tpu_torch"
+                )
+            if zstandard is None:
+                raise ModuleNotFoundError(
+                    "The 'zstandard' package is required for the 'zstd' "
+                    "codec but is not installed"
+                )
+            limit = opts.max_original_chunk_size
+            for i, c in enumerate(out):
+                size = zstandard.frame_content_size(c)
+                if size < 0 or (limit is not None and size > limit):
+                    raise ValueError(
+                        f"Chunk {i}: zstd frame declares content size {size}, "
+                        f"limit {limit}"
+                    )
+            out = list(
+                self._zstd_pool().map(
+                    lambda c: zstandard.ZstdDecompressor().decompress(c), out
+                )
+            )
+        return out
+
+    def _decrypt_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:
+        """Fetch-direction window through the same single-program path as
+        encrypt: plaintext + EXPECTED tags on the device, tags verified on
+        the host against the received ones."""
+        for i, c in enumerate(chunks):
+            if len(c) < IV_SIZE + TAG_SIZE:
+                raise ValueError(f"Encrypted chunk {i} shorter than IV+tag")
+        ivs = np.stack([np.frombuffer(c[:IV_SIZE], dtype=np.uint8) for c in chunks])
+        received_tags = [c[-TAG_SIZE:] for c in chunks]
+        sizes = [len(c) - IV_SIZE - TAG_SIZE for c in chunks]
+        payloads = [c[IV_SIZE:-TAG_SIZE] for c in chunks]
+        return self._decrypt_window(opts.encryption, payloads, sizes, ivs, received_tags)
+
+    def _decrypt_window(
+        self, enc, payloads: list, sizes: list[int], ivs: np.ndarray,
+        received_tags: list,
+    ) -> list[bytes]:
+        staged = self._run_window(enc, payloads, sizes, ivs, decrypt=True)
+        host = self._fetch(staged)
+        n_bytes = staged.n_bytes
+        try:
+            bad = [
+                i
+                for i in range(len(sizes))
+                if not hmac.compare_digest(host[i, n_bytes:].tobytes(), received_tags[i])
+            ]
+            if bad:
+                raise AuthenticationError(f"GCM tag mismatch on chunks {bad}")
+            return [host[i, : sizes[i]].tobytes() for i in range(len(sizes))]
+        finally:
+            self._staging.release(staged.host)
+
+
+def _definition():
+    """ConfigDef of the `transform.`-prefixed keys `configure()` reads."""
+    from tieredstorage_tpu_torch.config.configdef import ConfigDef, ConfigKey, in_range
+
+    d = ConfigDef()
+    d.define(ConfigKey(
+        "device", "string", default="cuda:0", importance="high",
+        doc="Device of the window programs: a CUDA device (default cuda:0), or "
+            "'cpu' to run the kernels' plain PyTorch versions. A CUDA device "
+            "on a machine without CUDA fails at configure.",
+    ))
+    d.define(ConfigKey(
+        "batch.chunks", "int", default=256, validator=in_range(1, None),
+        importance="medium",
+        doc="Preferred chunks per device transform window.",
+    ))
+    d.define(ConfigKey(
+        "batch.bytes", "long", default=64 << 20, validator=in_range(1, None),
+        importance="medium",
+        doc="Window byte cap. With pipeline.depth staged windows in flight, "
+            "each window pins about 4x its bytes of device memory.",
+    ))
+    d.define(ConfigKey(
+        "pipeline.depth", "int", default=3, validator=in_range(1, None),
+        importance="medium",
+        doc="Staged windows kept in flight before waiting on the oldest "
+            "(host staging || device encrypt || device->host copy).",
+    ))
+    d.define(ConfigKey(
+        "batch.enabled", "bool", default=False, importance="medium",
+        doc="Cross-request window batching: not yet ported; true is refused.",
+    ))
+    d.define(ConfigKey(
+        "batch.wait.ms", "long", default=2, validator=in_range(0, None),
+        importance="low",
+        doc="Batching wait (read only with batch.enabled, which is not yet ported).",
+    ))
+    d.define(ConfigKey(
+        "batch.background.max.age.ms", "long", default=50,
+        validator=in_range(0, None), importance="low",
+        doc="Background batching age bound (read only with batch.enabled, "
+            "which is not yet ported).",
+    ))
+    d.define(ConfigKey(
+        "batch.windows", "int", default=16, validator=in_range(2, None),
+        importance="low",
+        doc="Windows per merged launch (read only with batch.enabled, which "
+            "is not yet ported).",
+    ))
+    d.define(ConfigKey(
+        "mesh.devices", "int", default=0, validator=in_range(0, None),
+        importance="medium",
+        doc="Devices one window spans: 0 or 1 = the one device above; more "
+            "is not yet ported and is refused.",
+    ))
+    return d

@@ -1,0 +1,145 @@
+"""Stream helpers: bounded reads, chunked copy, lazy concatenation.
+
+Host-side equivalents of the reference's commons-io BoundedInputStream usage
+(core/.../fetch/FetchChunkEnumeration.java:100-131) and SequenceInputStream
+composition (core/.../transform/DetransformFinisher.java:48-53).
+"""
+
+from __future__ import annotations
+
+import io
+from typing import BinaryIO, Iterator, Optional
+
+_COPY_BUF = 1024 * 1024
+
+
+class BoundedStream(io.RawIOBase):
+    """Caps reads from an inner stream at `limit` bytes; closes inner on close."""
+
+    def __init__(self, inner: BinaryIO, limit: int):
+        self._inner = inner
+        self._remaining = max(0, limit)
+
+    def readable(self) -> bool:
+        return True
+
+    def read(self, size: int = -1) -> bytes:
+        if self._remaining <= 0:
+            return b""
+        if size is None or size < 0 or size > self._remaining:
+            size = self._remaining
+        data = self._inner.read(size)
+        self._remaining -= len(data)
+        return data
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    def close(self) -> None:
+        try:
+            self._inner.close()
+        finally:
+            super().close()
+
+
+class LazyConcatStream(io.RawIOBase):
+    """Concatenates streams produced on demand by an iterator of factories.
+
+    The analogue of the reference's LazySequenceInputStream
+    (core/.../fetch/FetchChunkEnumeration.java:160-175): the iterator is only
+    advanced when more bytes are requested, and closing the stream early stops
+    the iteration (the broker rarely drains a whole fetch).
+    """
+
+    def __init__(self, parts: Iterator[BinaryIO]):
+        self._parts = parts
+        self._current: Optional[BinaryIO] = None
+
+    def readable(self) -> bool:
+        return True
+
+    def read(self, size: int = -1) -> bytes:
+        if size == 0:
+            return b""
+        out = bytearray()
+        while size < 0 or len(out) < size:
+            if self._current is None:
+                try:
+                    self._current = next(self._parts)
+                except StopIteration:
+                    break
+            want = -1 if size < 0 else size - len(out)
+            data = self._current.read(want)
+            if not data:
+                self._current.close()
+                self._current = None
+                continue
+            out += data
+        return bytes(out)
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    def close(self) -> None:
+        try:
+            if self._current is not None:
+                self._current.close()
+                self._current = None
+            close_all = getattr(self._parts, "close", None)
+            if close_all is not None:
+                close_all()
+        finally:
+            super().close()
+
+
+def copy_stream(src: BinaryIO, dst: BinaryIO, buf_size: int = _COPY_BUF) -> int:
+    total = 0
+    while True:
+        data = src.read(buf_size)
+        if not data:
+            break
+        dst.write(data)
+        total += len(data)
+    return total
+
+
+def read_exactly(stream: BinaryIO, n: int) -> bytes:
+    """Read exactly n bytes or raise EOFError (reference:
+    BaseDetransformChunkEnumeration.fillChunkIfNeeded errors on short streams,
+    core/.../transform/BaseDetransformChunkEnumeration.java:78-113)."""
+    out = bytearray()
+    while len(out) < n:
+        data = stream.read(n - len(out))
+        if not data:
+            raise EOFError(f"Stream has fewer than expected bytes: wanted {n}, got {len(out)}")
+        out += data
+    return bytes(out)
+
+
+class ClosableStreamHolder:
+    """Collects opened streams and best-effort closes them all.
+
+    Reference: core/.../ClosableInputStreamHolder.java:28-48 (prevents fd
+    leaks during multi-stream index upload).
+    """
+
+    def __init__(self) -> None:
+        self._streams: list[BinaryIO] = []
+
+    def add(self, stream: BinaryIO) -> BinaryIO:
+        self._streams.append(stream)
+        return stream
+
+    def __enter__(self) -> "ClosableStreamHolder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for s in self._streams:
+            try:
+                s.close()
+            except Exception:
+                pass
