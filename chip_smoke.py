@@ -10,9 +10,13 @@ Phases, in order, each printing its seconds:
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              bit for bit, at the shapes the main path gives it: the AES-256
              keystream (16 rows x 262 145 blocks), the GHASH tree (16 rows of
-             4 MiB with a real context's operands) and GHASH level 1
-             (256 x 1 KiB). Kernel and plain times are medians of CUDA-event
-             timed runs; the bound is the least time the card could take;
+             4 MiB with a real context's operands, the copy window, and one
+             row of it, the fetch's chunk: `ms_one_row`, `plain_ms_one_row`,
+             `bound_ms_one_row`) and GHASH level 1 (256 x 1 KiB). Kernel and
+             plain times are medians of CUDA-event timed runs; the bound is
+             the least time the card could take (for GHASH the least of the
+             b1 tensor-core, int8 tensor-core and logic-op times of the same
+             bit-products, against the bytes);
 3. main    — the port's RemoteStorageManager over a filesystem store:
              copy one encrypted segment (1 GiB by default, 4 MiB chunks,
              Kafka-sized indexes), read it back whole, 64 ranged 1 MiB reads
@@ -45,12 +49,18 @@ import torch
 
 MIB = 1 << 20
 CHUNK = 4 * MIB
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and 32-bit
-#: integer logic ops/s taken as one op per CUDA-core lane per clock — the
-#: 67 TFLOP/s float32 figure counts an FMA as two, i.e. 132 SMs x 128 lanes
-#: x 1.98 GHz = 33.5e12 lane-ops/s.
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; 32-bit integer
+#: logic ops/s taken as one op per CUDA-core lane per clock — the 67 TFLOP/s
+#: float32 figure counts an FMA as two, i.e. 132 SMs x 128 lanes x 1.98 GHz
+#: = 33.5e12 lane-ops/s; int8 tensor-core ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+INT8_TC_OPS_PER_S = 1.979e15
+#: b1 tensor-core AND+popc bit-products/s. NVIDIA publishes no H100 figure:
+#: this is `mma.sync m16n8k256 .b1 .and.popc` as measured on an H100 80GB
+#: HBM3 at 700 W by tools/torch_mma_rate_probe.py (8164.0 T ops/s, two ops
+#: per bit-product).
+B1_TC_BIT_PRODUCTS_PER_S = 4.082e15
 
 
 class SmokeFailure(Exception):
@@ -70,24 +80,51 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0] if res.stdout.strip() else "nvidia-smi: no output"
 
 
-def time_cuda(fn, runs: int, warmup: int = 1) -> float:
-    """Median milliseconds of `fn` over `runs` CUDA-event timed calls."""
+def time_cuda(fn, runs: int, warmup: int = 1, reps: int = 5) -> float:
+    """Device milliseconds per call of `fn`: the median over `reps` of the
+    CUDA-event time of `runs` back-to-back calls, divided by `runs`. A sleep
+    kernel queued first keeps the device busy while the host enqueues the
+    calls, so the host's launch overhead does not count as device time
+    (where the host takes longer than the sleep, it does)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(runs):
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)  # ~25 ms of device time
         start.record()
-        fn()
+        for _ in range(runs):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
 
 
 def max_abs_err(a, b) -> float:
     return float((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
+
+
+def bound(nbytes: float, ops_ms: float) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes moved once at the HBM rate against
+    the operations' time."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def ghash_ops_ms(rows: int, row_bytes: int) -> dict:
+    """The GHASH work counted once, whatever computes it: P = rows x bytes x
+    8 x 128 bit-products. As b1 tensor-core products they run at the b1
+    rate; as int8 tensor-core products over 0/1 planes they take 2P ops; as
+    AND+XOR on 32-bit words, 2 ops per 32 products. `ops_ms` is the least."""
+    p = rows * row_bytes * 8 * 128
+    times = {
+        "ops_ms_b1_tc": p / B1_TC_BIT_PRODUCTS_PER_S * 1e3,
+        "ops_ms_int8_tc": 2 * p / INT8_TC_OPS_PER_S * 1e3,
+        "ops_ms_logic": p / 16 / INT32_OPS_PER_S * 1e3,
+    }
+    return {"bit_products": p, **times, "ops_ms": min(times.values())}
 
 
 def kernel_phase(seed: int, device) -> dict:
@@ -119,31 +156,43 @@ def kernel_phase(seed: int, device) -> dict:
         replaces="tieredstorage_tpu/ops/aes_pallas.py:111",
         max_abs_err=err,
         ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks), 10),
-        plain_ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks), 3),
+        plain_ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks), 1, reps=3),
         shape=f"B={rows}, n_blocks={n_blocks}", ops=ops, bytes=nbytes, sbox_gates=gates,
     )
+    out["aes_ctr_keystream"]["bound_ms"], out["aes_ctr_keystream"]["bound_by"] = bound(
+        nbytes, ops / INT32_OPS_PER_S * 1e3)
 
-    # GHASH tree: 16 rows of 4 MiB against a real 4 MiB context's operands.
+    # GHASH tree: 16 rows of 4 MiB (the copy window) against a real 4 MiB
+    # context's operands, then its first row alone (the fetch's chunk).
     ctx = gcm.make_context(key, aad, CHUNK)
     w1 = torch.from_numpy(np.array(ctx.agg_mats[0])).to(device)
     step = torch.from_numpy(np.array(ctx.step_mat)).to(device)
     ops_t = ghash_cuda.GhashOperands.build(w1, step)
     data = torch.from_numpy(rng.integers(0, 256, (rows, CHUNK), dtype=np.uint8)).to(device)
-    got = ghash_cuda.ghash_tree(data, ops_t)
-    want = ghash_cuda.ghash_tree_plain(data, w1, step)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(torch.equal(got, want), "GHASH tree kernel disagrees with its plain version")
     k = ops_t.k_bytes
+    tree = {}
+    for label, d in (("", data), ("_one_row", data[:1])):
+        got = ghash_cuda.ghash_tree(d, ops_t)
+        want = ghash_cuda.ghash_tree_plain(d, w1, step)
+        torch.cuda.synchronize()
+        tree["max_abs_err" + label] = max_abs_err(got, want)
+        check(torch.equal(got, want), f"GHASH tree kernel disagrees with its plain version "
+                                      f"at {d.shape[0]} rows")
+        tree["ms" + label] = time_cuda(lambda d=d: ghash_cuda.ghash_tree(d, ops_t), 20)
+        tree["plain_ms" + label] = time_cuda(
+            lambda d=d: ghash_cuda.ghash_tree_plain(d, w1, step), 1, reps=3)
+        n = d.shape[0]
+        work = ghash_ops_ms(n, CHUNK)
+        nbytes = n * CHUNK + ops_t.w1_words.numel() * 4 + 2 * 128 * 16 + n * 128
+        tree["bound_ms" + label], tree["bound_by" + label] = bound(nbytes, work["ops_ms"])
+        tree.update({key_ + label: v for key_, v in work.items()})
+        tree["bytes" + label] = nbytes
     out["ghash_tree"] = dict(
         name="ghash_tree", route="cuda", source="tieredstorage_tpu_torch/csrc/ghash.cu",
         replaces="tieredstorage_tpu/ops/ghash_pallas.py:278",
-        max_abs_err=err,
-        ms=time_cuda(lambda: ghash_cuda.ghash_tree(data, ops_t), 5),
-        plain_ms=time_cuda(lambda: ghash_cuda.ghash_tree_plain(data, w1, step), 2),
-        shape=f"uint8[{rows}, {CHUNK}], K={k}, G={CHUNK // k}",
-        ops=rows * CHUNK * 8 * 128 // 32 * 2,
-        bytes=rows * CHUNK + ops_t.w1_words.numel() * 4 + 128 * 16 + rows * 128,
+        shape=f"uint8[{rows}, {CHUNK}], K={k}, G={CHUNK // k}, "
+              f"slices of {_cuda.tree_slice()} groups",
+        **tree,
     )
     del data
 
@@ -157,21 +206,18 @@ def kernel_phase(seed: int, device) -> dict:
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     check(torch.equal(got, want), "GHASH level-1 kernel disagrees with its plain version")
+    work = ghash_ops_ms(256, 1024)
+    nbytes = 256 * 1024 + ops_s.w1_words.numel() * 4 + 256 * 128
     out["ghash_level1"] = dict(
         name="ghash_level1", route="cuda", source="tieredstorage_tpu_torch/csrc/ghash.cu",
         replaces="tieredstorage_tpu/ops/ghash_pallas.py:134",
         max_abs_err=err,
         ms=time_cuda(lambda: ghash_cuda.ghash_level1(data, ops_s), 20),
-        plain_ms=time_cuda(lambda: ghash_cuda.ghash_level1_plain(data, w1s), 5),
-        shape="uint8[256, 1024]",
-        ops=256 * 1024 * 8 * 128 // 32 * 2,
-        bytes=256 * 1024 + ops_s.w1_words.numel() * 4 + 256 * 128,
+        plain_ms=time_cuda(lambda: ghash_cuda.ghash_level1_plain(data, w1s), 5, reps=3),
+        shape="uint8[256, 1024]", bytes=nbytes, **work,
     )
+    out["ghash_level1"]["bound_ms"], out["ghash_level1"]["bound_by"] = bound(nbytes, work["ops_ms"])
     for rec in out.values():
-        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = rec["ops"] / INT32_OPS_PER_S * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         # No single PyTorch call computes AES-CTR or GHASH.
         rec["library_ms"] = None
     return out
@@ -340,7 +386,7 @@ def main(argv=None) -> int:
     record["build_s"] = time.perf_counter() - t
     print(f"phase build: {record['build_s']:.1f} s (nvcc {_cuda.BUILD_LOG.get('seconds', 0.0):.1f} s)")
     for line in str(_cuda.BUILD_LOG.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line or "error" in line or "warning" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "error", "warning")):
             print("  ptxas:", line.strip())
     card = card_line()
     print(f"card: {card}")
@@ -351,8 +397,11 @@ def main(argv=None) -> int:
     record["kernels_s"] = time.perf_counter() - t
     print(f"phase kernels: {record['kernels_s']:.1f} s")
     for rec in kernels.values():
-        print(f"  {rec['name']}: {rec['ms']:.3f} ms (plain {rec['plain_ms']:.3f} ms, "
-              f"bound {rec['bound_ms']:.3f} ms by {rec['bound_by']}) at {rec['shape']}")
+        print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}) at {rec['shape']}")
+    tree = kernels["ghash_tree"]
+    print(f"  ghash_tree one row: {tree['ms_one_row']:.4f} ms (plain "
+          f"{tree['plain_ms_one_row']:.3f} ms, bound {tree['bound_ms_one_row']:.4f} ms)")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -377,6 +426,8 @@ def main(argv=None) -> int:
         entry["launches"] = launches[name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if name == "ghash_tree":
+            entry.update({k: rec[k] for k in ("ms_one_row", "plain_ms_one_row", "bound_ms_one_row")})
         line["kernels"].append(entry)
     record["kernel_line"] = line
     record["all_kernels"] = kernels

@@ -54,6 +54,34 @@ def test_ghash_kernels_match_plain(device, k, groups, rows):
         assert torch.equal(ghash_cuda.ghash_tree(data, ops), ghash_cuda.ghash_tree_plain(data, w1, step))
 
 
+@pytest.fixture(scope="module")
+def chunk_context():
+    rng = np.random.default_rng(5)
+    return gcm.make_context(rng.bytes(32), rng.bytes(32), 4 << 20)
+
+
+@pytest.mark.parametrize(
+    "rows,groups",
+    [(1, 2048), (16, 2048), (3, 37)],
+    ids=["fetch-4MiB", "window-16x4MiB", "ragged-slices"],
+)
+def test_ghash_tree_kernel_on_real_context(device, chunk_context, rows, groups):
+    """The tree on a 4 MiB context's operands (K = 2048) at the fetch's and
+    the copy window's shapes, and at a group count the 16-group slices do
+    not tile: one counted launch, the plain version's bits."""
+    w1, step = _on(device, chunk_context.agg_mats[0]), _on(device, chunk_context.step_mat)
+    ops = ghash_cuda.GhashOperands.build(w1, step)
+    assert ops.k_bytes == 2048 and _cuda.tree_slice() == 16
+    want_slice = ghash_cuda.pack_step(ghash_cuda.step_power(step.cpu(), 16))
+    assert torch.equal(ops.slice_step_words.cpu(), want_slice)
+    data = _on(device, np.random.default_rng(rows + groups).integers(
+        0, 256, (rows, groups * ops.k_bytes), dtype=np.uint8))
+    before = _cuda.launch_counts()["ghash_tree"]
+    got = ghash_cuda.ghash_tree(data, ops)
+    assert _cuda.launch_counts()["ghash_tree"] == before + 1
+    assert torch.equal(got, ghash_cuda.ghash_tree_plain(data, w1, step))
+
+
 def test_packed_window_on_card_matches_cpu(device):
     rng = np.random.default_rng(3)
     ctx = gcm.make_context(rng.bytes(32), rng.bytes(32), 4096 * 3 + 5)

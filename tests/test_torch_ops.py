@@ -230,38 +230,98 @@ def test_ghash_level1_matches_pallas_interpret():
     assert np.array_equal(got, want.astype(np.uint8))
 
 
+#: Groups per block of the tree kernel: csrc/ghash.cu kSlice, the m16 of its
+#: b1 mma (the card tests read it from the built kernel).
+SLICE = 16
+
+
+def _parity(x: np.ndarray) -> np.ndarray:
+    """Parity of each uint32 (popc & 1)."""
+    x = x.astype(np.uint32)
+    for shift in (16, 8, 4, 2, 1):
+        x = x ^ (x >> np.uint32(shift))
+    return x & np.uint32(1)
+
+
+def _pack_bits(bits: np.ndarray) -> np.ndarray:
+    """uint32 bits [..., 128] -> words [..., 4] (bit l of word w = bit 32w + l),
+    as the kernel's ballots pack them."""
+    lanes = bits.reshape(*bits.shape[:-1], 4, 32).astype(np.uint32)
+    return np.bitwise_or.reduce(lanes << np.arange(32, dtype=np.uint32), axis=-1)
+
+
+def _unpack_words(words: np.ndarray) -> np.ndarray:
+    bits = (words[..., :, None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    return bits.reshape(*words.shape[:-1], 128).astype(np.uint8)
+
+
+def _emulate_slice_nodes(group_words: np.ndarray, w1_words: np.ndarray) -> np.ndarray:
+    """csrc/ghash.cu `slice_nodes` over packed operands: group_words
+    uint32[N, K/16, 4] -> node words uint32[N, 4]. The b1 tensor-core
+    product sums popc(data & w1) per (group, output); warp k of each output
+    half takes k-step k (quads 2k, 2k + 1) of every 8-quad w1 tile, and the
+    low bits of the four warps' sums meet by XOR. (The low bit of a popcount
+    sum is the parity of the XOR of the words counted.)"""
+    n, n_quads, _ = group_words.shape
+    out = np.zeros((n, 128), np.uint32)
+    step_of_quad = (np.arange(n_quads) % 8) // 2
+    for lo in range(0, n, 64):  # bound the [groups, quads, 128, 4] product
+        words = group_words[lo : lo + 64]
+        per_quad = np.bitwise_xor.reduce(words[:, :, None, :] & w1_words[None], axis=3)
+        for k in range(4):
+            if (step_of_quad == k).any():
+                warp_sum = np.bitwise_xor.reduce(per_quad[:, step_of_quad == k], axis=1)
+                out[lo : lo + 64] ^= _parity(warp_sum)
+    return _pack_bits(out)
+
+
+def _emulate_fold(t_words: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """T · M for packed T words [..., 4] and packed columns cols [128, 4]
+    (`fold`: lane l, column l + 32r, ballot per r)."""
+    x = np.bitwise_xor.reduce(t_words[..., None, :] & cols, axis=-1)  # [..., 128]
+    return _pack_bits(_parity(x))
+
+
+def _fold_in_order(items: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """items uint32[..., n, 4] -> T = (T · M) ^ item over the n items in
+    order, from T = 0 (the kernel's serial fold)."""
+    t = np.zeros(items.shape[:-2] + (4,), np.uint32)
+    for i in range(items.shape[-2]):
+        t = _emulate_fold(t, cols) ^ items[..., i, :]
+    return t
+
+
+def _front_pad(items: np.ndarray, width: int) -> np.ndarray:
+    """Zero items in front of axis 1 up to a multiple of `width`, split into
+    [rows, n / width, width, ...] (the kernel counts its tiles from the end)."""
+    n = items.shape[1]
+    lead = -(-n // width) * width - n
+    padded = np.concatenate([np.zeros((items.shape[0], lead) + items.shape[2:], items.dtype), items], 1)
+    return padded.reshape(items.shape[0], -1, width, *items.shape[2:])
+
+
 def _emulate_ghash_kernels(data: np.ndarray, w1: np.ndarray, step: np.ndarray):
-    """csrc/ghash.cu in numpy over the packed operands the wrapper builds:
-    16-byte words, four slices XOR-combined, popcount parity, ballot-word
-    fold. Returns (tree bits, level-1 bits of every group)."""
+    """csrc/ghash.cu in numpy over the packed operands the wrapper builds on
+    the card (pack_w1, pack_step, and M^SLICE from step_power): the row's
+    groups cut into slices of SLICE counted from the end (the first slice's
+    missing groups are zeros), each slice's nodes folded in order with the
+    step matrix M, then the row's slice partials folded in order with
+    M^SLICE. Returns (tree bits uint8[B, 128], level-1 bits
+    uint8[B, G, 128])."""
     w1_words = ghash_cuda.pack_w1(_t(w1)).numpy().view(np.uint32)  # [K/16, 128, 4]
     step_words = ghash_cuda.pack_step(_t(step)).numpy().view(np.uint32)  # [128, 4]
+    slice_step = ghash_cuda.step_power(_t(step), SLICE)
+    slice_step_words = ghash_cuda.pack_step(slice_step).numpy().view(np.uint32)
+    k = w1.shape[1]
     rows, total = data.shape
-    groups = total // K
-    words = data.reshape(rows, groups, K // 16, 4, 4).view("<u4")[..., 0]  # [r, g, q, j]
-
-    def parity(v):
-        return np.array([bin(int(x)).count("1") & 1 for x in v.ravel()]).reshape(v.shape)
-
-    nodes = np.zeros((rows, groups, 128), np.uint32)
-    for r in range(rows):
-        for g in range(groups):
-            partial = np.zeros((4, 128), np.uint32)
-            for q in range(K // 16):
-                s = q % 4
-                partial[s] ^= np.bitwise_xor.reduce(words[r, g, q][None, :] & w1_words[q], axis=1)
-            nodes[r, g] = parity(np.bitwise_xor.reduce(partial, axis=0))
-    tree = np.zeros((rows, 128), np.uint32)
-    for r in range(rows):
-        bit = nodes[r, 0]
-        for g in range(1, groups):
-            t_words = np.array([
-                sum(int(bit[32 * w + lane]) << lane for lane in range(32)) for w in range(4)
-            ], np.uint32)
-            x = np.bitwise_xor.reduce(t_words[None, :] & step_words, axis=1)
-            bit = parity(x) ^ nodes[r, g]
-        tree[r] = bit
-    return tree.astype(np.uint8), nodes.astype(np.uint8)
+    groups = total // k
+    slices = _front_pad(data.reshape(rows, groups, k), SLICE)  # [B, n_slices, SLICE, K]
+    words = np.ascontiguousarray(slices).view("<u4").reshape(-1, k // 16, 4)
+    nodes = _emulate_slice_nodes(words, w1_words).reshape(rows, -1, SLICE, 4)
+    partials = _fold_in_order(nodes, step_words)
+    t = _fold_in_order(partials, slice_step_words)
+    level1 = _unpack_words(nodes.reshape(rows, -1, 4)[:, -groups:])
+    return _unpack_words(t), level1
 
 
 def test_ghash_kernel_logic_emulated():
@@ -272,6 +332,81 @@ def test_ghash_kernel_logic_emulated():
         nodes.reshape(B * G, 128),
         ghash_cuda.ghash_level1_plain(_t(data.reshape(B * G, K)), _t(w1)).numpy(),
     )
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize(
+    "groups", [2, SLICE - 1, SLICE, SLICE + 1, 3 * SLICE + 5, 32 * SLICE + 3]
+)
+def test_ghash_tree_schedule_matches_plain_and_pallas(groups, rows):
+    """The kernel's schedule (emulated) against the plain version and the
+    Pallas kernel in interpret mode, bit for bit, around the slice width and
+    past the 32 partials one warp of the combine holds at a time."""
+    k = 128
+    rng = _rng(100 * groups + rows)
+    data = rng.integers(0, 256, (rows, groups * k), dtype=np.uint8)
+    w1 = rng.integers(0, 2, (8, k, 128), dtype=np.int8)
+    step = rng.integers(0, 2, (128, 128), dtype=np.int8)
+    tree, _ = _emulate_ghash_kernels(data, w1, step)
+    plain = ghash_cuda.ghash_tree_plain(_t(data), _t(w1), _t(step)).numpy()
+    pallas = np.asarray(jax_ghash.ghash_tree_pallas(
+        jnp.asarray(data), jnp.asarray(w1), jnp.asarray(step), interpret=True
+    )).astype(np.uint8)
+    assert np.array_equal(tree, plain)
+    assert np.array_equal(tree, pallas)
+
+
+@pytest.mark.parametrize("k", [48, 128, 2048])
+def test_ghash_level1_node_routine_emulated(k):
+    """The shared node routine at widths that leave the last w1 tile short
+    (48 B: 3 of 8 quads) and at whole tiles, over a row count that leaves
+    the last block short."""
+    rng = _rng(k)
+    rows = SLICE + 3
+    data = rng.integers(0, 256, (rows, k), dtype=np.uint8)
+    w1 = rng.integers(0, 2, (8, k, 128), dtype=np.int8)
+    w1_words = ghash_cuda.pack_w1(_t(w1)).numpy().view(np.uint32)
+    got = _unpack_words(_emulate_slice_nodes(data.view("<u4").reshape(rows, k // 16, 4), w1_words))
+    assert np.array_equal(got, ghash_cuda.ghash_level1_plain(_t(data), _t(w1)).numpy())
+
+
+_CHUNK_KEY = _rng(31).bytes(64)  # AES-256 key, then the AAD
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_chunk_context():
+    return jax_gcm.make_context(_CHUNK_KEY[:32], _CHUNK_KEY[32:], 4 << 20)
+
+
+def test_slice_fold_matrix_is_the_power_of_h():
+    """M^SLICE, derived from the context's step matrix as GhashOperands.build
+    derives it on the card, is the JAX package's step matrix of
+    H^(k1·SLICE), on a real key."""
+    ctx = _jax_chunk_context()
+    _, h = jax_gcm._derive_h(_CHUNK_KEY[:32])
+    k1 = np.asarray(ctx.agg_mats[0]).shape[1] // 16
+    step = np.asarray(ctx.step_mat)
+    assert np.array_equal(step, jax_gf128.ghash_step_matrix(h, k1))
+    want = jax_gf128.ghash_step_matrix(h, k1 * SLICE)
+    assert np.array_equal(ghash_cuda.step_power(_t(step), SLICE).numpy(), want)
+
+
+def test_step_power_refuses_other_exponents():
+    with pytest.raises(ValueError, match="power of two"):
+        ghash_cuda.step_power(torch.zeros((128, 128), dtype=torch.int8), 12)
+
+
+def test_ghash_tree_schedule_on_a_jax_4mib_context():
+    """A JAX 4 MiB GcmContext carried across by context_from_numpy drives
+    the kernel's schedule (emulated) to the plain version's bits: two rows
+    of 2048 groups of 2048 bytes, 128 slices each."""
+    ctx = gcm.context_from_numpy(_jax_chunk_context())
+    w1, step = np.asarray(ctx.agg_mats[0]), np.asarray(ctx.step_mat)
+    k = w1.shape[1]
+    assert k == 2048 and ctx.chunk_bytes == 4 << 20
+    data = _rng(32).integers(0, 256, (2, ctx.chunk_bytes), dtype=np.uint8)
+    tree, _ = _emulate_ghash_kernels(data, w1, step)
+    assert np.array_equal(tree, ghash_cuda.ghash_tree_plain(_t(data), _t(w1), _t(step)).numpy())
 
 
 def test_ghash_tree_on_real_operands_matches_serial_ghash():

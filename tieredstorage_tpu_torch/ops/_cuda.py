@@ -40,7 +40,7 @@ _I = ctypes.c_int
 #: C entry points: name -> (argument types after the stream is appended).
 _SIGNATURES = {
     "aes_ctr_keystream": ("tst_aes_ctr_keystream", (_P, _P, ctypes.c_uint, _I, _I, _P)),
-    "ghash_tree": ("tst_ghash_tree", (_P, _I, _I, _I, _P, _P, _P)),
+    "ghash_tree": ("tst_ghash_tree", (_P, _I, _I, _I, _P, _P, _P, _P, _P)),
     "ghash_level1": ("tst_ghash_level1", (_P, _I, _I, _P, _P)),
 }
 
@@ -133,6 +133,7 @@ def library() -> ctypes.CDLL:
             lib.tst_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tst_cuda_error_string.restype = ctypes.c_char_p
             lib.tst_aes_sbox_gates.restype = ctypes.c_int
+            lib.tst_ghash_tree_slice.restype = ctypes.c_int
             _LIB.append(lib)
         return _LIB[0]
 
@@ -140,6 +141,11 @@ def library() -> ctypes.CDLL:
 def sbox_gates() -> int:
     """Gates of the S-box circuit compiled into the keystream kernel."""
     return library().tst_aes_sbox_gates()
+
+
+def tree_slice() -> int:
+    """Groups per block of the GHASH tree kernel (csrc/ghash.cu kSlice)."""
+    return library().tst_ghash_tree_slice()
 
 
 def launch(name: str, *args) -> None:

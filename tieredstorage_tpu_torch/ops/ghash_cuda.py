@@ -8,12 +8,17 @@ contract a row's bytes against the level-1 operand w1 int8[8, K, 128]
 - `ghash_level1(data, ops)`: data uint8[R, K] -> node bits uint8[R, 128]
   (csrc/ghash.cu `ghash_level1_kernel`, replacing `_ghash_l1_kernel`).
 - `ghash_tree(data, ops)`: data uint8[B, G*K] -> T(C) bits uint8[B, 128], the
-  whole reduction: the groups' nodes folded in order as
-  T = (T · M_{H^(K/16)}) ^ node_g (csrc/ghash.cu `ghash_tree_kernel`,
-  replacing `_ghash_tree_kernel`).
+  whole reduction T = Σ_g node_g · M^(G-1-g), M = M_{H^(K/16)}: slices of S
+  groups (the kernel's `_cuda.tree_slice()`), counted from the end of the
+  row, each folded with M; then the row's slice partials folded in order
+  with M^S (csrc/ghash.cu `ghash_tree_slices_kernel` +
+  `ghash_tree_combine_kernel`, one launch call, replacing
+  `_ghash_tree_kernel`). Zero groups in front of a row are the fold's
+  identity.
 
 `GhashOperands` carries w1 and the fold matrix on one device and, on a CUDA
-device, their bit-column packings for the kernels (built once per context).
+device, their bit-column packings for the kernels and the packed power M^S
+(built once per context, on that device).
 For a CPU tensor each wrapper takes its plain version — float32 matmuls
 whose sums (at most 8K ≤ 16384, and 128 for the fold) are exact.
 """
@@ -70,15 +75,29 @@ def pack_step(step: torch.Tensor) -> torch.Tensor:
     return _to_int32((bits << shift).sum(dim=2)).contiguous()
 
 
+def step_power(step: torch.Tensor, exponent: int) -> torch.Tensor:
+    """int8[128, 128] fold matrix M -> M^exponent (mod 2) for a power-of-two
+    exponent, by repeated squaring in float32 on step's device (sums ≤ 128
+    are exact; TF32 is off)."""
+    if exponent < 1 or exponent & (exponent - 1):
+        raise ValueError(f"exponent must be a power of two, got {exponent}")
+    m = step.to(torch.float32)
+    for _ in range(exponent.bit_length() - 1):
+        m = torch.remainder(m @ m, 2)
+    return m.to(torch.int8)
+
+
 @dataclasses.dataclass(frozen=True)
 class GhashOperands:
-    """w1 int8[8, K, 128] and the fold matrix int8[128, 128] (or None) on one
-    device, plus their packed forms when that device is a GPU."""
+    """w1 int8[8, K, 128] and the fold matrix M int8[128, 128] (or None) on
+    one device, plus, when that device is a GPU, their packed forms and the
+    packed power M^S for the tree kernel's S groups per slice."""
 
     w1: torch.Tensor
     step: Optional[torch.Tensor] = None
     w1_words: Optional[torch.Tensor] = None
     step_words: Optional[torch.Tensor] = None
+    slice_step_words: Optional[torch.Tensor] = None
 
     @staticmethod
     def build(w1: torch.Tensor, step: Optional[torch.Tensor]) -> "GhashOperands":
@@ -86,8 +105,12 @@ class GhashOperands:
             raise ValueError(f"w1 must be int8[8, K, 128] with K a multiple of 16, got {tuple(w1.shape)}")
         if w1.device.type != "cuda":
             return GhashOperands(w1, step)
+        if step is None:
+            return GhashOperands(w1, None, pack_w1(w1))
+        from tieredstorage_tpu_torch.ops import _cuda
+
         return GhashOperands(
-            w1, step, pack_w1(w1), None if step is None else pack_step(step)
+            w1, step, pack_w1(w1), pack_step(step), pack_step(step_power(step, _cuda.tree_slice()))
         )
 
     @property
@@ -173,9 +196,15 @@ def ghash_tree(data: torch.Tensor, ops: GhashOperands) -> torch.Tensor:
         return ghash_tree_plain(data, ops.w1, ops.step)
     from tieredstorage_tpu_torch.ops import _cuda
 
-    out = torch.empty((data.shape[0], 128), dtype=torch.uint8, device=data.device)
+    rows, groups = data.shape[0], data.shape[1] // k
+    if rows > 65535:
+        raise ValueError(f"the tree kernel takes at most 65535 rows, got {rows}")
+    n_slices = -(-groups // _cuda.tree_slice())
+    partials = torch.empty((rows, n_slices, 4), dtype=torch.int32, device=data.device)
+    out = torch.empty((rows, 128), dtype=torch.uint8, device=data.device)
     _cuda.launch(
-        "ghash_tree", data.data_ptr(), data.shape[0], data.shape[1] // k, k,
-        ops.w1_words.data_ptr(), ops.step_words.data_ptr(), out.data_ptr(),
+        "ghash_tree", data.data_ptr(), rows, groups, k, ops.w1_words.data_ptr(),
+        ops.step_words.data_ptr(), ops.slice_step_words.data_ptr(), partials.data_ptr(),
+        out.data_ptr(),
     )
     return out

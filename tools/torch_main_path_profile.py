@@ -7,8 +7,9 @@ Copies one encrypted segment through the port's RemoteStorageManager
 (filesystem store, 4 MiB chunks, the segment and indexes of chip_smoke.py),
 then reads it back whole and with 16 ranged 1 MiB reads. Each phase runs
 twice: under `torch.profiler` with CPU and CUDA activities, which gives the
-wall time, the device time by kernel or copy (self device time from
-`key_averages()`), their sum and the device's busy share of the wall time
+wall time, the device time by kernel or copy (self device time of the
+device activities in `key_averages()`, leaving out the host ops that
+launched them), their sum and the device's busy share of the wall time
 (one stream, so the sum does not double count); then under cProfile, which
 gives the host time by function of the port. Needs a CUDA device; imports
 nothing of JAX. The record is written to --out as JSON.
@@ -28,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -77,8 +79,10 @@ def _profiled(fn) -> dict:
         wall = time.perf_counter() - t
     by_name = {}
     for ev in prof.key_averages():
+        # Only the device's own activities (kernels, copies, memsets): an
+        # aten op's self device time is its kernels' again.
         us = _device_us(ev)
-        if us > 0:
+        if us > 0 and ev.device_type != DeviceType.CPU:
             by_name[ev.key] = {"device_ms": us / 1e3, "count": ev.count}
     device_ms = sum(v["device_ms"] for v in by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:12])
