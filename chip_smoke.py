@@ -9,14 +9,16 @@ Phases, in order, each printing its seconds:
              parallel) and print the card's name and power limit;
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              bit for bit, at the shapes the main path gives it: the AES-256
-             keystream (16 rows x 262 145 blocks), the GHASH tree (16 rows of
-             4 MiB with a real context's operands, the copy window, and one
-             row of it, the fetch's chunk: `ms_one_row`, `plain_ms_one_row`,
-             `bound_ms_one_row`) and GHASH level 1 (256 x 1 KiB). Kernel and
+             keystream (16 rows x 262 145 blocks, the copy window, and one
+             row of it, every fetched chunk), the GHASH tree (16 rows of
+             4 MiB with a real context's operands, and one row of it) and
+             GHASH level 1 (256 x 1 KiB). The one-row runs are recorded as
+             `ms_one_row`, `plain_ms_one_row`, `bound_ms_one_row`. Kernel and
              plain times are medians of CUDA-event timed runs; the bound is
-             the least time the card could take (for GHASH the least of the
-             b1 tensor-core, int8 tensor-core and logic-op times of the same
-             bit-products, against the bytes);
+             the least time the card could take: the bytes against the
+             operations (for AES its gates at the card's logic rate, for
+             GHASH the least of the b1 tensor-core, int8 tensor-core and
+             logic times of the same bit-products);
 3. main    — the port's RemoteStorageManager over a filesystem store:
              copy one encrypted segment (1 GiB by default, 4 MiB chunks,
              Kafka-sized indexes), read it back whole, 64 ranged 1 MiB reads
@@ -49,13 +51,37 @@ import torch
 
 MIB = 1 << 20
 CHUNK = 4 * MIB
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; 32-bit integer
-#: logic ops/s taken as one op per CUDA-core lane per clock — the 67 TFLOP/s
-#: float32 figure counts an FMA as two, i.e. 132 SMs x 128 lanes x 1.98 GHz
-#: = 33.5e12 lane-ops/s; int8 tensor-core ops/s.
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; int8 tensor-core
+#: ops/s.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 33.5e12
 INT8_TC_OPS_PER_S = 1.979e15
+#: LOP3 instructions/s on the CUDA cores: an SM retires 64 results of 32-bit
+#: bitwise AND/OR/XOR per clock (CUDA C++ Programming Guide, arithmetic
+#: instruction throughput, compute capability 9.0), 132 SMs at the 1.98 GHz
+#: boost clock. tools/torch_mma_rate_probe.py measures less on the card, so
+#: this published rate stands.
+LOP3_PER_S = 64 * 132 * 1.98e9
+#: Two-input gates one LOP3 can stand for. It computes one function of three
+#: inputs, and every such function takes at most 4 two-input gates
+#: (exhaustive search: tools/torch_lop3_cover.py), so L LOP3s do no more
+#: than 4L gates' work.
+GATES_PER_LOP3 = 4
+#: Two-input gates/s on 32-bit words (32 bit-gates each).
+LOGIC_GATES_PER_S = GATES_PER_LOP3 * LOP3_PER_S
+#: Two-input gates per AES-256-CTR block, counted whatever computes them, at
+#: the smallest published circuits: the S-box at 113 gates (Boyar and
+#: Peralta's refinement of their 115-gate circuit of SEA 2010), MixColumns at
+#: 92 XORs a column (Maximov, IACR ePrint 2019/833), AddRoundKey at one XOR a
+#: state bit. Work that is the same for every block of an aligned group of 32
+#: counters is done once per group or per row, so it is not counted: the
+#: IV's 12 bytes and the counter's top 27 bits are fixed there. Only the
+#: counter's low byte then varies in round 1; round 1's S-box and MixColumns
+#: carry it into one column, so round 2 has 4 S-boxes that vary and its
+#: MixColumns spreads them over the whole state. Counted: 4 + 12 x 16
+#: S-boxes (rounds 2-14), 11 x 4 MixColumns columns (rounds 3-13), 13 x 128
+#: key XORs (rounds 2-14). Left out, so the count stays a lower bound: round
+#: 1 and round 2's MixColumns, where a column has one varying byte.
+AES_GATES_PER_BLOCK = (4 + 12 * 16) * 113 + 11 * 4 * 92 + 13 * 128
 #: b1 tensor-core AND+popc bit-products/s. NVIDIA publishes no H100 figure:
 #: this is `mma.sync m16n8k256 .b1 .and.popc` as measured on an H100 80GB
 #: HBM3 at 700 W by tools/torch_mma_rate_probe.py (8164.0 T ops/s, two ops
@@ -117,12 +143,13 @@ def ghash_ops_ms(rows: int, row_bytes: int) -> dict:
     """The GHASH work counted once, whatever computes it: P = rows x bytes x
     8 x 128 bit-products. As b1 tensor-core products they run at the b1
     rate; as int8 tensor-core products over 0/1 planes they take 2P ops; as
-    AND+XOR on 32-bit words, 2 ops per 32 products. `ops_ms` is the least."""
+    AND and XOR gates on 32-bit words, 2 gates per 32 products at the logic
+    gate rate. `ops_ms` is the least."""
     p = rows * row_bytes * 8 * 128
     times = {
         "ops_ms_b1_tc": p / B1_TC_BIT_PRODUCTS_PER_S * 1e3,
         "ops_ms_int8_tc": 2 * p / INT8_TC_OPS_PER_S * 1e3,
-        "ops_ms_logic": p / 16 / INT32_OPS_PER_S * 1e3,
+        "ops_ms_logic": p / 16 / LOGIC_GATES_PER_S * 1e3,
     }
     return {"bit_products": p, **times, "ops_ms": min(times.values())}
 
@@ -135,32 +162,36 @@ def kernel_phase(seed: int, device) -> dict:
     key, aad = rng.bytes(32), rng.bytes(32)
     out = {}
 
-    # AES-256 keystream at the 64 MiB window: 16 rows x (262 144 data + 1 tag-mask) blocks.
+    # AES-256 keystream at the 64 MiB window: 16 rows x (262 144 data + 1
+    # tag-mask) blocks, then its first row alone (a fetched chunk).
     rows, n_blocks = 16, CHUNK // 16 + 1
     rk = torch.from_numpy(key_expansion(key)).to(device)
     ivs = torch.from_numpy(rng.integers(0, 256, (rows, 12), dtype=np.uint8)).to(device)
-    got = aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks)
-    want = aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(torch.equal(got, want), "AES keystream kernel disagrees with its plain version")
-    del got, want
-    gates = _cuda.sbox_gates()
-    words = rows * ((n_blocks + 31) // 32)
-    ops_per_word = 14 * 16 * gates + 13 * 528 + 15 * 128
-    ops = words * ops_per_word
-    nbytes = rows * n_blocks * 16 + rows * 12 + 240
+    aes = {}
+    for label, iv in (("", ivs), ("_one_row", ivs[:1])):
+        got = aes_bitsliced.ctr_keystream_batch(rk, iv, 1, n_blocks)
+        want = aes_bitsliced.ctr_keystream_batch_plain(rk, iv, 1, n_blocks)
+        torch.cuda.synchronize()
+        aes["max_abs_err" + label] = max_abs_err(got, want)
+        check(torch.equal(got, want), f"AES keystream kernel disagrees with its plain version "
+                                      f"at {iv.shape[0]} rows")
+        del got, want
+        aes["ms" + label] = time_cuda(
+            lambda iv=iv: aes_bitsliced.ctr_keystream_batch(rk, iv, 1, n_blocks), 20)
+        aes["plain_ms" + label] = time_cuda(
+            lambda iv=iv: aes_bitsliced.ctr_keystream_batch_plain(rk, iv, 1, n_blocks), 1, reps=3)
+        n = iv.shape[0]
+        gates = n * n_blocks * AES_GATES_PER_BLOCK / 32  # on 32-bit words
+        nbytes = n * n_blocks * 16 + n * 12 + 240
+        aes["bound_ms" + label], aes["bound_by" + label] = bound(
+            nbytes, gates / LOGIC_GATES_PER_S * 1e3)
+        aes["gates" + label], aes["bytes" + label] = gates, nbytes
     out["aes_ctr_keystream"] = dict(
         name="aes_ctr_keystream", route="cuda",
         source="tieredstorage_tpu_torch/csrc/aes_ctr.cu",
         replaces="tieredstorage_tpu/ops/aes_pallas.py:111",
-        max_abs_err=err,
-        ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks), 10),
-        plain_ms=time_cuda(lambda: aes_bitsliced.ctr_keystream_batch_plain(rk, ivs, 1, n_blocks), 1, reps=3),
-        shape=f"B={rows}, n_blocks={n_blocks}", ops=ops, bytes=nbytes, sbox_gates=gates,
+        shape=f"B={rows}, n_blocks={n_blocks}", **aes,
     )
-    out["aes_ctr_keystream"]["bound_ms"], out["aes_ctr_keystream"]["bound_by"] = bound(
-        nbytes, ops / INT32_OPS_PER_S * 1e3)
 
     # GHASH tree: 16 rows of 4 MiB (the copy window) against a real 4 MiB
     # context's operands, then its first row alone (the fetch's chunk).
@@ -399,9 +430,10 @@ def main(argv=None) -> int:
     for rec in kernels.values():
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, "
               f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}) at {rec['shape']}")
-    tree = kernels["ghash_tree"]
-    print(f"  ghash_tree one row: {tree['ms_one_row']:.4f} ms (plain "
-          f"{tree['plain_ms_one_row']:.3f} ms, bound {tree['bound_ms_one_row']:.4f} ms)")
+        if "ms_one_row" in rec:
+            print(f"  {rec['name']} one row: {rec['ms_one_row']:.4f} ms (plain "
+                  f"{rec['plain_ms_one_row']:.3f} ms, bound {rec['bound_ms_one_row']:.4f} ms "
+                  f"by {rec['bound_by_one_row']})")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -426,7 +458,7 @@ def main(argv=None) -> int:
         entry["launches"] = launches[name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        if name == "ghash_tree":
+        if "ms_one_row" in rec:
             entry.update({k: rec[k] for k in ("ms_one_row", "plain_ms_one_row", "bound_ms_one_row")})
         line["kernels"].append(entry)
     record["kernel_line"] = line

@@ -30,7 +30,11 @@ def _on(device, a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-@pytest.mark.parametrize("batch,n_blocks,first", [(1, 1, 1), (3, 1000, 2**32 - 50), (2, 257, 7)])
+@pytest.mark.parametrize("batch,n_blocks,first", [
+    (1, 1, 1), (3, 1000, 2**32 - 50), (2, 257, 7),
+    (1, 262_145, 1), (16, 262_145, 1),  # a fetched 4 MiB chunk and the 64 MiB copy window
+    (2, 33, 2**32 - 40),  # part of one warp's 8 quads, the counter wrapping inside the words
+])
 def test_aes_keystream_kernel_matches_plain(device, batch, n_blocks, first):
     rng = np.random.default_rng(n_blocks)
     rk = _on(device, key_expansion(rng.bytes(32)))

@@ -117,75 +117,183 @@ def test_ctr_keystream_counter_wraps_mod_2_32():
             assert got[r, i].tobytes() == encrypt_block(rk, ivs[r].tobytes() + ctr)
 
 
-def _emulate_aes_ctr_kernel(rk: np.ndarray, iv: np.ndarray, first: int, n_blocks: int):
-    """csrc/aes_ctr.cu, thread by thread, in Python ints: the counter packing,
-    ShiftRows indexing, MixColumns formula and byte transpose as the kernel
-    writes them, with the generated S-box gates."""
-    gates, outputs = aes_circuit_gen.sbox_gates()
-    mask = 0xFFFFFFFF
-
-    def sbox(x):
-        env = {f"x{i}": x[i] for i in range(8)}
-        for out, op, a, b in gates:
-            env[out] = (~env[a] & mask) if op == "~" else (
-                env[a] ^ env[b] if op == "^" else env[a] & env[b])
-        return [env[n] for n in outputs]
-
-    def sr(p):
-        return 4 * (((p >> 2) + (p & 3)) & 3) + (p & 3)
-
-    rkm = [[mask if (rk[r, p] >> b) & 1 else 0 for p in range(16) for b in range(8)]
-           for r in range(15)]
-    out = np.zeros((n_blocks, 16), np.uint8)
-    for w in range((n_blocks + 31) // 32):
-        s = [0] * 128
-        for p in range(12):
-            for b in range(8):
-                s[p * 8 + b] = mask if (int(iv[p]) >> b) & 1 else 0
-        base = (first + 32 * w) & mask
-        for j in range(32):
-            c = (base + j) & mask
-            for q in range(4):
-                for b in range(8):
-                    s[(12 + q) * 8 + b] |= ((c >> (8 * (3 - q) + b)) & 1) << j
-        s = [a ^ k for a, k in zip(s, rkm[0])]
-        for rnd in range(1, 15):
-            for p in range(16):
-                s[p * 8 : p * 8 + 8] = sbox(s[p * 8 : p * 8 + 8])
-            s = [s[sr(p) * 8 + b] for p in range(16) for b in range(8)]
-            if rnd != 14:
-                for col in range(4):
-                    a = [s[(col * 4 + r) * 8 : (col * 4 + r) * 8 + 8] for r in range(4)]
-                    all4 = [a[0][b] ^ a[1][b] ^ a[2][b] ^ a[3][b] for b in range(8)]
-                    for r in range(4):
-                        x = [a[r][b] ^ a[(r + 1) & 3][b] for b in range(8)]
-                        xt = [x[7], x[0] ^ x[7], x[1], x[2] ^ x[7], x[3] ^ x[7], x[4], x[5], x[6]]
-                        for b in range(8):
-                            s[(col * 4 + r) * 8 + b] = xt[b] ^ a[r][b] ^ all4[b]
-            s = [a ^ k for a, k in zip(s, rkm[rnd])]
-        for j in range(min(32, n_blocks - 32 * w)):
-            for p in range(16):
-                out[32 * w + j, p] = sum(((s[p * 8 + b] >> j) & 1) << b for b in range(8))
+def _byte_perm(x: np.ndarray, y: np.ndarray, sel: int) -> np.ndarray:
+    """CUDA `__byte_perm(x, y, sel)` for selectors whose nibbles are below 8:
+    byte n of the result is byte (sel >> 4n) & 7 of the pair y:x."""
+    out = np.zeros(np.broadcast_shapes(np.shape(x), np.shape(y)), np.uint32)
+    for n in range(4):
+        s = (sel >> (4 * n)) & 7
+        src = x if s < 4 else y
+        out |= ((src >> np.uint32(8 * (s & 3))) & np.uint32(0xFF)) << np.uint32(8 * n)
     return out
 
 
+def _transpose32(a: np.ndarray) -> np.ndarray:
+    """csrc/aes_ctr.cu `transpose32` over the last axis (32 words): two
+    byte-permute stages, then three mask-and-shift swap stages."""
+    a = a.astype(np.uint32)
+    for s, lo_sel, hi_sel in ((16, 0x5410, 0x7632), (8, 0x6240, 0x7351)):
+        i = np.array([i for i in range(32) if not i & s])
+        lo, hi = a[..., i], a[..., i + s]
+        a[..., i], a[..., i + s] = _byte_perm(lo, hi, lo_sel), _byte_perm(lo, hi, hi_sel)
+    for s, mask in ((4, 0x0F0F0F0F), (2, 0x33333333), (1, 0x55555555)):
+        i = np.array([i for i in range(32) if not i & s])
+        t = ((a[..., i] >> np.uint32(s)) ^ a[..., i + s]) & np.uint32(mask)
+        a[..., i + s] ^= t
+        a[..., i] ^= t << np.uint32(s)
+    return a
+
+
+def _eval_sbox_gates(x: list, ones) -> list:
+    """The published S-box gate list over 8 planes (LSB first); `ones` is
+    the all-ones value of the planes' type (for XNOR)."""
+    gates, outputs = aes_circuit_gen.sbox_gates()
+    env = {f"x{i}": x[i] for i in range(8)}
+    for out, op, a, b in gates:
+        if op == "^":
+            env[out] = env[a] ^ env[b]
+        elif op == "&":
+            env[out] = env[a] & env[b]
+        else:
+            assert op == "~^", op
+            env[out] = env[a] ^ env[b] ^ ones
+    return [env[n] for n in outputs]
+
+
+def _eval_sbox_lop3(x: list, ones) -> list:
+    """The kernel's S-box, its LOP3 cover, over 8 planes (LSB first): each
+    LOP3 is the OR of the minterms its truth table selects (bit 4a + 2b + c)."""
+    luts, outputs = aes_circuit_gen.sbox_lop3()
+    env = {f"x{i}": x[i] for i in range(8)}
+    for out, table, names in luts:
+        a, b, c = (env[n] for n in names)
+        acc = a & ~a
+        for m in range(8):
+            if (table >> m) & 1:
+                acc = acc | ((a if m & 4 else a ^ ones) & (b if m & 2 else b ^ ones)
+                             & (c if m & 1 else c ^ ones))
+        env[out] = acc
+    return [env[n] for n in outputs]
+
+
+def _emulate_aes_ctr_kernel(rk: np.ndarray, iv: np.ndarray, first: int, n_blocks: int):
+    """csrc/aes_ctr.cu for one row, all warps and lanes at once in numpy:
+    lane (q, c) of a warp holds column c of blocks base + 8j + q (word bit
+    j) as 32 planes built by `transpose32` from the IV and counter words;
+    14 rounds of the generated S-box, ShiftRows as the quad shuffles,
+    MixColumns + AddRoundKey with the kernel's formula and round-key masks;
+    `transpose32` back and the kernel's masked stores."""
+    warps = -(-n_blocks // 256)
+    lane = np.arange(32)
+    q, c = lane >> 2, lane & 3
+    bits = (rk.reshape(15, 4, 4, 1).astype(np.uint32) >> np.arange(8, dtype=np.uint32)) & 1
+    key = (np.uint32(0) - bits).reshape(15, 4, 32)[:, c]  # [round, lane, plane]
+    base = 256 * np.arange(warps, dtype=np.int64)[:, None, None]
+    ctr = ((first + base + q[:, None] + 8 * np.arange(32)) & 0xFFFFFFFF).astype(np.uint32)
+    iv_words = iv.astype(np.uint8).view("<u4")[np.minimum(c, 2)][:, None]
+    words = np.where((c == 3)[:, None], _byte_perm(ctr, np.uint32(0), 0x0123), iv_words)
+    s = _transpose32(words) ^ key[0]  # [warp, lane, plane 8r + b]
+    ones = np.uint32(0xFFFFFFFF)
+    for rnd in range(1, 15):
+        for r in range(4):
+            planes = _eval_sbox_lop3([s[..., 8 * r + b] for b in range(8)], ones)
+            s[..., 8 * r : 8 * r + 8] = np.stack(planes, axis=-1)
+        for r in range(1, 4):
+            src = (lane & ~3) | ((lane + r) & 3)
+            s[..., 8 * r : 8 * r + 8] = s[:, src, 8 * r : 8 * r + 8]
+        if rnd != 14:  # MixColumns + AddRoundKey as the kernel groups its XORs
+            a = s.reshape(warps, 32, 4, 8).copy()
+            all4 = a[:, :, 0] ^ a[:, :, 1] ^ a[:, :, 2] ^ a[:, :, 3]
+            for r in range(4):
+                ar, an, k = a[:, :, r], a[:, :, (r + 1) & 3], key[rnd][:, 8 * r : 8 * r + 8]
+                for b in range(8):
+                    t = all4[..., b] ^ ar[..., b] ^ k[:, b]
+                    if b == 0:
+                        t = t ^ ar[..., 7] ^ an[..., 7]
+                    else:
+                        t = t ^ ar[..., b - 1] ^ an[..., b - 1]
+                        if b in (1, 3, 4):
+                            t = t ^ ar[..., 7] ^ an[..., 7]
+                    s[..., 8 * r + b] = t
+        else:
+            s ^= key[rnd]
+    words = _transpose32(s)  # [warp, lane, j]: column c of block base + 8j + q
+    out = np.zeros((warps * 256, 4), np.uint32)
+    block = (base + q[:, None] + 8 * np.arange(32)).reshape(-1)
+    out[block, np.broadcast_to(c[:, None], (warps, 32, 32)).reshape(-1)] = words.reshape(-1)
+    return out[:n_blocks].view(np.uint8).reshape(n_blocks, 16)
+
+
+def test_transpose32_is_the_bit_matrix_transpose():
+    a = _rng(6).integers(0, 2**32, (3, 32), dtype=np.uint64).astype(np.uint32)
+    bits = (a[..., :, None] >> np.arange(32, dtype=np.uint32)) & 1  # [.., i, k]
+    want = np.bitwise_or.reduce(bits.swapaxes(-1, -2) << np.arange(32, dtype=np.uint32), axis=-1)
+    assert np.array_equal(_transpose32(a), want)
+    assert np.array_equal(_transpose32(_transpose32(a)), a)
+
+
 def test_aes_kernel_logic_emulated():
+    """The counter wraps mod 2^32 inside the words (blocks 40-44 of 45)."""
     rng = _rng(5)
     rk = key_expansion(rng.bytes(32))
     ivs = rng.integers(0, 256, (1, 12), dtype=np.uint8)
-    first = 2**32 - 40  # the counter wraps inside the second thread's words
+    first = 2**32 - 40
+    got = _emulate_aes_ctr_kernel(rk, ivs[0], first, 45)
     want = aes_bitsliced.ctr_keystream_batch(_t(rk), _t(ivs), first, 45).numpy()[0]
-    assert np.array_equal(_emulate_aes_ctr_kernel(rk, ivs[0], first, 45), want)
+    assert np.array_equal(got, want)
+    jax_ks = np.asarray(jax_bitsliced.ctr_keystream_batch(
+        jnp.asarray(rk), jnp.asarray(ivs), np.uint32(first), 45))[0]
+    assert np.array_equal(got, jax_ks)
 
 
-def test_generated_sbox_circuit_is_the_sbox():
-    gates, outputs = aes_circuit_gen.sbox_gates()
+@pytest.mark.parametrize("n_blocks", [1, 31, 33, 45, 257])
+def test_aes_kernel_schedule_matches_plain_and_jax(n_blocks):
+    """The kernel's schedule (emulated) at block counts that leave a warp's
+    256 blocks, a quad's 32 and the 8 quads partly empty, and past one
+    warp, against the plain version and the JAX keystream, per row."""
+    rk, ivs, first, want = _jax_keystream()
+    plain = aes_bitsliced.ctr_keystream_batch_plain(_t(rk), _t(ivs), first, n_blocks).numpy()
+    for row in range(ivs.shape[0]):
+        got = _emulate_aes_ctr_kernel(rk, ivs[row], first, n_blocks)
+        assert np.array_equal(got, plain[row])
+        assert np.array_equal(got, want[row, :n_blocks])
+
+
+@pytest.mark.parametrize("form", ["gates", "lop3"])
+def test_generated_sbox_circuit_is_the_sbox(form):
+    """The published 115-gate circuit and the kernel's 74-LOP3 cover of it,
+    on all 256 inputs, against the FIPS-197 table."""
+    gates, _ = aes_circuit_gen.sbox_gates()
+    assert len(gates) == 115 and sum(op == "&" for _, op, _, _ in gates) == 32
+    assert len(aes_circuit_gen.sbox_lop3()[0]) == 74
+    evaluate = _eval_sbox_gates if form == "gates" else _eval_sbox_lop3
     for x in range(256):
-        env = {f"x{i}": (x >> i) & 1 for i in range(8)}
-        for out, op, a, b in gates:
-            env[out] = 1 - env[a] if op == "~" else (
-                env[a] ^ env[b] if op == "^" else env[a] & env[b])
-        assert sum(env[n] << i for i, n in enumerate(outputs)) == SBOX[x]
+        out = evaluate([(x >> i) & 1 for i in range(8)], 1)
+        assert sum(bit << i for i, bit in enumerate(out)) == SBOX[x]
+
+
+@pytest.mark.parametrize("form", ["gates", "lop3"])
+def test_sbox_circuit_matches_jax_tower_circuit(form):
+    """All 256 inputs at once, as planes: the circuit and its cover against
+    the JAX package's tower-field `_sbox_planes`."""
+    x = np.arange(256, dtype=np.uint32)
+    planes = [np.uint32(0) - ((x >> i) & 1) for i in range(8)]  # full-word masks
+    evaluate = _eval_sbox_gates if form == "gates" else _eval_sbox_lop3
+    got = evaluate(planes, np.uint32(0xFFFFFFFF))
+    want = jax_bitsliced._sbox_planes(jax_bitsliced._tower(), [jnp.asarray(p) for p in planes])
+    for g, w in zip(got, want):
+        assert np.array_equal(g, np.asarray(w).astype(np.uint32))
+
+
+def test_aes_bound_gates_per_lop3_is_the_most_a_three_input_function_needs():
+    """chip_smoke.py converts the AES bound's gate count into LOP3s at the
+    most two-input gates any three-input function needs: majority needs 4,
+    and the exhaustive search finds none that needs more."""
+    import chip_smoke
+    from tools.torch_lop3_cover import most_gates_for_three_inputs
+
+    assert most_gates_for_three_inputs() == chip_smoke.GATES_PER_LOP3 == 4
+    assert chip_smoke.AES_GATES_PER_BLOCK == 196 * 113 + 44 * 92 + 13 * 128
 
 
 def test_generated_header_is_up_to_date():

@@ -1,220 +1,102 @@
-// Generated by tieredstorage_tpu_torch/ops/aes_circuit_gen.py from
-// ops/aes_bitsliced._sbox_planes (the AES S-box as a GF((2^4)^2) tower
-// circuit). Do not edit: rerun the generator.
+// Generated by tieredstorage_tpu_torch/ops/aes_circuit_gen.py: Boyar and
+// Peralta's 115-gate AES S-box (32 AND, 79 XOR, 4 XNOR; SEA 2010) as
+// 74 three-input LOP3s. Do not edit: rerun the generator.
 #pragma once
 #include <cstdint>
 
-#define TST_SBOX_GATES 198
+// d = the function of (a, b, c) whose truth table is kTable, bit 4a + 2b + c.
+template <unsigned kTable>
+__device__ __forceinline__ uint32_t tst_lop3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;" : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(kTable));
+  return d;
+}
 
 // x0..x7: bit-planes of one byte position, LSB first; each word carries
 // 32 blocks. Replaced in place by the planes of S(x).
 __device__ __forceinline__ void tst_sbox(
     uint32_t& x0, uint32_t& x1, uint32_t& x2, uint32_t& x3,
     uint32_t& x4, uint32_t& x5, uint32_t& x6, uint32_t& x7) {
-  const uint32_t t0 = x0 ^ x4;
-  const uint32_t t1 = t0 ^ x5;
-  const uint32_t t2 = t1 ^ x6;
-  const uint32_t t3 = t2 ^ x7;
-  const uint32_t t4 = x1 ^ x5;
-  const uint32_t t5 = x1 ^ x2;
-  const uint32_t t6 = t5 ^ x3;
-  const uint32_t t7 = t6 ^ x6;
-  const uint32_t t8 = t7 ^ x7;
-  const uint32_t t9 = x2 ^ x5;
-  const uint32_t t10 = t9 ^ x6;
-  const uint32_t t11 = x2 ^ x3;
-  const uint32_t t12 = t11 ^ x4;
-  const uint32_t t13 = t12 ^ x6;
-  const uint32_t t14 = t13 ^ x7;
-  const uint32_t t15 = t11 ^ x5;
-  const uint32_t t16 = t15 ^ x7;
-  const uint32_t t17 = x1 ^ x4;
-  const uint32_t t18 = t17 ^ x5;
-  const uint32_t t19 = t18 ^ x6;
-  const uint32_t t20 = x5 ^ x7;
-  const uint32_t t21 = t16 ^ t19;
-  const uint32_t t22 = t20 ^ t21;
-  const uint32_t t23 = t14 ^ t19;
-  const uint32_t t24 = t20 ^ t23;
-  const uint32_t t25 = t14 & t3;
-  const uint32_t t26 = t10 & t16;
-  const uint32_t t27 = t25 ^ t26;
-  const uint32_t t28 = t19 & t8;
-  const uint32_t t29 = t27 ^ t28;
-  const uint32_t t30 = t20 & t4;
-  const uint32_t t31 = t29 ^ t30;
-  const uint32_t t32 = t14 & t4;
-  const uint32_t t33 = t16 & t3;
-  const uint32_t t34 = t32 ^ t33;
-  const uint32_t t35 = t26 ^ t34;
-  const uint32_t t36 = t28 ^ t35;
-  const uint32_t t37 = t10 & t19;
-  const uint32_t t38 = t36 ^ t37;
-  const uint32_t t39 = t30 ^ t38;
-  const uint32_t t40 = t20 & t8;
-  const uint32_t t41 = t39 ^ t40;
-  const uint32_t t42 = t14 & t8;
-  const uint32_t t43 = t16 & t4;
-  const uint32_t t44 = t42 ^ t43;
-  const uint32_t t45 = t19 & t3;
-  const uint32_t t46 = t44 ^ t45;
-  const uint32_t t47 = t37 ^ t46;
-  const uint32_t t48 = t40 ^ t47;
-  const uint32_t t49 = t10 & t20;
-  const uint32_t t50 = t48 ^ t49;
-  const uint32_t t51 = t10 & t14;
-  const uint32_t t52 = t16 & t8;
-  const uint32_t t53 = t51 ^ t52;
-  const uint32_t t54 = t19 & t4;
-  const uint32_t t55 = t53 ^ t54;
-  const uint32_t t56 = t20 & t3;
-  const uint32_t t57 = t55 ^ t56;
-  const uint32_t t58 = t49 ^ t57;
-  const uint32_t t59 = t3 ^ t8;
-  const uint32_t t60 = t10 ^ t4;
-  const uint32_t t61 = t19 ^ t31;
-  const uint32_t t62 = t59 ^ t61;
-  const uint32_t t63 = t22 ^ t41;
-  const uint32_t t64 = t63 ^ t8;
-  const uint32_t t65 = t16 ^ t50;
-  const uint32_t t66 = t60 ^ t65;
-  const uint32_t t67 = t24 ^ t58;
-  const uint32_t t68 = t10 ^ t67;
-  const uint32_t t69 = t62 & t64;
-  const uint32_t t70 = t62 & t66;
-  const uint32_t t71 = t64 & t66;
-  const uint32_t t72 = t62 & t71;
-  const uint32_t t73 = t62 & t68;
-  const uint32_t t74 = t64 & t68;
-  const uint32_t t75 = t62 & t74;
-  const uint32_t t76 = t66 & t68;
-  const uint32_t t77 = t62 & t76;
-  const uint32_t t78 = t64 & t76;
-  const uint32_t t80 = t62 ^ t64;
-  const uint32_t t81 = t66 ^ t80;
-  const uint32_t t82 = t70 ^ t81;
-  const uint32_t t83 = t71 ^ t82;
-  const uint32_t t84 = t72 ^ t83;
-  const uint32_t t85 = t68 ^ t84;
-  const uint32_t t86 = t78 ^ t85;
-  const uint32_t t87 = t69 ^ t70;
-  const uint32_t t88 = t71 ^ t87;
-  const uint32_t t89 = t68 ^ t88;
-  const uint32_t t90 = t74 ^ t89;
-  const uint32_t t91 = t75 ^ t90;
-  const uint32_t t92 = t66 ^ t69;
-  const uint32_t t93 = t70 ^ t92;
-  const uint32_t t94 = t68 ^ t93;
-  const uint32_t t95 = t73 ^ t94;
-  const uint32_t t96 = t77 ^ t95;
-  const uint32_t t97 = t64 ^ t66;
-  const uint32_t t98 = t68 ^ t97;
-  const uint32_t t99 = t73 ^ t98;
-  const uint32_t t100 = t74 ^ t99;
-  const uint32_t t101 = t100 ^ t76;
-  const uint32_t t102 = t101 ^ t78;
-  const uint32_t t103 = t14 & t86;
-  const uint32_t t104 = t102 & t16;
-  const uint32_t t105 = t103 ^ t104;
-  const uint32_t t106 = t19 & t96;
-  const uint32_t t107 = t105 ^ t106;
-  const uint32_t t108 = t20 & t91;
-  const uint32_t t109 = t107 ^ t108;
-  const uint32_t t110 = t14 & t91;
-  const uint32_t t111 = t16 & t86;
-  const uint32_t t112 = t110 ^ t111;
-  const uint32_t t113 = t104 ^ t112;
-  const uint32_t t114 = t106 ^ t113;
-  const uint32_t t115 = t102 & t19;
-  const uint32_t t116 = t114 ^ t115;
-  const uint32_t t117 = t108 ^ t116;
-  const uint32_t t118 = t20 & t96;
-  const uint32_t t119 = t117 ^ t118;
-  const uint32_t t120 = t14 & t96;
-  const uint32_t t121 = t16 & t91;
-  const uint32_t t122 = t120 ^ t121;
-  const uint32_t t123 = t19 & t86;
-  const uint32_t t124 = t122 ^ t123;
-  const uint32_t t125 = t115 ^ t124;
-  const uint32_t t126 = t118 ^ t125;
-  const uint32_t t127 = t102 & t20;
-  const uint32_t t128 = t126 ^ t127;
-  const uint32_t t129 = t102 & t14;
-  const uint32_t t130 = t16 & t96;
-  const uint32_t t131 = t129 ^ t130;
-  const uint32_t t132 = t19 & t91;
-  const uint32_t t133 = t131 ^ t132;
-  const uint32_t t134 = t20 & t86;
-  const uint32_t t135 = t133 ^ t134;
-  const uint32_t t136 = t127 ^ t135;
-  const uint32_t t137 = t14 ^ t3;
-  const uint32_t t138 = t16 ^ t4;
-  const uint32_t t139 = t19 ^ t8;
-  const uint32_t t140 = t10 ^ t20;
-  const uint32_t t141 = t137 & t86;
-  const uint32_t t142 = t102 & t138;
-  const uint32_t t143 = t141 ^ t142;
-  const uint32_t t144 = t139 & t96;
-  const uint32_t t145 = t143 ^ t144;
-  const uint32_t t146 = t140 & t91;
-  const uint32_t t147 = t145 ^ t146;
-  const uint32_t t148 = t137 & t91;
-  const uint32_t t149 = t138 & t86;
-  const uint32_t t150 = t148 ^ t149;
-  const uint32_t t151 = t142 ^ t150;
-  const uint32_t t152 = t144 ^ t151;
-  const uint32_t t153 = t102 & t139;
-  const uint32_t t154 = t152 ^ t153;
-  const uint32_t t155 = t146 ^ t154;
-  const uint32_t t156 = t140 & t96;
-  const uint32_t t157 = t155 ^ t156;
-  const uint32_t t158 = t137 & t96;
-  const uint32_t t159 = t138 & t91;
-  const uint32_t t160 = t158 ^ t159;
-  const uint32_t t161 = t139 & t86;
-  const uint32_t t162 = t160 ^ t161;
-  const uint32_t t163 = t153 ^ t162;
-  const uint32_t t164 = t156 ^ t163;
-  const uint32_t t165 = t102 & t140;
-  const uint32_t t166 = t164 ^ t165;
-  const uint32_t t167 = t102 & t137;
-  const uint32_t t168 = t138 & t96;
-  const uint32_t t169 = t167 ^ t168;
-  const uint32_t t170 = t139 & t91;
-  const uint32_t t171 = t169 ^ t170;
-  const uint32_t t172 = t140 & t86;
-  const uint32_t t173 = t171 ^ t172;
-  const uint32_t t174 = t165 ^ t173;
-  const uint32_t t175 = t147 ^ t166;
-  const uint32_t t176 = t109 ^ t175;
-  const uint32_t t177 = t147 ^ t157;
-  const uint32_t t178 = t174 ^ t177;
-  const uint32_t t179 = t109 ^ t178;
-  const uint32_t t180 = t119 ^ t179;
-  const uint32_t t181 = t119 ^ t147;
-  const uint32_t t182 = t128 ^ t181;
-  const uint32_t t183 = t136 ^ t182;
-  const uint32_t t184 = t166 ^ t177;
-  const uint32_t t185 = t109 ^ t184;
-  const uint32_t t186 = t119 ^ t185;
-  const uint32_t t187 = t128 ^ t186;
-  const uint32_t t188 = t157 ^ t166;
-  const uint32_t t189 = t128 ^ t188;
-  const uint32_t t190 = t136 ^ t189;
-  const uint32_t t191 = t109 ^ t136;
-  const uint32_t t192 = t174 ^ t188;
-  const uint32_t t193 = t109 ^ t192;
-  const uint32_t t194 = t119 ^ t193;
-  const uint32_t t195 = ~t147;
-  const uint32_t t196 = ~t176;
-  const uint32_t t197 = ~t190;
-  const uint32_t t198 = ~t191;
-  x0 = t195;
-  x1 = t196;
-  x2 = t180;
-  x3 = t183;
-  x4 = t187;
-  x5 = t197;
-  x6 = t198;
-  x7 = t194;
+  const uint32_t y14 = tst_lop3<0x66>(x2, x4, x2);
+  const uint32_t y13 = tst_lop3<0x66>(x1, x7, x1);
+  const uint32_t y9 = tst_lop3<0x66>(x4, x7, x4);
+  const uint32_t y8 = tst_lop3<0x66>(x2, x7, x2);
+  const uint32_t y1 = tst_lop3<0x96>(x0, x5, x6);
+  const uint32_t y12 = tst_lop3<0x66>(y14, y13, y14);
+  const uint32_t y2 = tst_lop3<0x66>(x7, y1, x7);
+  const uint32_t y5 = tst_lop3<0x66>(x1, y1, x1);
+  const uint32_t y15 = tst_lop3<0x96>(x2, x3, y12);
+  const uint32_t y20 = tst_lop3<0x96>(x3, x6, y12);
+  const uint32_t y6 = tst_lop3<0x66>(x0, y15, x0);
+  const uint32_t y10 = tst_lop3<0x96>(x5, x6, y15);
+  const uint32_t y11 = tst_lop3<0x66>(y9, y20, y9);
+  const uint32_t y17 = tst_lop3<0x66>(y10, y11, y10);
+  const uint32_t y16 = tst_lop3<0x96>(x5, x6, y11);
+  const uint32_t t3 = tst_lop3<0x28>(y8, y5, y6);
+  const uint32_t t4 = tst_lop3<0x6a>(y12, y15, t3);
+  const uint32_t t5 = tst_lop3<0x60>(x0, x4, y1);
+  const uint32_t t6 = tst_lop3<0x6a>(y12, y15, t5);
+  const uint32_t t7 = tst_lop3<0x88>(y13, y16, y13);
+  const uint32_t t8 = tst_lop3<0x88>(y1, y5, y1);
+  const uint32_t t10 = tst_lop3<0x48>(x0, y2, y11);
+  const uint32_t t12 = tst_lop3<0x88>(y9, y11, y9);
+  const uint32_t t14 = tst_lop3<0x6a>(y14, y17, t12);
+  const uint32_t t16 = tst_lop3<0x6a>(y8, y10, t12);
+  const uint32_t t18 = tst_lop3<0x66>(t6, t16, t6);
+  const uint32_t t19 = tst_lop3<0x96>(t7, t8, t14);
+  const uint32_t t20 = tst_lop3<0x96>(t7, t10, t16);
+  const uint32_t t21 = tst_lop3<0x96>(y20, t4, t14);
+  const uint32_t t22 = tst_lop3<0x96>(y8, y10, t18);
+  const uint32_t t23 = tst_lop3<0x96>(y13, y16, t19);
+  const uint32_t t24 = tst_lop3<0x96>(x7, y16, t20);
+  const uint32_t t27 = tst_lop3<0x6a>(t21, t23, t24);
+  const uint32_t t29 = tst_lop3<0xe4>(t21, t22, t27);
+  const uint32_t t31 = tst_lop3<0x6c>(t21, t22, t23);
+  const uint32_t t33 = tst_lop3<0xe4>(t23, t24, t31);
+  const uint32_t t36 = tst_lop3<0x60>(t24, t27, t33);
+  const uint32_t t37 = tst_lop3<0x96>(t23, t33, t36);
+  const uint32_t t39 = tst_lop3<0x48>(t27, t29, t36);
+  const uint32_t t40 = tst_lop3<0x96>(t21, t22, t39);
+  const uint32_t t41 = tst_lop3<0x66>(t37, t40, t37);
+  const uint32_t t42 = tst_lop3<0x66>(t29, t33, t29);
+  const uint32_t t44 = tst_lop3<0x66>(t33, t37, t33);
+  const uint32_t z2 = tst_lop3<0x88>(x0, t33, x0);
+  const uint32_t z3 = tst_lop3<0x60>(y16, t29, t40);
+  const uint32_t z4 = tst_lop3<0x88>(y1, t40, y1);
+  const uint32_t z5 = tst_lop3<0x28>(x0, y11, t29);
+  const uint32_t z7 = tst_lop3<0x60>(y17, t41, t42);
+  const uint32_t z10 = tst_lop3<0x28>(y8, y5, t37);
+  const uint32_t z11 = tst_lop3<0x28>(x4, y1, t33);
+  const uint32_t z12 = tst_lop3<0x60>(y13, t29, t40);
+  const uint32_t z16 = tst_lop3<0x60>(y14, t41, t42);
+  const uint32_t t46 = tst_lop3<0x6a>(y9, t42, z16);
+  const uint32_t t48 = tst_lop3<0x6a>(y5, t40, z5);
+  const uint32_t t49 = tst_lop3<0x6a>(y12, t44, z10);
+  const uint32_t t52 = tst_lop3<0x6a>(y10, t41, z7);
+  const uint32_t t53 = tst_lop3<0x6a>(y15, t44, z3);
+  const uint32_t t54 = tst_lop3<0x6a>(y11, t42, z7);
+  const uint32_t t55 = tst_lop3<0x6a>(y8, t41, z16);
+  const uint32_t t57 = tst_lop3<0x96>(z2, z12, t53);
+  const uint32_t t61 = tst_lop3<0x6a>(y2, t29, t57);
+  const uint32_t t62 = tst_lop3<0x96>(z4, t46, t52);
+  const uint32_t t63 = tst_lop3<0x96>(z4, t46, t49);
+  const uint32_t t64 = tst_lop3<0x96>(z3, z4, t54);
+  const uint32_t t65 = tst_lop3<0x66>(t61, t62, t61);
+  const uint32_t t66 = tst_lop3<0x6a>(y6, t37, t63);
+  const uint32_t S0 = tst_lop3<0x96>(z3, t54, t63);
+  const uint32_t S6 = tst_lop3<0x69>(z12, t48, t62);
+  const uint32_t S7 = tst_lop3<0x69>(t46, t48, t57);
+  const uint32_t S3 = tst_lop3<0x66>(t53, t66, t53);
+  const uint32_t S4 = tst_lop3<0x96>(z2, z5, t66);
+  const uint32_t S5 = tst_lop3<0x96>(z10, z11, t65);
+  const uint32_t S1 = tst_lop3<0x99>(t64, S3, t64);
+  const uint32_t S2 = tst_lop3<0x69>(t55, t64, t65);
+  x0 = S7;
+  x1 = S6;
+  x2 = S5;
+  x3 = S4;
+  x4 = S3;
+  x5 = S2;
+  x6 = S1;
+  x7 = S0;
 }

@@ -132,15 +132,9 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.tst_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tst_cuda_error_string.restype = ctypes.c_char_p
-            lib.tst_aes_sbox_gates.restype = ctypes.c_int
             lib.tst_ghash_tree_slice.restype = ctypes.c_int
             _LIB.append(lib)
         return _LIB[0]
-
-
-def sbox_gates() -> int:
-    """Gates of the S-box circuit compiled into the keystream kernel."""
-    return library().tst_aes_sbox_gates()
 
 
 def tree_slice() -> int:

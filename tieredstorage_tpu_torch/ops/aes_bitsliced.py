@@ -12,9 +12,10 @@ int32 holding uint32 bit patterns (torch has no `>>` for uint32 on the CPU);
 every shift is followed by a mask.
 
 `ctr_keystream_batch` is the kernel wrapper: for a CUDA tensor it launches
-the hand-written CUDA kernel (csrc/aes_ctr.cu, whose S-box is generated from
-`_sbox_planes` by ops/aes_circuit_gen.py); for a CPU tensor it runs
-`ctr_keystream_batch_plain`, the same circuit as torch ops.
+the hand-written CUDA kernel (csrc/aes_ctr.cu, whose S-box is Boyar and
+Peralta's 115-gate circuit, rendered by ops/aes_circuit_gen.py); for a CPU
+tensor it runs `ctr_keystream_batch_plain`, this module's tower circuit as
+torch ops.
 """
 
 from __future__ import annotations
@@ -168,9 +169,9 @@ def _sq_matrix() -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# The circuit over bit-planes. Generic over any value with ^, & and ~: torch
-# tensors here, symbolic gates in ops/aes_circuit_gen.py (which emits the
-# CUDA kernel's S-box from these same functions).
+# The circuit over bit-planes, on torch tensors (the CUDA kernel's S-box is
+# another circuit, from ops/aes_circuit_gen.py; the tests hold the two
+# against each other and the FIPS-197 table).
 # ---------------------------------------------------------------------------
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Rates of the two tensor-core products the GHASH kernels could use, on one GPU.
+"""Rates of the tensor-core products and the logic op the port's kernels use, on one GPU.
 
     python3 tools/torch_mma_rate_probe.py
 
@@ -12,9 +12,18 @@ and runs, on the card:
 - a loop of four independent chains of that b1 product per warp over
   132 x 8 blocks of 4 warps, and the same loop with `m16n8k32 .s8.s8.s32`,
   timed with CUDA events. Each product counts 2 ops per multiply-add
-  (m x n x k of them), as the published int8 rate does.
-Prints one line per product. Needs a CUDA device and nvcc; imports nothing of
-JAX.
+  (m x n x k of them), as the published int8 rate does;
+- a loop of eight independent `lop3.b32` (three-input majorities) per
+  thread per step over the same grid: LOP3 instructions per second, the logic
+  rate the AES keystream kernel's bound is set against;
+- that LOP3 loop, and the port's AES keystream kernel at the copy window's
+  shape (16 rows x 262 145 blocks), each launched back to back for 2 s
+  while `nvidia-smi` samples the SM clock: each one's LOP3 per SM per clock
+  at the clock it ran at. The kernel's LOP3 per launch are counted from its
+  SASS (tools/torch_sass_census.py: the whole function, plus its round loop
+  12 more times), so this needs `cuobjdump` too.
+Prints one line per product, one for LOP3, and one per clocked run. Needs a
+CUDA device and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,13 +34,17 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
+import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tieredstorage_tpu_torch.ops import _cuda  # noqa: E402
+from tieredstorage_tpu_torch.ops import _cuda, aes_bitsliced  # noqa: E402
+from tieredstorage_tpu_torch.ops.aes import key_expansion  # noqa: E402
+from tools import torch_sass_census  # noqa: E402
 
 SOURCE = r"""
 #include <cstdint>
@@ -61,6 +74,27 @@ SOURCE = r"""
 MMA_LOOP(b1_loop, "m16n8k256.row.col.s32.b1.b1.s32.and.popc")
 MMA_LOOP(s8_loop, "m16n8k32.row.col.s32.s8.s8.s32")
 
+// Eight independent LOP3 per step: a[k] = maj(a[k], a[k+1], b), all from
+// the previous step's values (a majority of neighbours does not simplify).
+__global__ void lop3_loop(const uint32_t* in, int* out, int iters) {
+  uint32_t a[8];
+  for (int i = 0; i < 8; ++i) a[i] = in[(threadIdx.x * 3 + i) & 255];
+  const uint32_t b = in[(threadIdx.x + 101) & 255];
+#pragma unroll 4
+  for (int it = 0; it < iters; ++it) {
+    uint32_t n[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      asm volatile("lop3.b32 %0, %1, %2, %3, 0xE8;\n" : "=r"(n[k]) : "r"(a[k]), "r"(a[(k + 1) & 7]), "r"(b));
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = n[k];
+  }
+  uint32_t s = 0;
+  for (int k = 0; k < 8; ++k) s ^= a[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = (int)s;
+}
+
 // One b1 product: A row-major 16 x 256 bits, B column-major 256 x 8 bits.
 __global__ void b1_once(const uint32_t* a_rows, const uint32_t* b_cols, int* d) {
   const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
@@ -81,7 +115,7 @@ __global__ void b1_once(const uint32_t* a_rows, const uint32_t* b_cols, int* d) 
 
 extern "C" int run_loop(int which, const void* in, void* out, int blocks, int threads, int iters,
                         void* stream) {
-  auto kernel = which == 0 ? b1_loop : s8_loop;
+  auto kernel = which == 0 ? b1_loop : which == 1 ? s8_loop : lop3_loop;
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>((const uint32_t*)in, (int*)out, iters);
   return (int)cudaGetLastError();
 }
@@ -94,6 +128,52 @@ extern "C" int run_once(const void* a, const void* b, void* d, void* stream) {
 
 #: (name, run_loop selector, ops per product: 2 x m x n x k)
 PRODUCTS = (("b1 m16n8k256 and.popc", 0, 2 * 16 * 8 * 256), ("s8 m16n8k32", 1, 2 * 16 * 8 * 32))
+#: LOP3 per thread per step of `lop3_loop`; H100 SXM: 132 SMs, 1.98 GHz boost.
+LOP3_PER_STEP = 8
+SMS, BOOST_HZ = 132, 1.98e9
+#: The AES kernel's round loop runs rounds 1-13 (`#pragma unroll 1`), so its
+#: body runs 12 more times than the SASS listing shows it; 256 blocks a warp.
+AES_ROUND_LOOP_TRIPS, AES_BLOCKS_PER_WARP = 13, 256
+
+
+def under_load(run, seconds: float = 2.0) -> tuple[float, float, int]:
+    """(device ms per call, median SM clock in MHz, clock samples): `run`
+    called back to back for `seconds`, timed with CUDA events, while a
+    thread reads the SM clock with `nvidia-smi` until the calls stop."""
+    samples: list[float] = []
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.is_set():
+            res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 stdout=subprocess.PIPE, text=True, timeout=30)
+            if not stop.is_set() and res.stdout.strip().isdigit():
+                samples.append(float(res.stdout))
+            time.sleep(0.05)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    calls = 0
+    start.record()
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < seconds:
+        run()
+        calls += 1
+    stop.set()
+    end.record()
+    end.synchronize()
+    sampler.join()
+    return start.elapsed_time(end) / calls, statistics.median(samples) if samples else float("nan"), len(samples)
+
+
+def aes_lop3_per_lane() -> int:
+    """LOP3 each lane of the AES keystream kernel executes, from its SASS."""
+    (instrs,) = torch_sass_census.functions("aes_ctr.cu").values()
+    loop = torch_sass_census.largest_loop(instrs)
+    count = lambda body: sum(op == "LOP3" for _, op, _ in body)  # noqa: E731
+    return count(instrs) + (AES_ROUND_LOOP_TRIPS - 1) * count(loop)
 
 
 def _build(work: str) -> ctypes.CDLL:
@@ -139,7 +219,11 @@ def main() -> int:
         inp = torch.from_numpy(rng.integers(0, 2**31, 256).astype(np.int32)).to(dev)
         blocks, threads, iters = 132 * 8, 128, 2000
         out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
-        for name, which, ops in PRODUCTS:
+        # (name, selector, products per warp or LOP3 per thread per step, ops per product)
+        loops = [(name, which, 4, ops) for name, which, ops in PRODUCTS]
+        loops.append(("lop3.b32", 2, LOP3_PER_STEP, 1))
+        for name, which, per_step, ops in loops:
+            per_thread = which == 2  # LOP3 counts per thread, products per warp
             dll.run_loop(which, inp.data_ptr(), out.data_ptr(), blocks, threads, 10, stream)
             torch.cuda.synchronize()
             times = []
@@ -152,9 +236,33 @@ def main() -> int:
                 end.synchronize()
                 times.append(start.elapsed_time(end))
             ms = statistics.median(times)
-            products = blocks * (threads // 32) * iters * 4
-            print(f"{name}: {ms:.4f} ms for {products} products, {products * ops / ms / 1e9:.1f} TOPS")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            count = blocks * (threads if per_thread else threads // 32) * iters * per_step
+            if per_thread:
+                rate = count / ms * 1e3
+                print(f"{name}: {ms:.4f} ms for {count} LOP3, {rate / 1e12:.2f} T LOP3/s "
+                      f"({rate / SMS / BOOST_HZ:.1f} per SM per clock at 1.98 GHz)")
+            else:
+                print(f"{name}: {ms:.4f} ms for {count} products, {count * ops / ms / 1e9:.1f} TOPS")
+
+        # Clocked: the LOP3 loop and the AES kernel, each at the clock it ran at.
+        lop3_count = blocks * threads * iters * LOP3_PER_STEP
+        ms, mhz, n = under_load(lambda: dll.run_loop(2, inp.data_ptr(), out.data_ptr(), blocks,
+                                                     threads, iters, stream))
+        print(f"lop3.b32 under load: {ms:.4f} ms per launch, {lop3_count / ms / 1e9:.2f} T LOP3/s, "
+              f"SM clock {mhz:.0f} MHz ({n} samples): "
+              f"{lop3_count / ms * 1e3 / SMS / (mhz * 1e6):.2f} per SM per clock")
+        rows, n_blocks = 16, 262_145
+        rk = torch.from_numpy(key_expansion(rng.bytes(32))).to(dev)
+        ivs = torch.from_numpy(rng.integers(0, 256, (rows, 12), dtype=np.uint8)).to(dev)
+        per_lane = aes_lop3_per_lane()
+        lanes = rows * -(-n_blocks // AES_BLOCKS_PER_WARP) * 32
+        ms, mhz, n = under_load(lambda: aes_bitsliced.ctr_keystream_batch(rk, ivs, 1, n_blocks))
+        print(f"aes_ctr_keystream {rows} x {n_blocks} under load: {ms:.4f} ms per launch, "
+              f"{per_lane} LOP3 per lane x {lanes} lanes, {per_lane * lanes / ms / 1e9:.2f} T LOP3/s, "
+              f"SM clock {mhz:.0f} MHz ({n} samples): "
+              f"{per_lane * lanes / ms * 1e3 / SMS / (mhz * 1e6):.2f} per SM per clock")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                           "--format=csv,noheader"],
                           stdout=subprocess.PIPE, text=True).stdout.strip()
     print(f"card: {card}")
     return 0 if ok else 1
