@@ -8,14 +8,15 @@ Phases, in order, each printing its seconds:
 1. build   — compile csrc/ with nvcc for sm_90a (one nvcc per source, in
              parallel) and print the card's name and power limit;
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             bit for bit, at the shapes the main path gives it: the AES-256
-             keystream (16 rows x 262 145 blocks, the copy window, and one
-             row of it, every fetched chunk), the GHASH tree (16 rows of
-             4 MiB with a real context's operands, and one row of it) and
-             GHASH level 1 (256 x 1 KiB). The one-row runs are recorded as
-             `ms_one_row`, `plain_ms_one_row`, `bound_ms_one_row`. Kernel and
-             plain times are medians of CUDA-event timed runs; the bound is
-             the least time the card could take: the bytes against the
+             bit for bit, at the shapes the paths give it: the AES-256
+             keystream (16 rows x 262 145 blocks, the copy and prefetch
+             window; 8 rows of it, a readahead window; one row, a chunk
+             fetched alone), the GHASH tree (16, 8 and 1 rows of 4 MiB with a
+             real context's operands) and GHASH level 1 (256 x 1 KiB). The
+             8-row and one-row runs are recorded as `ms_8_rows`,
+             `plain_ms_8_rows`, `bound_ms_8_rows` (and `_one_row`). Kernel
+             and plain times are medians of CUDA-event timed runs; the bound
+             is the least time the card could take: the bytes against the
              operations (for AES its gates at the card's logic rate, for
              GHASH the least of the b1 tensor-core, int8 tensor-core and
              logic times of the same bit-products);
@@ -26,7 +27,18 @@ Phases, in order, each printing its seconds:
              byte for byte), a flipped ciphertext byte that must fail with
              AuthenticationError, and a delete that must leave the store
              empty. Launch counts are zeroed just before and read just after;
-4. counts  — every kernel must have launched on the main path.
+4. fetch plane — the same segment again, copied as set-up, then with the
+             launch counts zeroed: (a) a consumer's catch-up replay in 1 MiB
+             reads through the disk chunk cache (512 MiB, 64 MiB prefetch in
+             16-chunk sub-windows) and readahead (8-chunk windows, 128 MiB
+             budget), which must launch AES and the GHASH tree on 8 rows or
+             more; (b) three whole-segment sweeps through the hot-window tier
+             (3 GiB): the third makes no GCM launch, and retained device rows
+             equal the plaintext; (c) 64 ranged 1 MiB reads and every index,
+             twice, which must load the manifest and each index from storage
+             once;
+5. counts  — every kernel must have launched on the main path and on the
+             fetch plane.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -163,12 +175,13 @@ def kernel_phase(seed: int, device) -> dict:
     out = {}
 
     # AES-256 keystream at the 64 MiB window: 16 rows x (262 144 data + 1
-    # tag-mask) blocks, then its first row alone (a fetched chunk).
+    # tag-mask) blocks, then its first 8 rows (a readahead window) and its
+    # first row alone (a fetched chunk).
     rows, n_blocks = 16, CHUNK // 16 + 1
     rk = torch.from_numpy(key_expansion(key)).to(device)
     ivs = torch.from_numpy(rng.integers(0, 256, (rows, 12), dtype=np.uint8)).to(device)
     aes = {}
-    for label, iv in (("", ivs), ("_one_row", ivs[:1])):
+    for label, iv in (("", ivs), ("_8_rows", ivs[:8]), ("_one_row", ivs[:1])):
         got = aes_bitsliced.ctr_keystream_batch(rk, iv, 1, n_blocks)
         want = aes_bitsliced.ctr_keystream_batch_plain(rk, iv, 1, n_blocks)
         torch.cuda.synchronize()
@@ -193,8 +206,9 @@ def kernel_phase(seed: int, device) -> dict:
         shape=f"B={rows}, n_blocks={n_blocks}", **aes,
     )
 
-    # GHASH tree: 16 rows of 4 MiB (the copy window) against a real 4 MiB
-    # context's operands, then its first row alone (the fetch's chunk).
+    # GHASH tree: 16 rows of 4 MiB (the copy window and a prefetch window)
+    # against a real 4 MiB context's operands, then its first 8 rows (a
+    # readahead window) and its first row alone (a chunk fetched alone).
     ctx = gcm.make_context(key, aad, CHUNK)
     w1 = torch.from_numpy(np.array(ctx.agg_mats[0])).to(device)
     step = torch.from_numpy(np.array(ctx.step_mat)).to(device)
@@ -202,7 +216,7 @@ def kernel_phase(seed: int, device) -> dict:
     data = torch.from_numpy(rng.integers(0, 256, (rows, CHUNK), dtype=np.uint8)).to(device)
     k = ops_t.k_bytes
     tree = {}
-    for label, d in (("", data), ("_one_row", data[:1])):
+    for label, d in (("", data), ("_8_rows", data[:8]), ("_one_row", data[:1])):
         got = ghash_cuda.ghash_tree(d, ops_t)
         want = ghash_cuda.ghash_tree_plain(d, w1, step)
         torch.cuda.synchronize()
@@ -394,6 +408,180 @@ def main_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0")
     return rec
 
 
+def _rsm_configs(store: Path, pub: Path, priv: Path, device: str, extra=None) -> dict:
+    configs = {
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store),
+        "chunk.size": CHUNK,
+        "key.prefix": "smoke/",
+        "compression.enabled": False,
+        "transform.device": device,
+        "encryption.enabled": True,
+        "encryption.key.pair.id": "k1",
+        "encryption.key.pairs": "k1",
+        "encryption.key.pairs.k1.public.key.file": str(pub),
+        "encryption.key.pairs.k1.private.key.file": str(priv),
+    }
+    configs.update(extra or {})
+    return configs
+
+
+def _counting_storage():
+    """The filesystem backend, counting fetches by object suffix."""
+    from tieredstorage_tpu_torch.storage.filesystem import FileSystemStorage
+
+    class CountingStorage(FileSystemStorage):
+        fetches: dict = {}
+
+        def fetch(self, key, byte_range=None):
+            suffix = key.value.rsplit(".", 1)[-1]
+            self.fetches[suffix] = self.fetches.get(suffix, 0) + 1
+            return super().fetch(key, byte_range)
+
+    return CountingStorage
+
+
+def fetch_plane(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """The fetch plane over one encrypted segment: (a) a consumer's catch-up
+    replay through the disk chunk cache, its prefetch and readahead; (b) three
+    whole-segment sweeps through the hot-window tier; (c) ranged reads and
+    every index, twice, through the manifest and indexes caches. The launch
+    counts are zeroed after the copy (set-up) and read after (c)."""
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.object_key import ObjectKeyFactory, Suffix
+    from tieredstorage_tpu_torch.ops import _cuda, gcm
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    seg_dir, store, cache_dir = work / "segment", work / "store", work / "chunk-cache"
+    for d in (seg_dir, store, cache_dir):
+        d.mkdir()
+    md, sd, files, leader_epoch = write_segment(seg_dir, seed, segment_bytes)
+    pub, priv = generate_key_pair_pem_files(work, prefix="plane")
+    source = files["log"].read_bytes()
+    n_chunks = -(-segment_bytes // CHUNK)
+    rec: dict = {"segment_bytes": segment_bytes}
+
+    def rsm_with(extra=None) -> RemoteStorageManager:
+        rsm = RemoteStorageManager()
+        rsm.configure(_rsm_configs(store, pub, priv, device, extra))
+        return rsm
+
+    writer = rsm_with()
+    writer.copy_log_segment_data(md, sd)
+    writer.close()
+    _cuda.reset_launch_counts()
+
+    # (a) Catch-up replay: front to back in 1 MiB reads (Kafka's
+    # max.partition.fetch.bytes).
+    rsm = rsm_with({
+        "fetch.chunk.cache.class": "tieredstorage_tpu_torch.fetch.cache.disk.DiskChunkCache",
+        "fetch.chunk.cache.path": str(cache_dir),
+        "fetch.chunk.cache.size": 512 * MIB,
+        "fetch.chunk.cache.prefetch.max.size": 64 * MIB,
+        "fetch.chunk.cache.prefetch.window.chunks": 16,
+        "readahead.enabled": True,
+        "readahead.window.chunks": 8,
+        "readahead.budget.bytes": 128 * MIB,
+    })
+    readahead = rsm.readahead_manager
+    chunk_cache = readahead._delegate  # the ChunkCache tier below readahead
+    t = time.perf_counter()
+    for off in range(0, segment_bytes, MIB):
+        end = min(off + MIB, segment_bytes) - 1
+        with rsm.fetch_log_segment(md, off, end) as stream:
+            check(stream.read() == source[off : end + 1], f"replay read at {off} differs")
+    replay_s = time.perf_counter() - t
+    rsm.close()
+    rows = _cuda.launch_rows()
+    rec["replay"] = {
+        "gib_s": segment_bytes / (1 << 30) / replay_s,
+        "rows_per_launch": {name: rows[name] for name in ("aes_ctr_keystream", "ghash_tree")},
+        "chunk_cache_hits": chunk_cache.stats.hits,
+        "chunk_cache_misses": chunk_cache.stats.misses,
+        "prefetch_failures": chunk_cache.prefetch_failures,
+        "readahead_bytes_speculated": readahead.bytes_speculated,
+        "readahead_wasted_bytes": readahead.wasted_bytes,
+        "readahead_windows_launched": readahead.windows_launched,
+    }
+    for name in ("aes_ctr_keystream", "ghash_tree"):
+        check(max(rows[name], default=0) >= 8,
+              f"no {name} launch of 8 or more rows on the replay: {rows[name]}")
+
+    # (b) Hot segment: hot tier only, three whole-segment sweeps.
+    rsm = rsm_with({"cache.device.bytes": 3 << 30})
+    hot = rsm.device_hot_cache
+    sweeps = []
+    for sweep in range(3):
+        launches = gcm.device_dispatches()
+        t = time.perf_counter()
+        with rsm.fetch_log_segment(md, 0) as stream:
+            check(stream.read() == source, f"hot sweep {sweep + 1} differs from the source")
+        sweeps.append({
+            "s": time.perf_counter() - t,
+            "gcm_launches": gcm.device_dispatches() - launches,
+            "admissions": hot.admissions, "hits": hot.hits,
+        })
+    check(sweeps[0]["gcm_launches"] == n_chunks, f"sweep 1 decrypted {sweeps[0]['gcm_launches']} windows")
+    check(sweeps[1]["admissions"] == n_chunks and sweeps[1]["admissions"] > sweeps[0]["admissions"],
+          f"sweep 2 left {sweeps[1]['admissions']} of {n_chunks} windows admitted")
+    check(sweeps[2]["gcm_launches"] == 0, f"sweep 3 made {sweeps[2]['gcm_launches']} GCM launches")
+    check(hot.device_windows == n_chunks, f"{hot.device_windows} windows kept their device half")
+    log_key = ObjectKeyFactory("smoke/", False).key(md, Suffix.LOG)
+    probe = sorted(int(c) for c in np.random.default_rng(seed + 2).choice(
+        n_chunks, min(4, n_chunks), replace=False))
+    launches = gcm.device_dispatches()
+    device_rows = hot.device_rows(log_key, probe)
+    check(device_rows is not None and all(r.device.type == torch.device(device).type
+                                          for r in device_rows), f"device rows are not on {device}")
+    for cid, row in zip(probe, device_rows):
+        want = source[cid * CHUNK : (cid + 1) * CHUNK]
+        check(row[: len(want)].cpu().numpy().tobytes() == want, f"device row of chunk {cid} differs")
+    check(gcm.device_dispatches() == launches, "device_rows launched GCM work")
+    rec["hot"] = {
+        "sweeps": sweeps, "device_windows": hot.device_windows,
+        "resident_bytes": hot.resident_bytes,
+        "resident_device_bytes": hot.resident_device_bytes,
+        "cuda_memory_allocated": torch.cuda.memory_allocated(),
+        "device_rows_checked": probe,
+    }
+    del device_rows
+    rsm.close()
+
+    # (c) Ranged reads through the manifest cache, and an index.
+    counting = _counting_storage()
+    rsm = rsm_with({"storage.backend.class": counting})
+    rng = np.random.default_rng(seed + 3)
+    latencies = []
+    for off in rng.integers(0, segment_bytes - MIB, 64):
+        off = int(off)
+        t = time.perf_counter()
+        with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+            part = stream.read()
+        latencies.append((time.perf_counter() - t) * 1e3)
+        check(part == source[off : off + MIB], f"ranged read at {off} differs from the source")
+    check(counting.fetches.get("rsm-manifest") == 1,
+          f"64 ranged reads loaded the manifest {counting.fetches.get('rsm-manifest')} times")
+    for _ in range(2):
+        for index_type, want in (
+            (IndexType.OFFSET, files["offset"].read_bytes()),
+            (IndexType.TIMESTAMP, files["time"].read_bytes()),
+            (IndexType.PRODUCER_SNAPSHOT, files["snapshot"].read_bytes()),
+            (IndexType.LEADER_EPOCH, leader_epoch),
+        ):
+            check(rsm.fetch_index(md, index_type).read() == want, f"{index_type.name} index differs")
+    check(counting.fetches.get("indexes") == 4, "an index was fetched from storage twice")
+    rsm.close()
+    rec["ranged"] = {
+        "manifest_loads": counting.fetches["rsm-manifest"],
+        "p50_ms": float(np.percentile(latencies, 50)),
+        "p99_ms": float(np.percentile(latencies, 99)),
+    }
+    rec["launches"] = _cuda.launch_counts()
+    rec["launch_rows"] = _cuda.launch_rows()
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -430,10 +618,11 @@ def main(argv=None) -> int:
     for rec in kernels.values():
         print(f"  {rec['name']}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, "
               f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}) at {rec['shape']}")
-        if "ms_one_row" in rec:
-            print(f"  {rec['name']} one row: {rec['ms_one_row']:.4f} ms (plain "
-                  f"{rec['plain_ms_one_row']:.3f} ms, bound {rec['bound_ms_one_row']:.4f} ms "
-                  f"by {rec['bound_by_one_row']})")
+        for label, what in (("_8_rows", "8 rows"), ("_one_row", "one row")):
+            if "ms" + label in rec:
+                print(f"  {rec['name']} {what}: {rec['ms' + label]:.4f} ms (plain "
+                      f"{rec['plain_ms' + label]:.3f} ms, bound {rec['bound_ms' + label]:.4f} ms "
+                      f"by {rec['bound_by' + label]})")
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -448,18 +637,34 @@ def main(argv=None) -> int:
         "segment_bytes", "copy_gib_s", "fetch_gib_s", "ranged_1mib_p50_ms",
         "ranged_1mib_p99_ms", "tamper_rejected")}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_plane_"))
+    try:
+        t = time.perf_counter()
+        plane = fetch_plane(args.seed, args.segment_mib * MIB, work)
+        record["fetch_plane_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase fetch plane: {record['fetch_plane_s']:.1f} s")
+    record["fetch_plane"] = plane
+    for part in ("replay", "hot", "ranged"):
+        print(f"fetch plane {part}: " + json.dumps(plane[part]))
+
     launches = main_rec["launches"]
     missing = [name for name in kernels if launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
+    missing = [name for name in kernels if plane["launches"].get(name, 0) <= 0]
+    check(not missing, f"kernels never launched on the fetch plane: {missing}")
     line = {"kernels": []}
     for name, rec in kernels.items():
         entry = {k: rec[k] for k in (
             "name", "route", "source", "replaces")}
         entry["launches"] = launches[name]
+        entry["launches_fetch_plane"] = plane["launches"][name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        if "ms_one_row" in rec:
-            entry.update({k: rec[k] for k in ("ms_one_row", "plain_ms_one_row", "bound_ms_one_row")})
+        for label in ("_8_rows", "_one_row"):
+            if "ms" + label in rec:
+                entry.update({k + label: rec[k + label] for k in ("ms", "plain_ms", "bound_ms")})
         line["kernels"].append(entry)
     record["kernel_line"] = line
     record["all_kernels"] = kernels

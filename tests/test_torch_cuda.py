@@ -13,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from tieredstorage_tpu_torch import metadata
+from tieredstorage_tpu_torch.object_key import ObjectKeyFactory, Suffix
 from tieredstorage_tpu_torch.ops import _cuda, aes_bitsliced, gcm, ghash_cuda
 from tieredstorage_tpu_torch.ops.aes import key_expansion
+from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +131,89 @@ def test_cuda_wrappers_refuse_bad_operands(device):
     ops = ghash_cuda.GhashOperands.build(torch.zeros((8, 32, 128), dtype=torch.int8), None)
     with pytest.raises(ValueError, match="operands on cpu"):
         ghash_cuda.ghash_level1(torch.zeros((2, 32), dtype=torch.uint8, device=device), ops)
+
+
+HOT_CHUNK = 1 << 20
+HOT_CHUNKS = 5
+
+
+@pytest.fixture
+def hot_rsm(device, tmp_path):
+    """The port's RSM on the card with the hot-window tier only, over a
+    copied 5 MiB encrypted segment of 1 MiB chunks."""
+    rng = np.random.default_rng(9)
+    log = rng.bytes(HOT_CHUNKS * HOT_CHUNK)
+    paths = {}
+    for name, data in (("log", log), ("index", rng.bytes(48)), ("timeindex", rng.bytes(72)),
+                       ("snapshot", rng.bytes(40))):
+        paths[name] = tmp_path / f"00000000000000000000.{name}"
+        paths[name].write_bytes(data)
+    tip = metadata.TopicIdPartition(metadata.KafkaUuid(rng.bytes(16)), metadata.TopicPartition("t", 0))
+    md = metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(rng.bytes(16))),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    )
+    sd = metadata.LogSegmentData(
+        log_segment=paths["log"], offset_index=paths["index"], time_index=paths["timeindex"],
+        producer_snapshot_index=paths["snapshot"], transaction_index=None,
+        leader_epoch_index=b"0\n1\n0 0\n",
+    )
+    pub, priv = generate_key_pair_pem_files(tmp_path, prefix="hot")
+    store = tmp_path / "store"
+    store.mkdir()
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": HOT_CHUNK, "key.prefix": "hot/",
+        "transform.device": str(device), "encryption.enabled": True,
+        "encryption.key.pair.id": "k", "encryption.key.pairs": "k",
+        "encryption.key.pairs.k.public.key.file": str(pub),
+        "encryption.key.pairs.k.private.key.file": str(priv),
+        "cache.device.bytes": 64 << 20,
+    })
+    rsm.copy_log_segment_data(md, sd)
+    yield rsm, md, log, ObjectKeyFactory("hot/", False).key(md, Suffix.LOG)
+    rsm.close()
+
+
+def _read(rsm, md, start, end) -> bytes:
+    with rsm.fetch_log_segment(md, start, end) as stream:
+        return stream.read()
+
+
+def test_hot_window_survives_later_windows_of_its_shape(hot_rsm):
+    """The retention probe on the card: the retained CUDA tensor of an
+    admitted one-row window still holds its plaintext after three more
+    one-row windows of the same shape were decrypted."""
+    rsm, md, log, log_key = hot_rsm
+    hot = rsm.device_hot_cache
+    for _ in range(2):  # first touch decrypts, the second admits
+        assert _read(rsm, md, 0, 99) == log[:100]
+    assert hot.admissions == 1 and hot.device_windows == 1
+    for cid in (1, 2, 3):
+        start = cid * HOT_CHUNK
+        assert _read(rsm, md, start, start + 99) == log[start : start + 100]
+    [row] = hot.device_rows(log_key, [0])
+    assert row.is_cuda and row.shape == (HOT_CHUNK + 16,)
+    assert row[:HOT_CHUNK].cpu().numpy().tobytes() == log[:HOT_CHUNK]
+    assert hot.resident_device_bytes == HOT_CHUNK + 16
+
+
+def test_hot_serve_makes_no_gcm_launch(hot_rsm):
+    """Three whole-segment sweeps: the first decrypts, the second admits,
+    the third is served from the hot tier with no GCM window program and no
+    kernel launch; device_rows is a view, no launch either."""
+    rsm, md, log, log_key = hot_rsm
+    hot = rsm.device_hot_cache
+    for sweep in range(3):
+        before, kernels = gcm.device_dispatches(), _cuda.launch_counts()
+        assert _read(rsm, md, 0, None) == log
+        if sweep == 0:
+            assert gcm.device_dispatches() - before == HOT_CHUNKS
+    assert gcm.device_dispatches() == before
+    assert _cuda.launch_counts() == kernels
+    assert hot.device_windows == HOT_CHUNKS and hot.hits == HOT_CHUNKS
+    rows = hot.device_rows(log_key, [4, 1])
+    assert gcm.device_dispatches() == before
+    for cid, row in zip((4, 1), rows):
+        assert row[:HOT_CHUNK].cpu().numpy().tobytes() == log[cid * HOT_CHUNK : (cid + 1) * HOT_CHUNK]

@@ -7,15 +7,21 @@ device="cpu", where every kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
+from cryptography.hazmat.primitives.ciphers.aead import AESGCM
 
 from tieredstorage_tpu.security.aes import DataKeyAndAAD as JaxDataKeyAndAAD
 from tieredstorage_tpu.transform.api import DetransformOptions as JaxDetransformOptions
 from tieredstorage_tpu.transform.api import TransformOptions as JaxTransformOptions
 from tieredstorage_tpu.transform.tpu import TpuTransformBackend
 from tieredstorage_tpu_torch.config.configdef import ConfigException
+from tieredstorage_tpu_torch.ops import gcm
 from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
 from tieredstorage_tpu_torch.transform.api import (
     AuthenticationError,
@@ -127,3 +133,79 @@ def test_identity_and_compression_paths():
         compression=True, encryption=DataKeyAndAAD(key, aad), max_original_chunk_size=4096,
     ))
     assert back == chunks
+
+
+def _oracle_encrypt(key: bytes, aad: bytes, chunks: list[bytes], rng) -> list[bytes]:
+    """Wire chunks (IV || ct || tag) from the host AES-GCM oracle, so no
+    context of the port is built before the threads below start."""
+    out = []
+    for chunk in chunks:
+        iv = rng.bytes(12)
+        out.append(iv + AESGCM(key).encrypt(iv, chunk, aad))
+    return out
+
+
+def test_device_dispatches_counts_launches_on_pool_threads():
+    """The process-wide count sees a pool thread's window; the calling
+    thread's own count does not."""
+    rng = np.random.default_rng(21)
+    key, aad = rng.bytes(32), rng.bytes(32)
+    chunks = [rng.bytes(2048), rng.bytes(2048)]
+    stored = _oracle_encrypt(key, aad, chunks, rng)
+    ours = _cpu_backend()
+    opts = DetransformOptions(encryption=DataKeyAndAAD(key, aad))
+    total, mine = gcm.device_dispatches(), gcm.thread_dispatches()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        assert pool.submit(ours.detransform, stored, opts).result(timeout=60) == chunks
+    assert gcm.device_dispatches() == total + 1
+    assert gcm.thread_dispatches() == mine
+    assert ours.detransform(stored, opts) == chunks
+    assert gcm.device_dispatches() == total + 2
+    assert gcm.thread_dispatches() == mine + 1
+
+
+def test_concurrent_detransform_is_byte_exact():
+    """8 threads detransform at once through one backend: two keys shared by
+    all threads and one key per thread, every context first built under
+    contention, fixed and varlen windows of one shape in the staging pool.
+    Every plaintext must come back exactly and every window be counted."""
+    threads, rounds = 8, 3
+    rng = np.random.default_rng(22)
+    shared = [(rng.bytes(32), rng.bytes(32)) for _ in range(2)]
+    jobs = []
+    for t in range(threads):
+        keys = shared + [(rng.bytes(32), rng.bytes(32))]
+        for r in range(rounds):
+            key, aad = keys[(t + r) % len(keys)]
+            sizes = [1024, 1024] if (t + r) % 2 else [1024, 600]
+            chunks = [rng.bytes(n) for n in sizes]
+            jobs.append((t, key, aad, chunks, _oracle_encrypt(key, aad, chunks, rng)))
+    ours = _cpu_backend()
+    barrier = threading.Barrier(threads)
+    errors: list = []
+
+    def worker(t: int) -> int:
+        barrier.wait(timeout=60)
+        done = 0
+        for owner, key, aad, chunks, stored in jobs:
+            if owner != t:
+                continue
+            got = ours.detransform(stored, DetransformOptions(encryption=DataKeyAndAAD(key, aad)))
+            if got != chunks:
+                errors.append((t, len(chunks)))
+            done += 1
+        return done
+
+    before = gcm.device_dispatches()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            done = [f.result(timeout=300) for f in [pool.submit(worker, t) for t in range(threads)]]
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == []
+    assert sum(done) == len(jobs)
+    assert gcm.device_dispatches() - before == len(jobs)
+    assert ours.dispatch_stats.windows == len(jobs)
+    assert ours.dispatch_stats.d2h_fetches == len(jobs)

@@ -63,6 +63,17 @@ def non_empty_string(name: str, value) -> None:
 non_empty_string.description = "non-empty string"
 
 
+def subclass_of(base: type):
+    def check(name: str, value) -> None:
+        if value is not None and not (isinstance(value, type) and issubclass(value, base)):
+            raise ConfigException(
+                f"Invalid value {value} for configuration {name}: Must be a subclass of {base.__name__}"
+            )
+
+    check.description = f"Any implementation of {base.__name__}"
+    return check
+
+
 def _coerce(key: ConfigKey, value: Any) -> Any:
     if value is None:
         return None

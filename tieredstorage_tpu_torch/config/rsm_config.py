@@ -6,9 +6,12 @@ Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
 with the two-phase `encryption.key.pairs.<id>.*` define),
 `custom.metadata.fields.include`, `transform.backend.class` (default: this
 package's CudaTransformBackend) and the `transform.*` subtree its backend
-reads. Every other key of the JAX package's configuration raises a
-ConfigException naming it as not yet ported: a setting is never ignored
-silently.
+reads, and the fetch plane's keys, which their own modules parse:
+`fetch.chunk.cache.*`, `fetch.manifest.cache.*`, `fetch.indexes.cache.*`
+(config/cache_config.py), `fetch.chunk.cache.class`, `cache.device.*` and
+`readahead.*` (fetch/factory.py). Every other key of the JAX package's
+configuration raises a ConfigException naming it as not yet ported: a
+setting is never ignored silently.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ INT_MAX = 2**31 - 1
 
 STORAGE_PREFIX = "storage."
 TRANSFORM_PREFIX = "transform."
+FETCH_CHUNK_CACHE_PREFIX = "fetch.chunk.cache."
+FETCH_INDEXES_CACHE_PREFIX = "fetch.indexes.cache."
+FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 
 #: Keys of the JAX package's configuration that this package has not ported.
 NOT_YET_PORTED = frozenset({
@@ -61,9 +67,6 @@ NOT_YET_PORTED = frozenset({
     "slo.shed.rate.max.percent", "slo.cache.hit.floor.percent",
     "metrics.num.samples", "metrics.sample.window.ms", "metrics.recording.level",
 })
-#: Key prefixes of the JAX package's chunk/index/manifest caches, device hot
-#: tier and readahead, all not yet ported.
-NOT_YET_PORTED_PREFIXES = ("fetch.", "cache.", "readahead.")
 
 ZSTD = "zstd"
 
@@ -143,7 +146,7 @@ def _base_def() -> ConfigDef:
 
 def _check_ported(props: Mapping[str, Any]) -> None:
     for name in props:
-        if name in NOT_YET_PORTED or name.startswith(NOT_YET_PORTED_PREFIXES):
+        if name in NOT_YET_PORTED:
             raise ConfigException(
                 f"Configuration {name} is not yet ported to tieredstorage_tpu_torch"
             )
@@ -195,6 +198,9 @@ class RemoteStorageManagerConfig:
         return paths
 
     # --- accessors ---
+    def raw_props(self) -> dict[str, Any]:
+        return dict(self._props)
+
     @property
     def storage_backend_class(self) -> type:
         return self._values["storage.backend.class"]
@@ -253,3 +259,9 @@ class RemoteStorageManagerConfig:
     @property
     def custom_metadata_fields_include(self) -> list[str]:
         return list(self._values["custom.metadata.fields.include"])
+
+    def fetch_indexes_cache_configs(self) -> dict[str, Any]:
+        return subset_with_prefix(self._props, FETCH_INDEXES_CACHE_PREFIX)
+
+    def fetch_manifest_cache_configs(self) -> dict[str, Any]:
+        return subset_with_prefix(self._props, FETCH_MANIFEST_CACHE_PREFIX)

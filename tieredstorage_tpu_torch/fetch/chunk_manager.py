@@ -2,7 +2,7 @@
 
 Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without the planes
 this package has not ported yet (tracing spans, the flight recorder, fault
-injection, deadlines, hedging). `get_chunks` fetches a window of chunks with
+injection, hedging). `get_chunks` fetches a window of chunks with
 ONE ranged request (chunks are contiguous on the stored side) and
 detransforms them in ONE backend call.
 """
@@ -24,6 +24,7 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackendException,
 )
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformBackend
+from tieredstorage_tpu_torch.utils.deadline import check_deadline
 from tieredstorage_tpu_torch.utils.streams import read_exactly
 
 log = logging.getLogger(__name__)
@@ -54,6 +55,12 @@ class ChunkManager(abc.ABC):
 class DefaultChunkManager(ChunkManager):
     #: How long a key stays quarantined after a detransform failure.
     DEFAULT_QUARANTINE_TTL_S = 60.0
+    #: Optional pre-detransform hook `(opts)` — the device hot-window tier
+    #: (fetch/cache/device_hot.py `note_detransform`) records the window's
+    #: DetransformOptions so admission can tell whether the decrypt output
+    #: rows ARE the final plaintext (encryption-only segments) and the
+    #: device tensor may be retained for hot serving.
+    on_detransform = None
 
     def __init__(
         self,
@@ -104,6 +111,9 @@ class DefaultChunkManager(ChunkManager):
         if len(chunk_ids) == 0:
             return []
         self._check_quarantine(objects_key)
+        # Fast-fail BEFORE the ranged GET: a request whose end-to-end
+        # deadline already expired must not spend a storage round trip.
+        check_deadline(f"chunk fetch of {objects_key}")
         index = manifest.chunk_index
         chunks = [index._chunk_at(cid) for cid in chunk_ids]
         contiguous = all(
@@ -111,6 +121,8 @@ class DefaultChunkManager(ChunkManager):
         )
         stored = self._fetch_stored(objects_key, chunks, contiguous)
         opts = DetransformOptions.from_manifest(manifest)
+        if self.on_detransform is not None:
+            self.on_detransform(opts)
         try:
             return self._backend.detransform(stored, opts)
         except Exception as e:

@@ -14,11 +14,14 @@ Build directory: `$TSTORCH_BUILD_DIR`, else `_build/` inside this package
 
 `LAUNCHES` counts the launches of each kernel (a plain integer per kernel,
 bumped only where the wrapper launches), so a caller can show that a path
-really went through the kernels.
+really went through the kernels; `LAUNCH_ROWS` splits the same launches by
+the rows (chunks) each covered, so it can show how many chunks a launch
+carried.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -45,6 +48,7 @@ _SIGNATURES = {
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in _SIGNATURES}
+LAUNCH_ROWS: dict[str, collections.Counter] = {name: collections.Counter() for name in _SIGNATURES}
 _LOCK = threading.Lock()
 _LIB: list[ctypes.CDLL] = []
 #: What the last build printed (nvcc -Xptxas -v), and how long it took.
@@ -55,11 +59,18 @@ def reset_launch_counts() -> None:
     with _LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            LAUNCH_ROWS[name].clear()
 
 
 def launch_counts() -> dict[str, int]:
     with _LOCK:
         return dict(LAUNCHES)
+
+
+def launch_rows() -> dict[str, dict[int, int]]:
+    """Per kernel: rows of a launch -> launches with that many rows."""
+    with _LOCK:
+        return {name: dict(sorted(c.items())) for name, c in LAUNCH_ROWS.items()}
 
 
 def build_dir() -> Path:
@@ -142,9 +153,9 @@ def tree_slice() -> int:
     return library().tst_ghash_tree_slice()
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, rows: int) -> None:
     """Launch kernel `name` on the current stream of the current device and
-    count it; raise if the launch was refused."""
+    count it under its `rows`; raise if the launch was refused."""
     lib = library()
     cname, _ = _SIGNATURES[name]
     stream = torch.cuda.current_stream().cuda_stream
@@ -154,3 +165,4 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     with _LOCK:
         LAUNCHES[name] += 1
+        LAUNCH_ROWS[name][rows] += 1

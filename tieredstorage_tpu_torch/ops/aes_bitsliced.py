@@ -362,6 +362,6 @@ def ctr_keystream_batch(
     out = torch.empty((ivs.shape[0], n_blocks, 16), dtype=torch.uint8, device=ivs.device)
     _cuda.launch(
         "aes_ctr_keystream", rk.data_ptr(), ivs.data_ptr(), first_counter,
-        n_blocks, ivs.shape[0], out.data_ptr(),
+        n_blocks, ivs.shape[0], out.data_ptr(), rows=ivs.shape[0],
     )
     return out

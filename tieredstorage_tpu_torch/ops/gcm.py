@@ -384,12 +384,24 @@ def _gcm_varlen_batch(
 
 #: Window-program launches issued by this module's packed entry points
 #: (each is keystream kernel + GHASH kernel + glue) and the payload-scale
-#: intermediates they planned, counted per thread so the backend can read
-#: each window's delta under concurrency.
+#: intermediates they planned. The process-wide launch total is guarded (the
+#: fetch tiers decrypt on pool threads, which would tear a bare increment);
+#: the per-thread counts are the backend's delta source, so one window never
+#: absorbs a sibling thread's launches into its own count.
+_DISPATCHES = [0]
+_DISPATCH_MU = threading.Lock()
 _COUNTERS = threading.local()
 
 
+def device_dispatches() -> int:
+    """Total GCM window-program launches issued so far in this process, on
+    every thread."""
+    with _DISPATCH_MU:
+        return _DISPATCHES[0]
+
+
 def thread_dispatches() -> int:
+    """GCM launches issued by the CALLING thread."""
     return getattr(_COUNTERS, "dispatches", 0)
 
 
@@ -398,6 +410,8 @@ def thread_hbm_roundtrips() -> int:
 
 
 def _count_dispatch(roundtrips: int) -> None:
+    with _DISPATCH_MU:
+        _DISPATCHES[0] += 1
     _COUNTERS.dispatches = thread_dispatches() + 1
     _COUNTERS.roundtrips = thread_hbm_roundtrips() + roundtrips
 

@@ -178,7 +178,7 @@ def ghash_level1(data: torch.Tensor, ops: GhashOperands) -> torch.Tensor:
     out = torch.empty((data.shape[0], 128), dtype=torch.uint8, device=data.device)
     _cuda.launch(
         "ghash_level1", data.data_ptr(), data.shape[0], ops.k_bytes,
-        ops.w1_words.data_ptr(), out.data_ptr(),
+        ops.w1_words.data_ptr(), out.data_ptr(), rows=data.shape[0],
     )
     return out
 
@@ -205,6 +205,6 @@ def ghash_tree(data: torch.Tensor, ops: GhashOperands) -> torch.Tensor:
     _cuda.launch(
         "ghash_tree", data.data_ptr(), rows, groups, k, ops.w1_words.data_ptr(),
         ops.step_words.data_ptr(), ops.slice_step_words.data_ptr(), partials.data_ptr(),
-        out.data_ptr(),
+        out.data_ptr(), rows=rows,
     )
     return out

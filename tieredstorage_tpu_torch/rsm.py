@@ -2,10 +2,15 @@
 
 Counterpart of tieredstorage_tpu/rsm.py (its `configure`,
 `copy_log_segment_data`, `fetch_segment_manifest`, `fetch_log_segment`,
-`fetch_index`, `delete_log_segment_data` and `close`), without the planes
-this package has not ported yet: metrics, tracing spans, the flight recorder,
-deadlines, fault injection, resilience wrappers, caches, readahead, fleet
-mode, scrubbing and the lifecycle journal.
+`fetch_index`, `delete_log_segment_data`, `set_segment_successor` and
+`close`), without the planes this package has not ported yet: metrics,
+tracing spans, the flight recorder, the default deadline, fault injection,
+resilience wrappers, fleet mode, scrubbing and the lifecycle journal.
+
+Fetches go through the fetch plane, as in the JAX package: the manifest and
+indexes caches are on in every configuration, and the chunk path is the
+factory's chain `[Readahead] → [ChunkCache] → [DeviceHotCache] →
+DefaultChunkManager` (fetch/factory.py).
 
 A copy uploads three objects — the transformed segment (`.log`), the
 concatenated transformed indexes (`.indexes`) and the manifest
@@ -33,8 +38,16 @@ from tieredstorage_tpu_torch.errors import (
     RemoteResourceNotFoundException,
     RemoteStorageException,
 )
-from tieredstorage_tpu_torch.fetch.chunk_manager import DefaultChunkManager
+from tieredstorage_tpu_torch.fetch.cache.device_hot import DeviceHotCache
+from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager
 from tieredstorage_tpu_torch.fetch.enumeration import FetchChunkEnumeration
+from tieredstorage_tpu_torch.fetch.factory import ChunkManagerFactory
+from tieredstorage_tpu_torch.fetch.index_cache import MemorySegmentIndexesCache
+from tieredstorage_tpu_torch.fetch.manifest_cache import (
+    ManifestLookahead,
+    MemorySegmentManifestCache,
+)
+from tieredstorage_tpu_torch.fetch.readahead import ReadaheadManager
 from tieredstorage_tpu_torch.kafka_records import (
     InvalidRecordBatchException,
     segment_looks_compressed,
@@ -73,7 +86,12 @@ class RemoteStorageManager:
         self._transform_backend = None
         self._object_key_factory: Optional[ObjectKeyFactory] = None
         self._rsa: Optional[RsaEncryptionProvider] = None
-        self._chunk_manager: Optional[DefaultChunkManager] = None
+        self._chunk_manager: Optional[ChunkManager] = None
+        self._device_hot: Optional[DeviceHotCache] = None
+        self._readahead: Optional[ReadaheadManager] = None
+        self._manifest_cache: Optional[MemorySegmentManifestCache] = None
+        self._manifest_lookahead: Optional[ManifestLookahead] = None
+        self._indexes_cache: Optional[MemorySegmentIndexesCache] = None
 
     # ------------------------------------------------------------------ setup
     def configure(self, configs: Mapping[str, object]) -> None:
@@ -92,11 +110,64 @@ class RemoteStorageManager:
         self._transform_backend = backend
         self._object_key_factory = ObjectKeyFactory(config.key_prefix, config.key_prefix_mask)
         self._rsa = rsa
-        self._chunk_manager = DefaultChunkManager(storage, backend)
+        self._chunk_manager = self._build_chunk_manager(backend)
+        self._manifest_cache = MemorySegmentManifestCache()
+        self._manifest_cache.configure(config.fetch_manifest_cache_configs())
+        self._manifest_lookahead = ManifestLookahead(self._manifest_cache)
+        self._indexes_cache = MemorySegmentIndexesCache()
+        self._indexes_cache.configure(config.fetch_indexes_cache_configs())
+
+    def _build_chunk_manager(self, backend) -> ChunkManager:
+        factory = ChunkManagerFactory()
+        factory.configure(self._config.raw_props())
+        manager = factory.init_chunk_manager(self._storage, backend)
+        self._device_hot = factory.device_hot_cache
+        self._readahead = factory.readahead_manager
+        return manager
 
     @property
     def transform_backend(self):
         return self._transform_backend
+
+    @property
+    def device_hot_cache(self) -> Optional[DeviceHotCache]:
+        """The device hot-window tier, or None when `cache.device.bytes`
+        is 0 (fetch/cache/device_hot.py)."""
+        return self._device_hot
+
+    @property
+    def readahead_manager(self) -> Optional[ReadaheadManager]:
+        """The readahead tier (None unless ``readahead.enabled``)."""
+        return self._readahead
+
+    @property
+    def manifest_lookahead(self) -> Optional[ManifestLookahead]:
+        return self._manifest_lookahead
+
+    def set_segment_successor(self, successor) -> None:
+        """Teach the readahead tier segment replay order: ``successor`` maps
+        a segment's ``ObjectKey`` to the NEXT segment's key (or None at the
+        log head). Segment ordering is broker-side knowledge (base offsets),
+        so the embedding broker wires it; the resolved manifest loads ride
+        the keyed single-flight manifest lookahead, so N streams crossing
+        one boundary resolve the next manifest once."""
+        if self._readahead is None:
+            raise RemoteStorageException("readahead is not enabled")
+        lookahead = self._manifest_lookahead
+
+        def resolver(key: ObjectKey):
+            next_key = successor(key)
+            if next_key is None:
+                return None
+            manifest_key = ObjectKey(
+                f"{next_key.value.rsplit('.', 1)[0]}.{Suffix.MANIFEST.value}"
+            )
+            loader = lambda: self._fetch_manifest_by_key(manifest_key)  # noqa: E731
+            # Start resolving immediately; the returned thunk joins it.
+            lookahead.prefetch(manifest_key, loader)
+            return next_key, lambda: lookahead.get(manifest_key, loader)
+
+        self._readahead.next_segment_resolver = resolver
 
     def _require_configured(self) -> RemoteStorageManagerConfig:
         if self._config is None:
@@ -285,6 +356,14 @@ class RemoteStorageManager:
     def fetch_segment_manifest(self, metadata: RemoteLogSegmentMetadata) -> SegmentManifestV1:
         self._require_configured()
         key = self._object_key(metadata, Suffix.MANIFEST)
+        # Through the lookahead: a boundary crossing whose manifest a
+        # readahead continuation already started resolving JOINS that
+        # flight instead of stalling on a second fetch+parse.
+        return self._manifest_lookahead.get(
+            key, lambda: self._fetch_manifest_by_key(key)
+        )
+
+    def _fetch_manifest_by_key(self, key: ObjectKey) -> SegmentManifestV1:
         try:
             with self._storage.fetch(key) as stream:
                 text = stream.read()
@@ -343,21 +422,32 @@ class RemoteStorageManager:
             if segment_index.size == 0:
                 return io.BytesIO(b"")
             key = self._object_key(metadata, Suffix.INDEXES)
-            with self._storage.fetch(key, segment_index.range()) as stream:
-                blob = stream.read()
-            opts = DetransformOptions(
-                compression=False,
-                encryption=(
-                    DataKeyAndAAD(manifest.encryption.data_key, manifest.encryption.aad)
-                    if manifest.encryption is not None
-                    else None
-                ),
+            return io.BytesIO(
+                self._indexes_cache.get(
+                    key,
+                    index_type,
+                    lambda: self._fetch_index_bytes(key, segment_index.range(), manifest),
+                )
             )
-            return io.BytesIO(self._transform_backend.detransform([blob], opts)[0])
         except KeyNotFoundException as e:
             raise RemoteResourceNotFoundException(str(e)) from e
         except StorageBackendException as e:
             raise RemoteStorageException(str(e)) from e
+
+    def _fetch_index_bytes(
+        self, key: ObjectKey, byte_range: BytesRange, manifest: SegmentManifestV1
+    ) -> bytes:
+        with self._storage.fetch(key, byte_range) as stream:
+            blob = stream.read()
+        opts = DetransformOptions(
+            compression=False,
+            encryption=(
+                DataKeyAndAAD(manifest.encryption.data_key, manifest.encryption.aad)
+                if manifest.encryption is not None
+                else None
+            ),
+        )
+        return self._transform_backend.detransform([blob], opts)[0]
 
     # ----------------------------------------------------------------- delete
     def delete_log_segment_data(self, metadata: RemoteLogSegmentMetadata) -> None:
@@ -403,6 +493,13 @@ class RemoteStorageManager:
             ) from failures[0][1]
 
     def close(self) -> None:
+        # The chunk chain first: its close drains the readahead and cache
+        # pools, whose loads reach the transform backend closed last.
+        if self._chunk_manager is not None and hasattr(self._chunk_manager, "close"):
+            self._chunk_manager.close()
+        for cache in (self._manifest_lookahead, self._manifest_cache, self._indexes_cache):
+            if cache is not None:
+                cache.close()
         if self._transform_backend is not None:
             self._transform_backend.close()
 

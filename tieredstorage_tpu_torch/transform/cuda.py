@@ -141,6 +141,17 @@ class _StagedWindow:
 
 
 class CudaTransformBackend(TransformBackend):
+    #: Optional decrypt-retention hook (`fetch/cache/device_hot.py`'s
+    #: ``offer_decrypt_window``): called on the decrypting thread with
+    #: ``(out, sizes, n_bytes)`` after each VERIFIED decrypt
+    #: window, while the packed ``output || tags`` tensor is still in device
+    #: memory, so the hot tier can retain it without a second decrypt. On
+    #: CUDA ``out`` is the window's own staged tensor: allocated fresh per
+    #: window and never pooled, so no later launch writes it. On the CPU the
+    #: staged window is the pooled host staging buffer, which the next
+    #: window of the same shape overwrites, so the hook gets a copy.
+    on_decrypt_window = None
+
     preferred_batch_chunks = 256
     # Window byte cap: with pipeline_depth=3 up to 4 windows are staged at
     # once, each pinning its buffer plus the keystream and GHASH
@@ -156,6 +167,7 @@ class CudaTransformBackend(TransformBackend):
         self.dispatch_stats = DispatchStats()
         self._staging = _StagingPool()
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
 
     @property
     def device(self) -> torch.device:
@@ -195,14 +207,16 @@ class CudaTransformBackend(TransformBackend):
         _ = self.device  # fail at configure, not at the first window
 
     def _zstd_pool(self) -> ThreadPoolExecutor:
-        if self._pool is None:
-            self._pool = ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 4))
-        return self._pool
+        with self._pool_lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 4))
+            return self._pool
 
     def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=False)
-            self._pool = None
+        with self._pool_lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     # ------------------------------------------------------------- transform
     def transform(self, chunks: Sequence[bytes], opts: TransformOptions) -> list[bytes]:
@@ -446,6 +460,10 @@ class CudaTransformBackend(TransformBackend):
             ]
             if bad:
                 raise AuthenticationError(f"GCM tag mismatch on chunks {bad}")
+            hook = self.on_decrypt_window
+            if hook is not None:
+                out = staged.out if staged.out.device.type == "cuda" else staged.out.clone()
+                hook(out, sizes, n_bytes)
             return [host[i, : sizes[i]].tobytes() for i in range(len(sizes))]
         finally:
             self._staging.release(staged.host)
