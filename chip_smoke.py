@@ -38,7 +38,24 @@ Phases, in order, each printing its seconds:
              twice, which must load the manifest and each index from storage
              once;
 5. counts  — every kernel must have launched on the main path and on the
-             fetch plane.
+             fetch plane, and AES and the GHASH tree in phase 6 (checked
+             after phase 6);
+6. scheduler and scrub — a fresh store, the window batcher on (JAX
+             defaults: 2 ms, 16 windows, 64 MiB) and the scrubber with upload
+             checksums, `scrub.rate.bytes` 512 MiB/s (cut from the 8 MiB/s
+             default, which would take about 128 s a pass), the launch
+             counts zeroed before (a) and read after (d): (a) 4 threads copy
+             4 segments of 256 MiB (64 CRC32C checksums each, 8 seeded ones
+             held against the host table); (b) 8 consumers, 4 on each of 2
+             segments, read their own 64 MiB slices in 1 MiB reads, once with
+             the batcher and once on an RSM without it (a merged launch of
+             occupancy >= 2, AES and the tree on >= 8 rows); (c) a scrub pass
+             over the store under 2 reading consumers (clean, 256 chunks,
+             background-class launches, no merged launch mixing classes);
+             (d) one flipped byte found by CRC32C on its chunk, the segment
+             quarantined, another segment still identical. Then the CRC32C
+             program on 16 x (4 MiB + 28 B) alone: device time, peak memory
+             and its bound.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -55,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -99,6 +117,12 @@ AES_GATES_PER_BLOCK = (4 + 12 * 16) * 113 + 11 * 4 * 92 + 13 * 128
 #: HBM3 at 700 W by tools/torch_mma_rate_probe.py (8164.0 T ops/s, two ops
 #: per bit-product).
 B1_TC_BIT_PRODUCTS_PER_S = 4.082e15
+#: float32 FLOP/s outside the tensor cores (NVIDIA data sheet, H100 SXM):
+#: the CRC32C tree's bit products are float32 matmuls with TF32 off.
+FP32_FLOPS_PER_S = 67e12
+#: Phase 6's scrub budget: `scrub.rate.bytes` cut from the 8 MiB/s default
+#: so a pass over 1 GiB takes seconds, not minutes.
+SCRUB_RATE = 512 * MIB
 
 
 class SmokeFailure(Exception):
@@ -582,6 +606,348 @@ def fetch_plane(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0
     return rec
 
 
+def _run_threads(fns) -> list:
+    """Run each callable on its own thread, started together behind a
+    barrier; returns the exceptions they raised."""
+    errors: list = []
+    barrier = threading.Barrier(len(fns))
+
+    def run(fn):
+        try:
+            barrier.wait(timeout=120)
+            fn()
+        except BaseException as e:  # noqa: BLE001 - reported by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return errors
+
+
+def _rows_delta(before: dict, after: dict) -> dict:
+    return {name: {r: c - before[name].get(r, 0) for r, c in rows.items()
+                   if c - before[name].get(r, 0)} for name, rows in after.items()}
+
+
+def _batcher_counts(b) -> dict:
+    return {k: getattr(b, k) for k in (
+        "windows_submitted", "fast_path_windows", "batched_windows", "launches",
+        "expired_windows", "launch_failures", "launch_retries")} | {
+        "class_launches": dict(b.class_launches),
+        "class_flushed_windows": dict(b.class_flushed_windows),
+        "class_added_wait_ms": dict(b.class_added_wait_ms)}
+
+
+def _counts_delta(before: dict, after: dict) -> dict:
+    return {k: ({c: after[k][c] - before[k][c] for c in after[k]} if isinstance(after[k], dict)
+                else after[k] - before[k]) for k in after}
+
+
+def crc32c_timing(seed: int, device) -> dict:
+    """The CRC32C torch program on 16 stored 4 MiB chunks (4 MiB + 28 B,
+    left-padded to 4 MiB + 32): device time of the tree alone, wall time of
+    `crc32c_batch` from host bytes, peak device memory of one call, and the
+    bound (the bytes at the HBM rate against the bit products' float32
+    FLOPs outside the tensor cores)."""
+    from tieredstorage_tpu_torch.ops import crc32c
+
+    rows, width = 16, CHUNK + 32
+    rng = np.random.default_rng(seed + 30)
+    chunks = [rng.bytes(CHUNK + 28) for _ in range(rows)]
+    got = crc32c.crc32c_batch(chunks, device)
+    check(got[:2] == [crc32c.crc32c_host(c) for c in chunks[:2]],
+          "CRC32C on the card disagrees with the host table")
+    data = torch.zeros((rows, width), dtype=torch.uint8, device=device)
+    joined = np.frombuffer(bytearray(b"".join(chunks)), np.uint8).reshape(rows, -1)
+    data[:, 4:] = torch.from_numpy(joined).to(device)
+    n_blocks = width // 16
+    levels = max(1, (n_blocks - 1).bit_length())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    crc32c._crc0_batch(data, levels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = time_cuda(lambda: crc32c._crc0_batch(data, levels), 3, reps=3)
+    t = time.perf_counter()
+    for _ in range(3):
+        crc32c.crc32c_batch(chunks, device)
+    wall_ms = (time.perf_counter() - t) / 3 * 1e3
+    macs, count = rows * n_blocks * 128 * 32, n_blocks
+    for _ in range(levels):
+        count = -(-count // 2)
+        macs += rows * count * 32 * 32
+    nbytes = rows * (CHUNK + 28) + rows * 4
+    bound_ms, bound_by = bound(nbytes, 2 * macs / FP32_FLOPS_PER_S * 1e3)
+    return {"shape": f"uint8[{rows}, {width}]", "levels": levels, "ms": ms,
+            "wall_ms_from_host_bytes": wall_ms, "peak_device_bytes": peak,
+            "bound_ms": bound_ms, "bound_by": bound_by, "macs": macs, "bytes": nbytes}
+
+
+def scheduler_scrub(seed: int, work: Path, device: str = "cuda:0",
+                    segment_bytes: int = 256 * MIB, segments: int = 4) -> dict:
+    """Phase 6: the window batcher and the scrub plane on one fresh store;
+    the launch counts are zeroed before (a) and read after (d)."""
+    from tieredstorage_tpu_torch.fetch.chunk_manager import CorruptChunkException
+    from tieredstorage_tpu_torch.object_key import ObjectKeyFactory, Suffix
+    from tieredstorage_tpu_torch.ops import _cuda, crc32c, gcm
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.scrub.scrubber import CORRUPT_CHUNK
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.transform.scheduler import BACKGROUND
+
+    store = work / "store"
+    store.mkdir()
+    pub, priv = generate_key_pair_pem_files(work, prefix="sched")
+    segs = []
+    for i in range(segments):
+        seg_dir = work / f"segment-{i}"
+        seg_dir.mkdir()
+        md, sd, files, _ = write_segment(seg_dir, seed + 10 + i, segment_bytes)
+        segs.append((md, sd, files["log"].read_bytes()))
+    n_chunks = segment_bytes // CHUNK
+    gib = segments * segment_bytes / (1 << 30)
+    batched_cfg = {
+        "transform.batch.enabled": True, "transform.batch.wait.ms": 2,
+        "transform.batch.windows": 16, "transform.batch.bytes": 64 * MIB,
+        "scrub.enabled": True, "scrub.interval.ms": 3_600_000,
+        "scrub.checksums.enabled": True, "scrub.rate.bytes": SCRUB_RATE,
+    }
+
+    def rsm_with(extra) -> RemoteStorageManager:
+        rsm = RemoteStorageManager()
+        rsm.configure(_rsm_configs(store, pub, priv, device, extra))
+        if rsm.scrub_scheduler is not None:
+            rsm.scrub_scheduler.stop()  # passes are driven by scrub_once()
+        return rsm
+
+    rsm = rsm_with(batched_cfg)
+    batcher = rsm.transform_backend.batcher
+    occupancies: list = []
+    batcher.on_flush = lambda occ, waits, cls, batch_id, trace_ids: occupancies.append((cls, occ))
+    rec: dict = {"segments": segments, "segment_bytes": segment_bytes,
+                 "scrub_rate_bytes": SCRUB_RATE}
+    _cuda.reset_launch_counts()
+
+    # (a) Concurrent copies: Kafka's remote-log manager copies the segments
+    # of many partitions at once. Four rounds in turns, unbatched, batched,
+    # batched, unbatched: the third, through this RSM, fills the store that
+    # (b)-(d) read; the others go to a side store, each through an RSM of
+    # its own, and are deleted. Every copy makes a new data key, so every
+    # round builds its GCM contexts cold.
+    def copy_round(writer) -> float:
+        t0 = time.perf_counter()
+        errs = _run_threads([lambda md=md, sd=sd: writer.copy_log_segment_data(md, sd)
+                             for md, sd, _ in segs])
+        check(not errs, f"concurrent copies failed: {errs!r}")
+        return time.perf_counter() - t0
+
+    def side_round(extra) -> float:
+        side = work / "store-side"
+        side.mkdir()
+        writer = RemoteStorageManager()
+        writer.configure(_rsm_configs(side, pub, priv, device,
+                                      {"scrub.checksums.enabled": True, **extra}))
+        try:
+            return copy_round(writer)
+        finally:
+            writer.close()
+            shutil.rmtree(side)
+
+    batch_only = {k: v for k, v in batched_cfg.items() if k.startswith("transform.")}
+    copy_s = {"unbatched": [side_round({})], "batched": [side_round(batch_only)]}
+    before = _batcher_counts(batcher)
+    copy_s["batched"].append(copy_round(rsm))
+    copy_delta = _counts_delta(before, _batcher_counts(batcher))
+    copy_s["unbatched"].append(side_round({}))
+    factory = ObjectKeyFactory("smoke/", False)
+    log_paths = [store / factory.key(md, Suffix.LOG).value for md, _, _ in segs]
+    sums = []
+    for md, _, _ in segs:
+        manifest = rsm.fetch_segment_manifest(md)
+        check(manifest.chunk_checksums is not None and len(manifest.chunk_checksums) == n_chunks,
+              "a manifest lacks its chunk checksums")
+        sums.append(manifest.chunk_checksums)
+    probes = np.random.default_rng(seed + 20).choice(segments * n_chunks, 8, replace=False)
+    for p in sorted(int(x) for x in probes):
+        i, k = divmod(p, n_chunks)
+        with open(log_paths[i], "rb") as f:
+            f.seek(k * (CHUNK + 28))
+            stored = f.read(CHUNK + 28)
+        check(crc32c.crc32c_host(stored) == sums[i][k],
+              f"checksum of chunk {k} of segment {i} differs from the stored bytes")
+    rec["copy"] = {"order": "unbatched, batched, batched (this store), unbatched",
+                   "s": copy_s, "gib_s": {m: [gib / x for x in v] for m, v in copy_s.items()},
+                   "checksums_checked": 8, "batcher": copy_delta}
+
+    # (b) Concurrent consumers: 8 threads (Kafka's num.io.threads), 4 on
+    # each of 2 segments, each reading its own 64 MiB slice in 1 MiB reads.
+    slice_bytes = segment_bytes // 4
+
+    def consumers(reader) -> dict:
+        latencies: list = []
+        bad: list = []
+        thread_s: list = []
+
+        def consumer(j: int):
+            md, _, src = segs[j // 4]
+            start = (j % 4) * slice_bytes
+            t_thread = time.perf_counter()
+            for off in range(start, start + slice_bytes, MIB):
+                t0 = time.perf_counter()
+                with reader.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                    data = stream.read()
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                if data != src[off : off + MIB]:
+                    bad.append((j, off))
+            thread_s.append(time.perf_counter() - t_thread)
+
+        rows_before = _cuda.launch_rows()
+        t0 = time.perf_counter()
+        errs = _run_threads([lambda j=j: consumer(j) for j in range(8)])
+        wall = time.perf_counter() - t0
+        check(not errs, f"consumers failed: {errs!r}")
+        check(not bad, f"consumer reads differ from the source: {bad[:4]}")
+        rows = _rows_delta(rows_before, _cuda.launch_rows())
+        return {"wall_s": wall, "gib_s": 8 * slice_bytes / (1 << 30) / wall,
+                "p50_ms": float(np.percentile(latencies, 50)),
+                "p99_ms": float(np.percentile(latencies, 99)),
+                "mean_ms": float(np.mean(latencies)), "max_ms": float(np.max(latencies)),
+                "thread_s_min": min(thread_s), "thread_s_max": max(thread_s),
+                "rows_per_launch": {n: rows[n] for n in ("aes_ctr_keystream", "ghash_tree")},
+                "launched_rows": sum(r * c for r, c in rows["aes_ctr_keystream"].items())}
+
+    # Both readers warm first, untimed: one read of each segment (manifest
+    # load and RSA unwrap), and the fixed and varlen GCM contexts of both
+    # segments' keys, the host work a broker does once per segment. Then
+    # four runs in turns: batched, unbatched, unbatched, batched.
+    plain_rsm = rsm_with({})
+    readers = {"batched": rsm, "unbatched": plain_rsm}
+    for reader in readers.values():
+        for md, _, src in segs[:2]:
+            with reader.fetch_log_segment(md, 0, MIB - 1) as stream:
+                check(stream.read() == src[:MIB], "a warm-up read differs from the source")
+    for md, _, _ in segs[:2]:
+        enc = rsm.fetch_segment_manifest(md).encryption
+        gcm.make_context(enc.data_key, enc.aad, CHUNK)
+        gcm.make_varlen_context(enc.data_key, enc.aad, CHUNK)
+    runs: dict = {"batched": [], "unbatched": []}
+    for mode in ("batched", "unbatched", "unbatched", "batched"):
+        before, n_occ = _batcher_counts(batcher), len(occupancies)
+        run = consumers(readers[mode])
+        if mode == "batched":
+            delta = _counts_delta(before, _batcher_counts(batcher))
+            occ = [o for _, o in occupancies[n_occ:]]
+            check(max(occ, default=0) >= 2, f"no merged launch of occupancy >= 2: {occ}")
+            for name in ("aes_ctr_keystream", "ghash_tree"):
+                check(max(run["rows_per_launch"][name], default=0) >= 8,
+                      f"no {name} launch of 8 or more rows through the batcher")
+            run.update(batcher=delta, mean_occupancy=sum(occ) / len(occ),
+                       max_occupancy=max(occ), live_rows=delta["windows_submitted"])
+        runs[mode].append(run)
+    plain_rsm.close()
+    rec["consumers"] = runs
+
+    # (c) A scrub pass over the whole store while 2 consumers keep reading.
+    done = threading.Event()
+    load_lat: list = []
+    load_bad: list = []
+
+    def reader(j: int):
+        rng = np.random.default_rng(seed + 40 + j)
+        md, _, src = segs[2 + j]
+        while not done.is_set():
+            off = int(rng.integers(0, segment_bytes // MIB)) * MIB
+            t0 = time.perf_counter()
+            with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                data = stream.read()
+            load_lat.append((time.perf_counter() - t0) * 1e3)
+            if data != src[off : off + MIB]:
+                load_bad.append((j, off))
+
+    crc_calls = [0]
+    real_chunks = crc32c.crc32c_chunks
+
+    def counted_chunks(data, dev):
+        crc_calls[0] += 1
+        return real_chunks(data, dev)
+
+    crc32c.crc32c_chunks = counted_chunks
+    before = _batcher_counts(batcher)
+    readers = [threading.Thread(target=reader, args=(j,)) for j in range(2)]
+    for r in readers:
+        r.start()
+    try:
+        t = time.perf_counter()
+        report = rsm.scrubber.scrub_once()
+        pass_s = time.perf_counter() - t
+    finally:
+        done.set()
+        for r in readers:
+            r.join()
+        crc32c.crc32c_chunks = real_chunks
+    delta = _counts_delta(before, _batcher_counts(batcher))
+    check(report.clean, f"scrub of an intact store found {report.counts()}")
+    check(report.chunks_verified == segments * n_chunks,
+          f"scrub verified {report.chunks_verified} chunks")
+    check(delta["class_launches"][BACKGROUND] > 0, "the scrub made no background-class launch")
+    check(not load_bad, f"reads under the scrub differ from the source: {load_bad[:4]}")
+    totals = _batcher_counts(batcher)
+    check(sum(totals["class_launches"].values()) == totals["launches"]
+          and sum(totals["class_flushed_windows"].values()) == totals["batched_windows"],
+          "per-class launch counts do not add up: a merged launch mixed classes")
+    bg = delta["class_flushed_windows"][BACKGROUND]
+    floor_s = max(0.0, report.bytes_scanned - SCRUB_RATE) / SCRUB_RATE
+    check(pass_s >= 0.9 * floor_s, f"the pass took {pass_s:.2f} s, under its rate floor {floor_s:.2f} s")
+    rec["scrub"] = {
+        "pass_s": pass_s, "bytes_scanned": report.bytes_scanned,
+        "chunks_verified": report.chunks_verified, "rate_floor_s": floor_s,
+        "bytes_over_rate_s": report.bytes_scanned / SCRUB_RATE,
+        "crc32c_device_calls": crc_calls[0], "batcher": delta,
+        "background_added_wait_ms_per_window": delta["class_added_wait_ms"][BACKGROUND] / bg if bg else 0.0,
+        "load_reads": len(load_lat),
+        "load_p50_ms": float(np.percentile(load_lat, 50)) if load_lat else None,
+        "load_p99_ms": float(np.percentile(load_lat, 99)) if load_lat else None,
+    }
+
+    # (d) One flipped byte inside chunk k of segment 1's .log.
+    k = 37 % n_chunks
+    with open(log_paths[1], "r+b") as f:
+        f.seek(k * (CHUNK + 28) + 12 + 1234)
+        byte = f.read(1)
+        f.seek(k * (CHUNK + 28) + 12 + 1234)
+        f.write(bytes([byte[0] ^ 0x01]))
+    report = rsm.scrubber.scrub_once()
+    check(len(report.findings) == 1, f"the flipped byte gave {report.counts()}")
+    [finding] = report.findings
+    check(finding.kind == CORRUPT_CHUNK and finding.chunk_id == k and "CRC32C" in finding.detail,
+          f"unexpected finding {finding.to_json()}")
+    try:
+        with rsm.fetch_log_segment(segs[1][0], 0, MIB - 1) as stream:
+            stream.read()
+        raise SmokeFailure("a quarantined segment was served")
+    except SmokeFailure:
+        raise
+    except Exception as e:  # the cause chain must hold the quarantine
+        chain, cur = [], e
+        while cur is not None:
+            chain.append(cur)
+            cur = cur.__cause__ or cur.__context__
+        check(any(isinstance(c, CorruptChunkException) and "quarantined" in str(c) for c in chain),
+              f"fetch of the corrupt segment failed without the quarantine: {e!r}")
+    with rsm.fetch_log_segment(segs[0][0], 0) as stream:
+        check(stream.read() == segs[0][2], "an intact segment differs after the corruption")
+    rec["corruption"] = {"finding": finding.to_json(), "quarantined_fetch_refused": True}
+    rsm.close()
+    rec["launches"] = _cuda.launch_counts()
+    rec["launch_rows"] = _cuda.launch_rows()
+    rec["occupancies"] = occupancies
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -649,17 +1015,40 @@ def main(argv=None) -> int:
     for part in ("replay", "hot", "ranged"):
         print(f"fetch plane {part}: " + json.dumps(plane[part]))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sched_"))
+    try:
+        t = time.perf_counter()
+        sched = scheduler_scrub(args.seed, work)
+        record["scheduler_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase scheduler and scrub: {record['scheduler_s']:.1f} s "
+          f"(scrub.rate.bytes cut to {SCRUB_RATE} from 8388608 for time)")
+    record["scheduler"] = sched
+    print("scheduler copy: " + json.dumps(sched["copy"]))
+    for mode in ("batched", "unbatched"):
+        print(f"scheduler consumers {mode}: " + json.dumps(sched["consumers"][mode]))
+    print("scheduler scrub: " + json.dumps(sched["scrub"]))
+    print("scheduler corruption: " + json.dumps(sched["corruption"]))
+    crc = crc32c_timing(args.seed, device)
+    record["crc32c"] = crc
+    print("crc32c: " + json.dumps(crc))
+
     launches = main_rec["launches"]
     missing = [name for name in kernels if launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
     missing = [name for name in kernels if plane["launches"].get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the fetch plane: {missing}")
+    missing = [name for name in ("aes_ctr_keystream", "ghash_tree")
+               if sched["launches"].get(name, 0) <= 0]
+    check(not missing, f"kernels never launched in the scheduler phase: {missing}")
     line = {"kernels": []}
     for name, rec in kernels.items():
         entry = {k: rec[k] for k in (
             "name", "route", "source", "replaces")}
         entry["launches"] = launches[name]
         entry["launches_fetch_plane"] = plane["launches"][name]
+        entry["launches_scheduler"] = sched["launches"][name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -217,3 +217,65 @@ def test_hot_serve_makes_no_gcm_launch(hot_rsm):
     assert gcm.device_dispatches() == before
     for cid, row in zip((4, 1), rows):
         assert row[:HOT_CHUNK].cpu().numpy().tobytes() == log[cid * HOT_CHUNK : (cid + 1) * HOT_CHUNK]
+
+
+def test_merged_flush_on_the_card_matches_unbatched_windows(device):
+    """Three decrypt windows of one key, coalesced into one merged launch
+    (padded to 8 rows) on the card, against the same windows decrypted one
+    by one; then the same three windows encrypted in one merged launch."""
+    import threading
+
+    from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+    from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
+    from tieredstorage_tpu_torch.transform.batcher import WindowBatcher
+    from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+
+    rng = np.random.default_rng(61)
+    enc = DataKeyAndAAD(rng.bytes(32), rng.bytes(32))
+    windows = [[rng.bytes(1 << 20), rng.bytes((1 << 20) - 100 * i)] for i in range(3)]
+    plain = CudaTransformBackend()
+    plain.configure({})
+    wires = [plain.transform(w, TransformOptions(encryption=enc)) for w in windows]
+    unbatched = [plain.detransform(w, DetransformOptions(encryption=enc)) for w in wires]
+    assert unbatched == windows
+
+    backend = CudaTransformBackend()
+    backend.configure({})
+    batcher = WindowBatcher(backend, wait_ms=50)
+    batcher._inflight += 1  # park the fast path: every submit queues
+    backend.batcher = batcher
+    results: list = [None] * 3
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, backend.detransform(wires[i], DetransformOptions(encryption=enc)))) for i in range(3)]
+    for t in threads:
+        t.start()
+    with batcher._cond:
+        assert batcher._cond.wait_for(
+            lambda: sum(len(v) for v in batcher._buckets.values()) == 3, timeout=60)
+    rows_before = _cuda.launch_rows()["aes_ctr_keystream"].get(8, 0)
+    assert batcher.flush_now() == 1
+    for t in threads:
+        t.join(timeout=60)
+    assert results == unbatched
+    assert (batcher.launches, batcher.batched_windows) == (1, 3)
+    assert _cuda.launch_rows()["aes_ctr_keystream"].get(8, 0) == rows_before + 1
+
+    ivs = [[rng.bytes(12) for _ in w] for w in windows]
+    handles = [batcher.submit_encrypt(w, TransformOptions(encryption=enc, ivs=iv))
+               for w, iv in zip(windows, ivs)]
+    assert batcher.flush_now() == 1
+    assert [h.wait() for h in handles] == [
+        plain.transform(w, TransformOptions(encryption=enc, ivs=iv)) for w, iv in zip(windows, ivs)
+    ]
+    plain.close()
+    backend.close()
+
+
+def test_crc32c_batch_on_the_card_matches_the_host_table(device):
+    """16 stored 4 MiB chunks (4 MiB + 28 B each, left-padded to 16 B) in
+    one device group, against the host table."""
+    from tieredstorage_tpu_torch.ops.crc32c import crc32c_batch, crc32c_host
+
+    rng = np.random.default_rng(62)
+    chunks = [rng.bytes((4 << 20) + 28) for _ in range(16)]
+    assert crc32c_batch(chunks, device) == [crc32c_host(c) for c in chunks]

@@ -105,13 +105,29 @@ def test_staging_buffers_are_reused_across_windows():
 
 @pytest.mark.parametrize(
     "configs,match",
-    [({"batch.enabled": "true"}, "batching is not yet ported"),
+    [({"batch.enabled": "true", "batch.windows": 1}, "at least 2"),
      ({"mesh.devices": 2}, "multi-GPU")],
     ids=["batch", "mesh"],
 )
 def test_unported_backend_options_are_refused(configs, match):
     with pytest.raises(ConfigException, match=match):
         CudaTransformBackend().configure({"device": "cpu", **configs})
+
+
+def test_batch_enabled_starts_a_batcher_and_close_stops_it():
+    backend = CudaTransformBackend()
+    backend.configure({"device": "cpu", "batch.enabled": "true", "batch.wait.ms": 3,
+                       "batch.windows": 5})
+    batcher = backend.batcher
+    assert batcher is not None and batcher._thread.is_alive()
+    assert (batcher.wait_ms, batcher.max_windows) == (3.0, 5)
+    key, aad, chunks, ivs = _inputs(10, [4096, 4096, 100])
+    enc = DataKeyAndAAD(key, aad)
+    stored = backend.transform(chunks, TransformOptions(encryption=enc, ivs=ivs))
+    assert backend.detransform(stored, DetransformOptions(encryption=enc)) == chunks
+    assert batcher.fast_path_windows == 2  # serial calls take the idle fast path
+    backend.close()
+    assert backend.batcher is None and batcher._thread is None
 
 
 def test_default_device_without_gpu_raises_at_configure(monkeypatch):

@@ -55,6 +55,19 @@ def in_range(min_value=None, max_value=None):
     return check
 
 
+def null_or(validator: Callable[[str, Any], None]):
+    """Accept None, else delegate to `validator`."""
+
+    def check(name: str, value) -> None:
+        if value is not None:
+            validator(name, value)
+
+    inner = getattr(validator, "description", None)
+    if inner:
+        check.description = f"null or {inner}"
+    return check
+
+
 def non_empty_string(name: str, value) -> None:
     if value is not None and str(value).strip() == "":
         raise ConfigException(f"Invalid value for configuration {name}: String must be non-empty")

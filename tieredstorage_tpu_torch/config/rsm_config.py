@@ -4,9 +4,11 @@ Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
 `storage.*` (with the required `storage.backend.class`), `key.prefix`,
 `key.prefix.mask`, `chunk.size`, `compression.*`, `encryption.*` (keyring
 with the two-phase `encryption.key.pairs.<id>.*` define),
-`custom.metadata.fields.include`, `transform.backend.class` (default: this
-package's CudaTransformBackend) and the `transform.*` subtree its backend
-reads, and the fetch plane's keys, which their own modules parse:
+`custom.metadata.fields.include`, `upload.rate.limit.bytes.per.second`,
+`retry.launch.*` (the window batcher's launch retry), `scrub.*` (the
+scrubber, its scheduler and the upload checksums), `transform.backend.class`
+(default: this package's CudaTransformBackend) and the `transform.*` subtree
+its backend reads, and the fetch plane's keys, which their own modules parse:
 `fetch.chunk.cache.*`, `fetch.manifest.cache.*`, `fetch.indexes.cache.*`
 (config/cache_config.py), `fetch.chunk.cache.class`, `cache.device.*` and
 `readahead.*` (fetch/factory.py). Every other key of the JAX package's
@@ -24,6 +26,7 @@ from tieredstorage_tpu_torch.config.configdef import (
     ConfigKey,
     in_range,
     non_empty_string,
+    null_or,
     subset_with_prefix,
 )
 
@@ -38,7 +41,7 @@ FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 #: Keys of the JAX package's configuration that this package has not ported.
 NOT_YET_PORTED = frozenset({
     "tracing.enabled", "tracing.jax.profiler.enabled", "tracing.max.spans",
-    "tracing.export.path", "upload.rate.limit.bytes.per.second",
+    "tracing.export.path",
     "fault.injection.enabled", "fault.schedule", "fault.seed",
     "breaker.enabled", "breaker.failure.threshold", "breaker.cooldown.ms",
     "deadline.default.ms", "hedge.enabled", "hedge.delay.ms",
@@ -46,7 +49,7 @@ NOT_YET_PORTED = frozenset({
     "retry.budget.percent", "retry.budget.capacity", "retry.budget.max.attempts",
     "retry.budget.backoff.ms", "breaker.peer.failure.threshold",
     "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts",
-    "retry.launch.attempts", "retry.launch.backoff.ms", "faults.spec",
+    "faults.spec",
     "faults.seed", "admission.enabled", "admission.max.concurrent",
     "admission.max.queue", "admission.queue.timeout.ms",
     "admission.retry.after.ms", "sidecar.grpc.max.workers",
@@ -57,8 +60,7 @@ NOT_YET_PORTED = frozenset({
     "fleet.gossip.probe.timeout.ms", "fleet.gossip.suspect.periods",
     "fleet.gossip.dead.periods", "replication.antientropy.enabled",
     "replication.antientropy.interval.ms", "replication.antientropy.rate.bytes",
-    "scrub.enabled", "scrub.interval.ms", "scrub.rate.bytes",
-    "scrub.repair.enabled", "scrub.checksums.enabled", "lifecycle.enabled",
+    "lifecycle.enabled",
     "lifecycle.journal.path", "lifecycle.sweep.interval.ms",
     "lifecycle.sweep.on.start", "lifecycle.grace.ms", "flight.enabled",
     "flight.ring.size", "timeline.enabled", "timeline.ring.size", "slo.enabled",
@@ -140,6 +142,62 @@ def _base_def() -> ConfigDef:
         "custom.metadata.fields.include", "list", default=[], importance="low",
         doc="Custom metadata fields to persist with the broker "
             "(REMOTE_SIZE, OBJECT_PREFIX, OBJECT_KEY).",
+    ))
+    d.define(ConfigKey(
+        "upload.rate.limit.bytes.per.second", "int", default=None,
+        validator=null_or(in_range(1024 * 1024, INT_MAX)),
+        importance="medium",
+        doc="Upper bound on segment upload bytes/s per manager instance.",
+    ))
+    d.define(ConfigKey(
+        "retry.launch.attempts", "int", default=2,
+        validator=in_range(1, None), importance="low",
+        doc="Attempts per merged GCM launch of the window batcher (including "
+            "the first) before it fails that class's waiters. A retry starts "
+            "again from the packed input, which no launch writes; classes "
+            "never share a launch, so a failure stays inside its class.",
+    ))
+    d.define(ConfigKey(
+        "retry.launch.backoff.ms", "long", default=5,
+        validator=in_range(0, None), importance="low",
+        doc="Base backoff (ms) before a merged-launch re-dispatch; the "
+            "actual sleep is decorrelated-jitter up to 4x this value.",
+    ))
+    d.define(ConfigKey(
+        "scrub.enabled", "bool", default=False, importance="medium",
+        doc="Run the background integrity scrubber (scrub/): periodic "
+            "passes enumerate stored objects, cross-check them against "
+            "manifests, verify chunk CRC32C / GCM round-trips, and "
+            "quarantine or repair what fails.",
+    ))
+    d.define(ConfigKey(
+        "scrub.interval.ms", "long", default=300_000,
+        validator=in_range(1, None), importance="medium",
+        doc="Period between scrub passes; the first pass starts after a "
+            "random jitter in [0, interval) so restarting fleets don't "
+            "synchronize their scrub load.",
+    ))
+    d.define(ConfigKey(
+        "scrub.rate.bytes", "int", default=8 * 1024 * 1024,
+        validator=null_or(in_range(16 * 1024, INT_MAX)), importance="medium",
+        doc="Scrub budget in bytes/s so scrubbing never starves foreground "
+            "fetches; null disables throttling. Paces both halves of a "
+            "pass: storage-IO walks through a host token bucket, and — "
+            "when cross-request batching runs — device GCM verification "
+            "through the window scheduler's background admission class.",
+    ))
+    d.define(ConfigKey(
+        "scrub.repair.enabled", "bool", default=False, importance="medium",
+        doc="Let the scrubber heal what it can: orphan objects are deleted, "
+            "corrupt/missing objects are re-uploaded when a repair source "
+            "is wired (Scrubber.repair_source).",
+    ))
+    d.define(ConfigKey(
+        "scrub.checksums.enabled", "bool", default=False, importance="medium",
+        doc="Record CRC32C of every transformed chunk in the manifest "
+            "(chunkChecksums) at upload, giving scrub passes at-rest ground "
+            "truth without detransforming. Adds one batched CRC pass per "
+            "upload window (ops/crc32c), on the transform device.",
     ))
     return d
 
@@ -259,6 +317,38 @@ class RemoteStorageManagerConfig:
     @property
     def custom_metadata_fields_include(self) -> list[str]:
         return list(self._values["custom.metadata.fields.include"])
+
+    @property
+    def upload_rate_limit(self) -> Optional[int]:
+        return self._values["upload.rate.limit.bytes.per.second"]
+
+    @property
+    def retry_launch_attempts(self) -> int:
+        return self._values["retry.launch.attempts"]
+
+    @property
+    def retry_launch_backoff_ms(self) -> int:
+        return self._values["retry.launch.backoff.ms"]
+
+    @property
+    def scrub_enabled(self) -> bool:
+        return self._values["scrub.enabled"]
+
+    @property
+    def scrub_interval_ms(self) -> int:
+        return self._values["scrub.interval.ms"]
+
+    @property
+    def scrub_rate_bytes(self) -> Optional[int]:
+        return self._values["scrub.rate.bytes"]
+
+    @property
+    def scrub_repair_enabled(self) -> bool:
+        return self._values["scrub.repair.enabled"]
+
+    @property
+    def scrub_checksums_enabled(self) -> bool:
+        return self._values["scrub.checksums.enabled"]
 
     def fetch_indexes_cache_configs(self) -> dict[str, Any]:
         return subset_with_prefix(self._props, FETCH_INDEXES_CACHE_PREFIX)

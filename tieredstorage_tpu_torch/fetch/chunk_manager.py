@@ -2,9 +2,10 @@
 
 Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without the planes
 this package has not ported yet (tracing spans, the flight recorder, fault
-injection, hedging). `get_chunks` fetches a window of chunks with
-ONE ranged request (chunks are contiguous on the stored side) and
-detransforms them in ONE backend call.
+injection, hedging). The quarantine has the JAX package's external hook
+(`quarantine`), through which the scrubber gates objects it found corrupt.
+`get_chunks` fetches a window of chunks with ONE ranged request (chunks are
+contiguous on the stored side) and detransforms them in ONE backend call.
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ class DefaultChunkManager(ChunkManager):
         #: Total detransform corruption detections.
         self.corruptions = 0
 
+    @property
+    def quarantined_keys(self) -> int:
+        with self._quarantine_lock:
+            return len(self._quarantine)
+
     def _check_quarantine(self, key: ObjectKey) -> None:
         with self._quarantine_lock:
             entry = self._quarantine.get(key.value)
@@ -99,6 +105,12 @@ class DefaultChunkManager(ChunkManager):
             self.corruptions += 1
             self._quarantine[key.value] = (self._now() + self.quarantine_ttl_s, reason)
         log.warning("Quarantining %s for %.0fs: %s", key, self.quarantine_ttl_s, reason)
+
+    def quarantine(self, key: ObjectKey, reason: str) -> None:
+        """External quarantine hook: the scrubber routes objects it finds
+        corrupt at rest through the same gate a detransform failure takes,
+        so fetches fail fast instead of re-reading poisoned bytes."""
+        self._quarantine_key(key, reason)
 
     def get_chunk(
         self, objects_key: ObjectKey, manifest: SegmentManifestV1, chunk_id: int

@@ -89,6 +89,11 @@ class ChunkIndex(abc.ABC):
             return [Chunk(0, 0, 0, 0, 0)]
         return [self._chunk_at(i) for i in range(self.chunk_count)]
 
+    @property
+    def total_transformed_size(self) -> int:
+        """Bytes of the stored object (the scrubber's size check)."""
+        return int(self._transformed_starts[-1])
+
 
 class FixedSizeChunkIndex(ChunkIndex):
     """All transformed chunks share one size except the final one.

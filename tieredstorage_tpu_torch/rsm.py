@@ -2,10 +2,20 @@
 
 Counterpart of tieredstorage_tpu/rsm.py (its `configure`,
 `copy_log_segment_data`, `fetch_segment_manifest`, `fetch_log_segment`,
-`fetch_index`, `delete_log_segment_data`, `set_segment_successor` and
-`close`), without the planes this package has not ported yet: metrics,
-tracing spans, the flight recorder, the default deadline, fault injection,
-resilience wrappers, fleet mode, scrubbing and the lifecycle journal.
+`fetch_index`, `delete_log_segment_data`, `set_segment_successor`, the
+scrub accessors and `close`), without the planes this package has not
+ported yet: metrics, tracing spans, the flight recorder, the default
+deadline, fault injection, resilience wrappers, fleet mode, anti-entropy and
+the lifecycle journal.
+
+With `transform.batch.enabled` the backend runs the window batcher; the RSM
+hands it the launch retry policy (`retry.launch.*`). With `scrub.enabled` it
+builds the scrubber and its scheduler: `scrub.rate.bytes` paces the pass's
+storage reads through a token bucket and, when the batcher runs, becomes
+its background admission rate; corrupt objects go through the chunk
+manager's quarantine. `scrub.checksums.enabled` records each transformed
+chunk's CRC32C in the manifest at copy, and
+`upload.rate.limit.bytes.per.second` paces the `.log` upload.
 
 Fetches go through the fetch plane, as in the JAX package: the manifest and
 indexes caches are on in every configuration, and the chunk path is the
@@ -39,7 +49,7 @@ from tieredstorage_tpu_torch.errors import (
     RemoteStorageException,
 )
 from tieredstorage_tpu_torch.fetch.cache.device_hot import DeviceHotCache
-from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager
+from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager, DefaultChunkManager
 from tieredstorage_tpu_torch.fetch.enumeration import FetchChunkEnumeration
 from tieredstorage_tpu_torch.fetch.factory import ChunkManagerFactory
 from tieredstorage_tpu_torch.fetch.index_cache import MemorySegmentIndexesCache
@@ -72,6 +82,7 @@ from tieredstorage_tpu_torch.storage.core import (
 )
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
 from tieredstorage_tpu_torch.transform.pipeline import SegmentTransformation
+from tieredstorage_tpu_torch.utils.ratelimit import RateLimitedStream, TokenBucket
 from tieredstorage_tpu_torch.utils.streams import ClosableStreamHolder
 
 log = logging.getLogger(__name__)
@@ -92,6 +103,9 @@ class RemoteStorageManager:
         self._manifest_cache: Optional[MemorySegmentManifestCache] = None
         self._manifest_lookahead: Optional[ManifestLookahead] = None
         self._indexes_cache: Optional[MemorySegmentIndexesCache] = None
+        self._rate_bucket: Optional[TokenBucket] = None
+        self._scrubber = None
+        self._scrub_scheduler = None
 
     # ------------------------------------------------------------------ setup
     def configure(self, configs: Mapping[str, object]) -> None:
@@ -100,6 +114,11 @@ class RemoteStorageManager:
         storage.configure(config.storage_configs())
         backend = config.transform_backend_class()
         backend.configure(config.transform_configs())
+        batcher = getattr(backend, "batcher", None)
+        if batcher is not None:
+            batcher.set_launch_retry(
+                config.retry_launch_attempts, config.retry_launch_backoff_ms / 1000.0
+            )
         rsa = None
         if config.encryption_enabled:
             rsa = RsaEncryptionProvider.from_pem_files(
@@ -110,12 +129,62 @@ class RemoteStorageManager:
         self._transform_backend = backend
         self._object_key_factory = ObjectKeyFactory(config.key_prefix, config.key_prefix_mask)
         self._rsa = rsa
+        if config.upload_rate_limit is not None:
+            self._rate_bucket = TokenBucket(config.upload_rate_limit)
         self._chunk_manager = self._build_chunk_manager(backend)
         self._manifest_cache = MemorySegmentManifestCache()
         self._manifest_cache.configure(config.fetch_manifest_cache_configs())
         self._manifest_lookahead = ManifestLookahead(self._manifest_cache)
         self._indexes_cache = MemorySegmentIndexesCache()
         self._indexes_cache.configure(config.fetch_indexes_cache_configs())
+        self._wire_scrubber(config)
+
+    def _wire_scrubber(self, config: RemoteStorageManagerConfig) -> None:
+        """Background integrity scrubbing (scrub/): enumerate + verify +
+        quarantine/repair on a jittered period. `scrub.rate.bytes` paces
+        both halves of a pass: the host TokenBucket throttles its storage
+        reads, and, when the transform backend runs the window batcher, the
+        same rate becomes the batcher's background admission class (the
+        scrubber's verification decrypts submit under
+        `work_class_scope(BACKGROUND)`)."""
+        if not config.scrub_enabled:
+            return
+        from tieredstorage_tpu_torch.scrub import ScrubScheduler, Scrubber
+
+        rate = config.scrub_rate_bytes
+        if rate is not None:
+            batcher = getattr(self._transform_backend, "batcher", None)
+            if batcher is not None:
+                from tieredstorage_tpu_torch.transform.scheduler import BACKGROUND
+
+                batcher.set_class_rate(BACKGROUND, rate)
+        inner = self._innermost_chunk_manager(self._chunk_manager)
+        self._scrubber = Scrubber(
+            self._storage,
+            prefix=config.key_prefix,
+            transform_backend=self._transform_backend,
+            data_key_decoder=self._rsa.data_key_decoder if self._rsa else None,
+            rate_bucket=TokenBucket(rate) if rate is not None else None,
+            repair_enabled=config.scrub_repair_enabled,
+            quarantine=inner.quarantine if inner is not None else None,
+        )
+        self._scrub_scheduler = ScrubScheduler(
+            self._scrubber, interval_ms=config.scrub_interval_ms
+        ).start()
+        log.info(
+            "Integrity scrubber enabled: interval=%dms rate=%s repair=%s",
+            config.scrub_interval_ms, rate, config.scrub_repair_enabled,
+        )
+
+    @staticmethod
+    def _innermost_chunk_manager(cm) -> Optional[DefaultChunkManager]:
+        """Unwrap the chunk-manager tiers (each exposes `_delegate`) down to
+        the backend-fetching manager that holds the quarantine."""
+        seen = 0
+        while cm is not None and not isinstance(cm, DefaultChunkManager) and seen < 8:
+            cm = getattr(cm, "_delegate", None)
+            seen += 1
+        return cm if isinstance(cm, DefaultChunkManager) else None
 
     def _build_chunk_manager(self, backend) -> ChunkManager:
         factory = ChunkManagerFactory()
@@ -143,6 +212,21 @@ class RemoteStorageManager:
     @property
     def manifest_lookahead(self) -> Optional[ManifestLookahead]:
         return self._manifest_lookahead
+
+    @property
+    def scrubber(self):
+        """The integrity scrubber (None unless ``scrub.enabled``)."""
+        return self._scrubber
+
+    @property
+    def scrub_scheduler(self):
+        return self._scrub_scheduler
+
+    def scrub_status(self) -> dict:
+        """The scrub scheduler's status, or ``{"enabled": False}``."""
+        if self._scrub_scheduler is None:
+            return {"enabled": False}
+        return {"enabled": True, **self._scrub_scheduler.status()}
 
     def set_segment_successor(self, successor) -> None:
         """Teach the readahead tier segment replay order: ``successor`` maps
@@ -198,7 +282,7 @@ class RemoteStorageManager:
 
         uploaded_keys: list[ObjectKey] = []
         try:
-            chunk_index = self._upload_segment_log(
+            chunk_index, chunk_checksums = self._upload_segment_log(
                 metadata, segment_data, requires_compression, data_key,
                 custom_builder, uploaded_keys,
             )
@@ -208,6 +292,7 @@ class RemoteStorageManager:
             self._upload_manifest(
                 metadata, chunk_index, segment_indexes, requires_compression,
                 data_key, custom_builder, uploaded_keys,
+                chunk_checksums=chunk_checksums,
             )
         except Exception as e:
             # Orphan cleanup: a failed copy must not leave partial objects;
@@ -262,12 +347,16 @@ class RemoteStorageManager:
                 source, file_size, self._config.chunk_size,
                 self._transform_backend,
                 self._transform_opts(requires_compression, data_key),
+                collect_checksums=self._config.scrub_checksums_enabled,
             )
+            stream: BinaryIO = transformation.stream()
+            if self._rate_bucket is not None:
+                stream = RateLimitedStream(stream, self._rate_bucket)
             uploaded_keys.append(key)
-            uploaded = self._storage.upload(transformation.stream(), key)
+            uploaded = self._storage.upload(stream, key)
         custom_builder.add_upload_result(Suffix.LOG, uploaded)
         log.debug("Uploaded segment log for %s, size: %d", metadata, uploaded)
-        return transformation.chunk_index
+        return transformation.chunk_index, transformation.chunk_checksums
 
     def _upload_indexes(
         self, metadata, segment_data: LogSegmentData, data_key, custom_builder, uploaded_keys
@@ -322,7 +411,7 @@ class RemoteStorageManager:
 
     def _upload_manifest(
         self, metadata, chunk_index, segment_indexes, requires_compression,
-        data_key, custom_builder, uploaded_keys,
+        data_key, custom_builder, uploaded_keys, chunk_checksums=None,
     ) -> None:
         encryption_metadata = None
         encoder = None
@@ -336,6 +425,7 @@ class RemoteStorageManager:
             encryption=encryption_metadata,
             remote_log_segment_metadata=metadata,
             compression_codec=self._config.compression_codec if requires_compression else None,
+            chunk_checksums=chunk_checksums,
         )
         text = manifest_to_json(manifest, data_key_encoder=encoder)
         key = self._object_key_factory.key(metadata, Suffix.MANIFEST)
@@ -493,8 +583,12 @@ class RemoteStorageManager:
             ) from failures[0][1]
 
     def close(self) -> None:
-        # The chunk chain first: its close drains the readahead and cache
-        # pools, whose loads reach the transform backend closed last.
+        # The scrub scheduler first (its passes read through the store and
+        # the transform backend), then the chunk chain: its close drains the
+        # readahead and cache pools, whose loads reach the transform backend
+        # closed last.
+        if self._scrub_scheduler is not None:
+            self._scrub_scheduler.stop()
         if self._chunk_manager is not None and hasattr(self._chunk_manager, "close"):
             self._chunk_manager.close()
         for cache in (self._manifest_lookahead, self._manifest_cache, self._indexes_cache):

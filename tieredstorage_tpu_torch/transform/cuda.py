@@ -23,8 +23,10 @@ Wire format is the JAX package's and the reference's: per chunk
 The device comes from `transform.device` (default `cuda:0`; `cpu` runs the
 plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
 `configure`, never falls back. Cross-request batching
-(`transform.batch.enabled`) and multi-GPU meshes (`transform.mesh.devices`
-> 1) are not yet ported and are refused.
+(`transform.batch.enabled`) runs windows of concurrent requests through the
+work-class device scheduler (transform/batcher.py): concurrent windows that
+share a data key coalesce into one merged varlen launch. Multi-GPU meshes
+(`transform.mesh.devices` > 1) are not yet ported and are refused.
 """
 
 from __future__ import annotations
@@ -168,6 +170,10 @@ class CudaTransformBackend(TransformBackend):
         self._staging = _StagingPool()
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
+        #: Cross-request window batcher (transform/batcher.py), built by
+        #: `configure()` from `transform.batch.enabled` or explicitly by
+        #: `enable_batching()`; None = every window dispatches unbatched.
+        self.batcher = None
 
     @property
     def device(self) -> torch.device:
@@ -189,11 +195,6 @@ class CudaTransformBackend(TransformBackend):
 
     def configure(self, configs: dict) -> None:
         values = _definition().parse(configs)
-        if values["batch.enabled"]:
-            raise ConfigException(
-                "transform.batch.enabled: cross-request batching is not yet ported "
-                "to tieredstorage_tpu_torch"
-            )
         if values["mesh.devices"] > 1:
             raise ConfigException(
                 "transform.mesh.devices > 1: multi-GPU windows are not yet ported "
@@ -205,6 +206,65 @@ class CudaTransformBackend(TransformBackend):
         self._device_spec = values["device"]
         self._device = None
         _ = self.device  # fail at configure, not at the first window
+        if values["batch.enabled"]:
+            self.enable_batching(
+                wait_ms=float(values["batch.wait.ms"]),
+                max_windows=values["batch.windows"],
+                background_max_age_ms=float(values["batch.background.max.age.ms"]),
+            )
+
+    def enable_batching(
+        self, *, wait_ms: float = 2.0, max_windows: int = 16,
+        max_bytes: Optional[int] = None,
+        background_max_age_ms: Optional[float] = None,
+    ):
+        """Build and start the cross-request window batcher (idempotent).
+        The flush byte cap defaults to the window byte cap
+        (`transform.batch.bytes`): a merged launch never exceeds the device
+        memory one pipelined window was sized for."""
+        if self.batcher is None:
+            from tieredstorage_tpu_torch.transform.batcher import WindowBatcher
+
+            kwargs = {}
+            if background_max_age_ms is not None:
+                kwargs["background_max_age_ms"] = background_max_age_ms
+            self.batcher = WindowBatcher(
+                self,
+                wait_ms=wait_ms,
+                max_windows=max_windows,
+                max_bytes=self.preferred_batch_bytes if max_bytes is None else max_bytes,
+                **kwargs,
+            ).start()
+        return self.batcher
+
+    @staticmethod
+    def thread_dispatch_counters() -> tuple[int, int]:
+        """This THREAD's cumulative (GCM dispatches, planned HBM round
+        trips): `ops.gcm` keeps them per thread, so a sibling window's
+        launches never count toward another request."""
+        return gcm_ops.thread_dispatches(), gcm_ops.thread_hbm_roundtrips()
+
+    def thread_batch_evidence(self) -> tuple[int, float, int]:
+        """This THREAD's cumulative (coalesced windows, occupancy sum, last
+        shared batch id): merged launches run on the flusher thread, so
+        this — not `thread_dispatch_counters` — shows which launch a
+        request shared."""
+        batcher = self.batcher
+        return (0, 0.0, 0) if batcher is None else batcher.thread_evidence()
+
+    def _note_batched_window(self, n_bytes: int) -> None:
+        """Window accounting for a batched window, either direction: every
+        coalesced window still counts, so `dispatches_per_window` reads
+        launches/windows <= 1/occupancy."""
+        with self._stats_lock:
+            self.dispatch_stats.windows += 1
+            self.dispatch_stats.bytes_in += n_bytes
+
+    def _note_batched_fetch(self) -> None:
+        """One device→host copy for a merged flush (shared by every window
+        it coalesced)."""
+        with self._stats_lock:
+            self.dispatch_stats.d2h_fetches += 1
 
     def _zstd_pool(self) -> ThreadPoolExecutor:
         with self._pool_lock:
@@ -213,6 +273,9 @@ class CudaTransformBackend(TransformBackend):
             return self._pool
 
     def close(self) -> None:
+        batcher, self.batcher = self.batcher, None
+        if batcher is not None:
+            batcher.stop()
         with self._pool_lock:
             pool, self._pool = self._pool, None
         if pool is not None:
@@ -226,7 +289,7 @@ class CudaTransformBackend(TransformBackend):
         if opts.compression:
             out = self._compress_batch(out, opts)
         if opts.encryption is not None:
-            out = self._encrypt_finish(self._encrypt_dispatch(out, opts))
+            out = self._finish_or_empty(self._dispatch_encrypt_window(out, opts))
         return out
 
     def transform_windows(self, windows, opts: TransformOptions):
@@ -252,14 +315,28 @@ class CudaTransformBackend(TransformBackend):
                 iv_offset += len(chunks)
             if opts.compression:
                 chunks = self._compress_batch(chunks, w_opts)
-            pending.append(self._encrypt_dispatch(chunks, w_opts) if chunks else None)
+            pending.append(self._dispatch_encrypt_window(chunks, w_opts) if chunks else None)
             while len(pending) > max(1, self.pipeline_depth):
                 yield self._finish_or_empty(pending.popleft())
         while pending:
             yield self._finish_or_empty(pending.popleft())
 
+    def _dispatch_encrypt_window(self, chunks: list[bytes], opts: TransformOptions):
+        """Dispatch one encrypt window asynchronously: through the batcher
+        when it runs (an idle batcher dispatches inline, concurrent copies
+        coalesce), else — and for windows with zero-length chunks, which
+        the merged varlen launch excludes — directly."""
+        batcher = self.batcher
+        if batcher is not None and min(len(c) for c in chunks) > 0:
+            return batcher.submit_encrypt(chunks, opts)
+        return self._encrypt_dispatch(chunks, opts)
+
     def _finish_or_empty(self, staged) -> list[bytes]:
-        return [] if staged is None else self._encrypt_finish(staged)
+        if staged is None:
+            return []
+        if hasattr(staged, "wait"):  # batched: an _EncryptHandle
+            return staged.wait()
+        return self._encrypt_finish(staged)
 
     def _compress_batch(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
         if opts.compression_codec != ZSTD:
@@ -435,7 +512,10 @@ class CudaTransformBackend(TransformBackend):
     def _decrypt_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:
         """Fetch-direction window through the same single-program path as
         encrypt: plaintext + EXPECTED tags on the device, tags verified on
-        the host against the received ones."""
+        the host against the received ones. With the batcher running the
+        window joins the shared device queue and may ride one merged launch
+        with windows of concurrent requests; its idle fast path is
+        `_decrypt_window` itself."""
         for i, c in enumerate(chunks):
             if len(c) < IV_SIZE + TAG_SIZE:
                 raise ValueError(f"Encrypted chunk {i} shorter than IV+tag")
@@ -443,6 +523,11 @@ class CudaTransformBackend(TransformBackend):
         received_tags = [c[-TAG_SIZE:] for c in chunks]
         sizes = [len(c) - IV_SIZE - TAG_SIZE for c in chunks]
         payloads = [c[IV_SIZE:-TAG_SIZE] for c in chunks]
+        batcher = self.batcher
+        if batcher is not None and min(sizes) > 0:
+            # Zero-length rows are excluded by the merged launch's varlen
+            # contract; such windows take the direct path.
+            return batcher.submit(opts.encryption, payloads, sizes, ivs, received_tags)
         return self._decrypt_window(opts.encryption, payloads, sizes, ivs, received_tags)
 
     def _decrypt_window(
@@ -499,24 +584,26 @@ def _definition():
     ))
     d.define(ConfigKey(
         "batch.enabled", "bool", default=False, importance="medium",
-        doc="Cross-request window batching: not yet ported; true is refused.",
+        doc="Cross-request window batching: concurrent windows that share a "
+            "data key coalesce into one merged launch, under the work-class "
+            "device scheduler (transform/batcher.py).",
     ))
     d.define(ConfigKey(
         "batch.wait.ms", "long", default=2, validator=in_range(0, None),
         importance="low",
-        doc="Batching wait (read only with batch.enabled, which is not yet ported).",
+        doc="Max queue age (ms) of a latency or throughput window before its "
+            "bucket flushes (read with batch.enabled).",
     ))
     d.define(ConfigKey(
         "batch.background.max.age.ms", "long", default=50,
         validator=in_range(0, None), importance="low",
-        doc="Background batching age bound (read only with batch.enabled, "
-            "which is not yet ported).",
+        doc="Starvation watchdog (ms): the max queue age of a background "
+            "window, admission budget permitting (read with batch.enabled).",
     ))
     d.define(ConfigKey(
         "batch.windows", "int", default=16, validator=in_range(2, None),
         importance="low",
-        doc="Windows per merged launch (read only with batch.enabled, which "
-            "is not yet ported).",
+        doc="Max windows per merged launch (read with batch.enabled).",
     ))
     d.define(ConfigKey(
         "mesh.devices", "int", default=0, validator=in_range(0, None),

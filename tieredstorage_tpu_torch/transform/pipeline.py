@@ -1,12 +1,18 @@
 """Segment transformation pipeline: stream -> chunk windows -> backend -> stream.
 
 The terminal driver of the transform seam (counterpart of
-tieredstorage_tpu/transform/pipeline.py, without the scrub checksums plane):
-the source stream is cut into `original_chunk_size` chunks, windows of
-`backend.preferred_batch_chunks` chunks go through one backend call, and the
-chunk index is built from the returned sizes as the transformed bytes stream
-out to the uploader. The identity transform short-circuits: the chunk index is
-computed arithmetically and the source bytes pass through untouched.
+tieredstorage_tpu/transform/pipeline.py): the source stream is cut into
+`original_chunk_size` chunks, windows of `backend.preferred_batch_chunks`
+chunks go through one backend call, and the chunk index is built from the
+returned sizes as the transformed bytes stream out to the uploader. The
+identity transform short-circuits: the chunk index is computed arithmetically
+and the source bytes pass through untouched.
+
+With `collect_checksums` (`scrub.checksums.enabled`) the CRC32C of every
+transformed chunk is recorded as it streams out, for the manifest's
+`chunkChecksums`; the scrubber verifies stored objects against them. The
+CRCs run on the transform backend's device (`backend.device` where the
+backend has one, the CPU otherwise).
 """
 
 from __future__ import annotations
@@ -55,9 +61,12 @@ class SegmentTransformation:
         backend: TransformBackend,
         opts: TransformOptions,
         chunking_disabled: bool = False,
+        collect_checksums: bool = False,
     ):
         # chunking_disabled: treat the whole stream as a single chunk
         # (used for index blobs).
+        # collect_checksums: record CRC32C of every transformed chunk as it
+        # streams out (`scrub.checksums.enabled`).
         self._source = source
         self.original_file_size = original_file_size
         self.original_chunk_size = (
@@ -66,12 +75,29 @@ class SegmentTransformation:
         self._backend = backend
         self._opts = opts
         self._chunk_index: Optional[ChunkIndex] = None
+        self._collect_checksums = collect_checksums
+        self._checksums: Optional[list[int]] = [] if collect_checksums else None
 
     @property
     def chunk_index(self) -> ChunkIndex:
         if self._chunk_index is None:
             raise RuntimeError("Chunk index is not built until the stream is fully consumed")
         return self._chunk_index
+
+    @property
+    def chunk_checksums(self) -> Optional[list[int]]:
+        """Per-transformed-chunk CRC32C, aligned with the chunk index; None
+        unless collect_checksums was set. Complete only after the stream is
+        fully consumed (same protocol as `chunk_index`)."""
+        if self._chunk_index is None and self._collect_checksums:
+            raise RuntimeError("Checksums are not built until the stream is fully consumed")
+        return self._checksums
+
+    def _crc_batch(self, chunks: list[bytes]) -> None:
+        from tieredstorage_tpu_torch.ops.crc32c import crc32c_batch
+
+        device = getattr(self._backend, "device", None)
+        self._checksums.extend(crc32c_batch(chunks, "cpu" if device is None else device))
 
     def stream(self) -> BinaryIO:
         if self._opts.is_identity:
@@ -82,7 +108,11 @@ class SegmentTransformation:
         size, chunk = self.original_file_size, self.original_chunk_size
         final = size - (max(0, -(-size // chunk) - 1)) * chunk if size > 0 else 0
         self._chunk_index = FixedSizeChunkIndex(chunk, size, chunk, final)
-        return self._source
+        if not self._collect_checksums:
+            return self._source
+        # Identity bytes pass through untouched, so checksum the pass-through
+        # stream on chunk boundaries instead of re-reading the source.
+        return _ChecksumTeeStream(self._source, chunk, self._crc_batch)
 
     def _transformed_parts(self) -> Iterator[BinaryIO]:
         fixed_size = self._opts.fixed_transformed_size(self.original_chunk_size)
@@ -126,6 +156,8 @@ class SegmentTransformation:
                 raise RuntimeError(
                     f"Backend returned {len(transformed)} chunks for a window of {expected}"
                 )
+            if self._collect_checksums and transformed:
+                self._crc_batch(list(transformed))
             for t in transformed:
                 if pending is not None:
                     builder.add_chunk(len(pending))
@@ -139,6 +171,64 @@ class SegmentTransformation:
         assert pending is not None
         self._chunk_index = builder.finish(len(pending))
         yield io.BytesIO(pending)
+
+
+class _ChecksumTeeStream(io.RawIOBase):
+    """Pass-through reader that CRCs fixed-size chunk windows as they flow.
+
+    Chunks are buffered until `_FLUSH_CHUNKS` are pending (or EOF) so the
+    CRCs go through one batched `crc32c_batch` call instead of per-chunk
+    launches; memory stays bounded at _FLUSH_CHUNKS × chunk_size.
+    """
+
+    _FLUSH_CHUNKS = 32
+
+    def __init__(self, inner: BinaryIO, chunk_size: int, sink) -> None:
+        self._inner = inner
+        self._chunk_size = chunk_size
+        self._sink = sink  # callable(list[bytes]) appending CRCs
+        self._buf = bytearray()
+        self._pending: list[bytes] = []
+        self._eof = False
+
+    def readable(self) -> bool:
+        return True
+
+    def _flush(self, final: bool) -> None:
+        while len(self._buf) >= self._chunk_size:
+            self._pending.append(bytes(self._buf[: self._chunk_size]))
+            del self._buf[: self._chunk_size]
+        if final and self._buf:
+            self._pending.append(bytes(self._buf))
+            self._buf.clear()
+        if self._pending and (final or len(self._pending) >= self._FLUSH_CHUNKS):
+            self._sink(self._pending)
+            self._pending = []
+
+    def read(self, size: int = -1) -> bytes:
+        data = self._inner.read(size)
+        if data:
+            self._buf += data
+        # A read-all (size < 0) drains the source in one call, and callers
+        # that read all never make the trailing empty read, so the final
+        # flush must happen here.
+        if (not data or size is None or size < 0) and not self._eof:
+            self._eof = True
+            self._flush(final=True)
+        elif data:
+            self._flush(final=False)
+        return data
+
+    def readinto(self, b) -> int:
+        data = self.read(len(b))
+        b[: len(data)] = data
+        return len(data)
+
+    def close(self) -> None:
+        try:
+            self._inner.close()
+        finally:
+            super().close()
 
 
 def detransform_chunks(
