@@ -37,9 +37,10 @@ Phases, in order, each printing its seconds:
              equal the plaintext; (c) 64 ranged 1 MiB reads and every index,
              twice, which must load the manifest and each index from storage
              once;
-5. counts  — every kernel must have launched on the main path and on the
-             fetch plane, and AES and the GHASH tree in phase 6 (checked
-             after phase 6);
+5. counts  — every GCM kernel must have launched on the main path and on
+             the fetch plane, AES and the GHASH tree in phase 6, and AES, the
+             tree and the Huffman decoder on phase 7's compressed path
+             (checked after phase 7);
 6. scheduler and scrub — a fresh store, the window batcher on (JAX
              defaults: 2 ms, 16 windows, 64 MiB) and the scrubber with upload
              checksums, `scrub.rate.bytes` 512 MiB/s (cut from the 8 MiB/s
@@ -56,6 +57,21 @@ Phases, in order, each printing its seconds:
              quarantined, another segment still identical. Then the CRC32C
              program on 16 x (4 MiB + 28 B) alone: device time, peak memory
              and its bound.
+
+7. codec — the native host library's build and load status; the Huffman
+             decode kernel (csrc/huffman.cu) against its plain version at 16
+             rows and one row of 4 MiB Kafka-shaped chunks (bench.py's
+             generator), bit for bit, timed, the plain version timed once;
+             the compressed path: a fresh store, compression.codec
+             tpu-huff-v1 with encryption, a 1 GiB Kafka-shaped segment
+             (--segment-mib) copied, fetched whole and read in 64
+             seeded 1 MiB ranges, every byte compared, the manifest's codec,
+             the ratio, a flipped ciphertext byte that must fail with
+             AuthenticationError, launch counts zeroed before the copy and
+             read after the delete (AES, the GHASH tree and the decoder must
+             launch); a 256 MiB zstd leg through the native library when it
+             loaded (else a line that says why); and tpu-lzhuff-v1 on two
+             4 MiB chunks with the LZ analysis of one row timed alone.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -292,9 +308,30 @@ def kernel_phase(seed: int, device) -> dict:
     return out
 
 
-def write_segment(root: Path, seed: int, size: int):
-    """A segment of `size` seeded bytes with Kafka-sized indexes: 8 B of
-    offset index and 12 B of time index per 4 KiB of log, a small producer
+def make_segment(n_chunks: int, chunk_bytes: int, seed: int = 42):
+    """Semi-compressible chunks shaped like Kafka log batches: repetitive
+    record scaffolding interleaved with incompressible payload (bench.py's
+    generator, copied: the codec path needs data a codec codes, where
+    random bytes would RAW-frame every chunk)."""
+    rng = np.random.default_rng(seed)
+    pattern = np.frombuffer(
+        (b"offset=%019d key=user-%06d value=" % (0, 0)) * 64, dtype=np.uint8
+    )
+    for _ in range(n_chunks):
+        noise = rng.integers(0, 256, (chunk_bytes + 1) // 2, dtype=np.uint8)
+        tiled = np.tile(pattern, chunk_bytes // (2 * len(pattern)) + 1)[
+            : chunk_bytes - len(noise)
+        ]
+        chunk = np.empty(chunk_bytes, dtype=np.uint8)
+        chunk[0::2] = noise[: (chunk_bytes + 1) // 2]
+        chunk[1::2] = tiled[: chunk_bytes // 2]
+        yield chunk.tobytes()
+
+
+def write_segment(root: Path, seed: int, size: int, kafka_shaped: bool = False):
+    """A segment of `size` seeded bytes (random, or with `kafka_shaped`
+    the chunks of `make_segment`) with Kafka-sized indexes: 8 B of offset
+    index and 12 B of time index per 4 KiB of log, a small producer
     snapshot and a leader-epoch checkpoint."""
     from tieredstorage_tpu_torch.metadata import (
         KafkaUuid,
@@ -313,9 +350,13 @@ def write_segment(root: Path, seed: int, size: int):
         "snapshot": root / "00000000000000000000.snapshot",
     }
     with open(files["log"], "wb") as f:
-        for _ in range(size // (64 * MIB)):
-            f.write(rng.bytes(64 * MIB))
-        f.write(rng.bytes(size % (64 * MIB)))
+        if kafka_shaped:
+            for chunk in make_segment(-(-size // CHUNK), CHUNK, seed):
+                f.write(chunk[: size - f.tell()])
+        else:
+            for _ in range(size // (64 * MIB)):
+                f.write(rng.bytes(64 * MIB))
+            f.write(rng.bytes(size % (64 * MIB)))
     entries = size // 4096
     files["offset"].write_bytes(rng.bytes(8 * entries))
     files["time"].write_bytes(rng.bytes(12 * entries))
@@ -948,6 +989,246 @@ def scheduler_scrub(seed: int, work: Path, device: str = "cuda:0",
     return rec
 
 
+def decode_kernel_phase(seed: int, device) -> dict:
+    """The Huffman decode kernel against its plain version on the card, at
+    16 rows of 4 MiB (a copy window's chunks read back together) and at
+    one row (a fetched chunk: the main path's shape), bit for bit, with
+    its times and its bound: the coded words, jump offsets and tables read
+    once, the symbols and final bit positions written once, at the HBM
+    rate. The operands are those a fetch lays out from the frames that the
+    port's encoder wrote on the card."""
+    from tieredstorage_tpu_torch.ops import huffman
+    from tieredstorage_tpu_torch.transform import thuff
+
+    chunks = list(make_segment(16, CHUNK, seed))
+    _, coded = thuff.parse_frames(thuff.compress_batch(chunks, device=device))
+    check(len(coded) == len(chunks), "the encoder RAW-framed a chunk of the decode phase")
+    ops16 = thuff.decode_operands(coded, device)
+    rec = {}
+    for label, rows in (("", 16), ("_one_row", 1)):
+        ops = [t[:rows] for t in ops16]
+        got = huffman.decode_batch(*ops)
+        want = huffman.decode_batch_plain(*ops)
+        torch.cuda.synchronize()
+        rec["max_abs_err" + label] = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"Huffman decode kernel disagrees with its plain version at {rows} rows")
+        symbols = got[0].cpu().numpy()
+        check(all(symbols[i, :CHUNK].tobytes() == chunks[i] for i in range(rows)),
+              f"Huffman decode kernel does not invert the encoder at {rows} rows")
+        del got, want
+        rec["ms" + label] = time_cuda(lambda ops=ops: huffman.decode_batch(*ops), 20)
+        t = time.perf_counter()
+        huffman.decode_batch_plain(*ops)
+        torch.cuda.synchronize()
+        rec["plain_ms" + label] = (time.perf_counter() - t) * 1e3  # measured once
+        jump = ops[1]
+        coded_words = sum(len(c.words) for c in coded[:rows])  # ceil(bits / 32) a row
+        nbytes = (coded_words + jump.numel()) * 4 + rows * (16 * 3 + 256) * 4 \
+            + jump.numel() * (huffman.JUMP_BLOCK + 4)
+        rec["bound_ms" + label], rec["bound_by" + label] = bound(nbytes, 0.0)
+        rec["bytes" + label] = nbytes
+        rec["coded_words" + label] = coded_words
+        rec["lanes" + label] = jump.numel()
+    return dict(
+        name="huffman_decode", route="cuda",
+        source="tieredstorage_tpu_torch/csrc/huffman.cu",
+        replaces="tieredstorage_tpu/ops/huffman.py:108",
+        shape=f"16 rows x {CHUNK} symbols, J={CHUNK // huffman.JUMP_BLOCK} lanes a row",
+        library_ms=None, **rec,
+    )
+
+
+def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """The compressed main path: the port's RSM over a filesystem store with
+    compression.codec=tpu-huff-v1 and encryption, a Kafka-shaped segment:
+    copy, whole fetch, 64 seeded 1 MiB ranged reads, every byte compared, a
+    flipped ciphertext byte that must fail with AuthenticationError, then a
+    delete. Launch counts are zeroed just before the copy and read just
+    after the delete."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.transform.api import AuthenticationError
+
+    seg_dir, store = work / "segment", work / "store"
+    seg_dir.mkdir()
+    store.mkdir()
+    md, sd, files, _ = write_segment(seg_dir, seed, segment_bytes, kafka_shaped=True)
+    pub, priv = generate_key_pair_pem_files(work, prefix="codec")
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "compression.enabled": True, "compression.codec": "tpu-huff-v1"}))
+    source = files["log"].read_bytes()
+    rec: dict = {"segment_bytes": segment_bytes, "chunk_bytes": CHUNK, "codec": "tpu-huff-v1"}
+
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    rec["copy_s"] = time.perf_counter() - t
+    [manifest] = store.rglob("*.rsm-manifest")
+    manifest = json.loads(manifest.read_text())
+    rec["manifest_codec"] = manifest.get("compressionCodec")
+    check(manifest.get("compression") is True and rec["manifest_codec"] == "tpu-huff-v1",
+          f"the manifest records {rec['manifest_codec']!r}, not tpu-huff-v1")
+    [log_obj] = store.rglob("*.log")
+    rec["stored_log_bytes"] = log_obj.stat().st_size
+    rec["ratio"] = rec["stored_log_bytes"] / segment_bytes
+
+    t = time.perf_counter()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        fetched = stream.read()
+    rec["fetch_s"] = time.perf_counter() - t
+    check(fetched == source, "whole compressed-segment fetch differs from the source")
+    del fetched
+
+    rng = np.random.default_rng(seed + 2)
+    latencies = []
+    for off in rng.integers(0, segment_bytes - MIB, 64):
+        off = int(off)
+        t = time.perf_counter()
+        with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+            part = stream.read()
+        latencies.append((time.perf_counter() - t) * 1e3)
+        check(part == source[off : off + MIB], f"compressed ranged read at {off} differs")
+
+    # Flip one ciphertext byte of chunk 0 on disk (after its 12-byte IV).
+    with open(log_obj, "r+b") as f:
+        f.seek(12 + 100)
+        byte = f.read(1)
+        f.seek(12 + 100)
+        f.write(bytes([byte[0] ^ 0x01]))
+    try:
+        with rsm.fetch_log_segment(md, 0, 99) as stream:
+            stream.read()
+        raise SmokeFailure("a tampered compressed chunk was served")
+    except SmokeFailure:
+        raise
+    except Exception as e:
+        chain, cur = [], e
+        while cur is not None:
+            chain.append(cur)
+            cur = cur.__cause__ or cur.__context__
+        check(any(isinstance(c, AuthenticationError) for c in chain),
+              f"tampered compressed fetch failed without AuthenticationError: {e!r}")
+    rec["tamper_rejected"] = True
+    rsm.delete_log_segment_data(md)
+    left = [p for p in store.rglob("*") if p.is_file()]
+    check(not left, f"delete left {len(left)} objects")
+    rsm.close()
+    rec["launches"] = _cuda.launch_counts()
+    rec["launch_rows"] = _cuda.launch_rows()
+    gib = segment_bytes / (1 << 30)
+    rec["copy_gib_s"] = gib / rec["copy_s"]
+    rec["fetch_gib_s"] = gib / rec["fetch_s"]
+    rec["ranged_1mib_p50_ms"] = float(np.percentile(latencies, 50))
+    rec["ranged_1mib_p99_ms"] = float(np.percentile(latencies, 99))
+    return rec
+
+
+def zstd_leg(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """zstd through the native host library, when it loaded: a Kafka-shaped
+    segment copied and fetched whole with compression.codec=zstd and
+    encryption, every byte compared. When the library did not load, the
+    record says why (the JAX package's semantics: native when it loads)."""
+    from tieredstorage_tpu_torch import native
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    if native.load() is None:
+        return {"ran": False, "why": f"native library did not load: {native.load_error()}"}
+    seg_dir, store = work / "segment", work / "store"
+    seg_dir.mkdir()
+    store.mkdir()
+    md, sd, files, _ = write_segment(seg_dir, seed + 3, segment_bytes, kafka_shaped=True)
+    pub, priv = generate_key_pair_pem_files(work, prefix="zstd")
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "compression.enabled": True, "compression.codec": "zstd"}))
+    source = files["log"].read_bytes()
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    copy_s = time.perf_counter() - t
+    [log_obj] = store.rglob("*.log")
+    stored = log_obj.stat().st_size
+    t = time.perf_counter()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        fetched = stream.read()
+    fetch_s = time.perf_counter() - t
+    check(fetched == source, "zstd segment fetch differs from the source")
+    rsm.delete_log_segment_data(md)
+    rsm.close()
+    gib = segment_bytes / (1 << 30)
+    return {"ran": True, "segment_bytes": segment_bytes, "copy_gib_s": gib / copy_s,
+            "fetch_gib_s": gib / fetch_s, "ratio": stored / segment_bytes}
+
+
+def lzhuff_leg(seed: int, device: str = "cuda:0", chunk: int = CHUNK) -> dict:
+    """tpu-lzhuff-v1 (deprecated) on two Kafka-shaped chunks: compress and
+    read back with their wall times, and the LZ analysis alone on one row."""
+    from tieredstorage_tpu_torch.ops import lz
+    from tieredstorage_tpu_torch.transform import lzhuff
+
+    chunks = list(make_segment(2, chunk, seed + 4))
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    row = torch.from_numpy(np.frombuffer(chunks[0], np.uint8).copy()).to(device)[None, :]
+    n_sym = torch.tensor([chunk], device=device)
+    sync()
+    t = time.perf_counter()
+    lz.lz_analyze_batch(row, n_sym)
+    sync()
+    analyze_s = time.perf_counter() - t
+    t = time.perf_counter()
+    frames = lzhuff.compress_batch(chunks, device=device)
+    compress_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = lzhuff.decompress_batch(frames, max_original_chunk_size=chunk, device=device)
+    decompress_s = time.perf_counter() - t
+    check(back == chunks, "tpu-lzhuff-v1 round trip differs")
+    return {"chunks": 2, "chunk_bytes": chunk, "analyze_one_row_s": analyze_s,
+            "compress_s": compress_s, "decompress_s": decompress_s,
+            "ratio": sum(map(len, frames)) / (2 * chunk)}
+
+
+def codec_phase(seed: int, segment_bytes: int, device, card: str) -> dict:
+    """Phase 7: the native library's status, the Huffman decode kernel
+    against its plain version, the compressed path, the zstd leg and the
+    tpu-lzhuff-v1 leg, each printed on a line of its own with the card."""
+    from tieredstorage_tpu_torch import native
+
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    lib = native.load()
+    status = {"loaded": lib is not None, "build_and_load_s": time.perf_counter() - t,
+              "crypto": bool(lib is not None and lib.ts_crypto_available() == 1),
+              "error": native.load_error(), "so": str(native.so_path())}
+    print("codec native: " + json.dumps(status))
+    out: dict = {"native": status, "card": card}
+
+    decode = decode_kernel_phase(seed, device)
+    out["decode_kernel"] = decode
+    print("codec decode kernel: " + json.dumps({"card": card, **{
+        k: decode[k] for k in decode if k.startswith(("ms", "plain_ms", "bound", "max_abs", "lanes"))
+    }}))
+
+    for name, fn, size in (("path", codec_path, segment_bytes),
+                           ("zstd", zstd_leg, 256 * MIB)):
+        work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_codec_{name}_"))
+        try:
+            t = time.perf_counter()
+            out[name] = fn(seed, size, work)
+            out[name]["phase_s"] = time.perf_counter() - t
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        shown = {k: v for k, v in out[name].items() if k not in ("launch_rows",)}
+        print(f"codec {name}: " + json.dumps({"card": card, **shown}))
+    out["lzhuff"] = lzhuff_leg(seed)
+    print("codec lzhuff: " + json.dumps({"card": card, **out["lzhuff"]}))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase codec: {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -969,7 +1250,9 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     _cuda.library()
     record["build_s"] = time.perf_counter() - t
-    print(f"phase build: {record['build_s']:.1f} s (nvcc {_cuda.BUILD_LOG.get('seconds', 0.0):.1f} s)")
+    print(f"phase build: {record['build_s']:.1f} s (nvcc {_cuda.BUILD_LOG.get('seconds', 0.0):.1f} s; "
+          f"each source done at {_cuda.BUILD_LOG.get('source_seconds', {})} s)")
+    record["nvcc_source_s"] = _cuda.BUILD_LOG.get("source_seconds", {})
     for line in str(_cuda.BUILD_LOG.get("log", "")).splitlines():
         if any(w in line for w in ("entry function", "registers", "spill", "error", "warning")):
             print("  ptxas:", line.strip())
@@ -1034,21 +1317,33 @@ def main(argv=None) -> int:
     record["crc32c"] = crc
     print("crc32c: " + json.dumps(crc))
 
+    codec = codec_phase(args.seed, args.segment_mib * MIB, device, card)
+    record["codec"] = codec
+    kernels["huffman_decode"] = codec.pop("decode_kernel")
+
+    gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     launches = main_rec["launches"]
-    missing = [name for name in kernels if launches.get(name, 0) <= 0]
+    missing = [name for name in gcm_kernels if launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
-    missing = [name for name in kernels if plane["launches"].get(name, 0) <= 0]
+    missing = [name for name in gcm_kernels if plane["launches"].get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the fetch plane: {missing}")
     missing = [name for name in ("aes_ctr_keystream", "ghash_tree")
                if sched["launches"].get(name, 0) <= 0]
     check(not missing, f"kernels never launched in the scheduler phase: {missing}")
+    codec_launches = codec["path"]["launches"]
+    missing = [name for name in ("aes_ctr_keystream", "ghash_tree", "huffman_decode")
+               if codec_launches.get(name, 0) <= 0]
+    check(not missing, f"kernels never launched on the compressed path: {missing}")
     line = {"kernels": []}
     for name, rec in kernels.items():
         entry = {k: rec[k] for k in (
             "name", "route", "source", "replaces")}
-        entry["launches"] = launches[name]
+        # The decoder's path is the compressed one; the GCM kernels' the
+        # uncompressed main path.
+        entry["launches"] = codec_launches[name] if name == "huffman_decode" else launches[name]
         entry["launches_fetch_plane"] = plane["launches"][name]
         entry["launches_scheduler"] = sched["launches"][name]
+        entry["launches_codec"] = codec_launches[name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

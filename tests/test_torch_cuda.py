@@ -279,3 +279,114 @@ def test_crc32c_batch_on_the_card_matches_the_host_table(device):
     rng = np.random.default_rng(62)
     chunks = [rng.bytes((4 << 20) + 28) for _ in range(16)]
     assert crc32c_batch(chunks, device) == [crc32c_host(c) for c in chunks]
+
+
+def _log_rows(n_rows: int, size: int, seed: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_rows):
+        recs = b"".join(b"offset=%d key=user-%d value=" % (i, rng.integers(0, 999)) + rng.bytes(8)
+                        for i in range(size // 30 + 1))
+        rows.append(recs[:size])
+    return rows
+
+
+def _decode_operands(rows: list[bytes], device) -> list[torch.Tensor]:
+    """The decoder's operands for `rows`, built as a fetch builds them: the
+    port's encoder on `device`, the frames checked, then laid out."""
+    from tieredstorage_tpu_torch.transform import thuff
+
+    _, coded = thuff.parse_frames(thuff.compress_batch(rows, device=device))
+    assert len(coded) == len(rows)  # every row was coded, none RAW-framed
+    return thuff.decode_operands(coded, device)
+
+
+@pytest.mark.parametrize("n_rows,size", [
+    (1, 4 << 20), (16, 4 << 20),  # a fetched chunk and a 64 MiB window
+    (3, 4096 - 1), (2, 4096), (1, 1000),  # a row under 1000 bytes is RAW-framed
+])
+def test_huffman_decode_kernel_matches_plain(device, n_rows, size):
+    from tieredstorage_tpu_torch.ops import huffman
+
+    rows = _log_rows(n_rows, size, seed=size + n_rows)
+    words, jump, *tabs = _decode_operands(rows, device)
+    before = _cuda.launch_counts()["huffman_decode"]
+    symbols, final = huffman.decode_batch(words, jump, *tabs)
+    assert _cuda.launch_counts()["huffman_decode"] == before + 1
+    want_symbols, want_final = huffman.decode_batch_plain(words, jump, *tabs)
+    assert torch.equal(symbols, want_symbols) and torch.equal(final, want_final)
+    for i, row in enumerate(rows):
+        assert symbols[i, : len(row)].cpu().numpy().tobytes() == row
+
+
+def test_huffman_decode_kernel_matches_plain_on_corrupt_streams(device):
+    from tieredstorage_tpu_torch.ops import huffman
+
+    words, jump, *tabs = _decode_operands(_log_rows(4, 3 * 4096 + 5, seed=9), device)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    noise = torch.randint(-(2**31), 2**31 - 1, (4, 64), generator=gen, dtype=torch.int32)
+    words = words.clone()
+    words[:, 10:74] = noise.to(device)
+    jump = jump.clone()
+    jump[0, 1] = -7
+    jump[1, 2] = 2**31 - 100
+    got = huffman.decode_batch(words, jump, *tabs)
+    want = huffman.decode_batch_plain(words, jump, *tabs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_thuff_codec_on_the_card_matches_the_cpu(device):
+    from tieredstorage_tpu_torch.transform import thuff
+
+    chunks = _log_rows(3, 300_000, seed=4) + [b"", b"z" * 5000]
+    frames = thuff.compress_batch(chunks, device=device)
+    assert frames == thuff.compress_batch(chunks, device="cpu")
+    before = _cuda.launch_counts()["huffman_decode"]
+    assert thuff.decompress_batch(frames, device=device) == chunks
+    assert _cuda.launch_counts()["huffman_decode"] == before + 1
+
+
+def test_compressed_encrypted_rsm_round_trip_on_the_card(device, tmp_path):
+    store, seg = tmp_path / "store", tmp_path / "seg"
+    store.mkdir()
+    seg.mkdir()
+    pub, priv = generate_key_pair_pem_files(tmp_path, prefix="huff")
+    chunk = 1 << 20
+    log = b"".join(_log_rows(5, chunk, seed=11)) + b"tail" * 100
+    files = {name: seg / f"00000000000000000000.{name}" for name in ("log", "index", "timeindex")}
+    files["log"].write_bytes(log)
+    files["index"].write_bytes(b"\x01" * 80)
+    files["timeindex"].write_bytes(b"\x02" * 120)
+    tip = metadata.TopicIdPartition(metadata.KafkaUuid(b"\x03" * 16), metadata.TopicPartition("t", 0))
+    md = metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(b"\x04" * 16)),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    )
+    sd = metadata.LogSegmentData(
+        log_segment=files["log"], offset_index=files["index"], time_index=files["timeindex"],
+        producer_snapshot_index=files["index"], transaction_index=None,
+        leader_epoch_index=b"0\n1\n0 0\n",
+    )
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": chunk,
+        "compression.enabled": True, "compression.codec": "tpu-huff-v1",
+        "encryption.enabled": True, "encryption.key.pair.id": "k",
+        "encryption.key.pairs": "k",
+        "encryption.key.pairs.k.public.key.file": str(pub),
+        "encryption.key.pairs.k.private.key.file": str(priv),
+    })
+    rsm.copy_log_segment_data(md, sd)
+    [log_obj] = store.rglob("*.log")
+    assert log_obj.stat().st_size < 0.9 * len(log)
+    before = _cuda.launch_counts()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        assert stream.read() == log
+    with rsm.fetch_log_segment(md, chunk - 10, 3 * chunk + 5) as stream:
+        assert stream.read() == log[chunk - 10: 3 * chunk + 6]
+    after = _cuda.launch_counts()
+    for name in ("huffman_decode", "aes_ctr_keystream", "ghash_tree"):
+        assert after[name] > before[name], name
+    rsm.delete_log_segment_data(md)
+    rsm.close()

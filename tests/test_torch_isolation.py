@@ -49,6 +49,17 @@ _SCHEDULER_AND_SCRUB = (
     "tieredstorage_tpu_torch.utils.ratelimit",
 )
 
+#: Modules of the compression slice: the native host library and the codecs.
+_COMPRESSION = (
+    "tieredstorage_tpu_torch.native",
+    "tieredstorage_tpu_torch.ops.huffman",
+    "tieredstorage_tpu_torch.ops.lz",
+    "tieredstorage_tpu_torch.transform.thuff",
+    "tieredstorage_tpu_torch.transform.lzhuff",
+    "tieredstorage_tpu_torch.transform.native_backend",
+    "tieredstorage_tpu_torch.transform.cpu",
+)
+
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
@@ -57,8 +68,9 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert res.returncode == 0, res.stderr
     *_, names, count = res.stdout.strip().splitlines()
-    assert int(count) >= 36  # every module was imported
+    assert int(count) >= 36 + len(_COMPRESSION)  # every module was imported
     assert set(_SCHEDULER_AND_SCRUB) <= set(names.split())
+    assert set(_COMPRESSION) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

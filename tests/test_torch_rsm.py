@@ -198,12 +198,14 @@ def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
 
 
 def test_unported_codec_is_refused(tmp_path, keys):
+    """Both device codecs are ported; a codec neither package has is
+    refused by name, with the JAX package's message."""
     configs = _configs(
         tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
         {"transform.device": "cpu", "compression.enabled": True,
-         "compression.codec": "tpu-huff-v1"},
+         "compression.codec": "tpu-huff-v2"},
     )
-    with pytest.raises(ConfigException, match="only 'zstd'"):
+    with pytest.raises(ConfigException, match="'tpu-huff-v2'.*must be one of"):
         RemoteStorageManager().configure(configs)
 
 

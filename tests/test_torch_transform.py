@@ -140,8 +140,14 @@ def test_identity_and_compression_paths():
     key, aad, chunks, _ = _inputs(9, [4096, 100])
     ours = _cpu_backend()
     assert ours.transform(chunks, TransformOptions()) == chunks
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ours.transform(chunks, TransformOptions(compression=True, compression_codec="tpu-huff-v1"))
+    with pytest.raises(ValueError, match="'lz4' not implemented"):
+        ours.transform(chunks, TransformOptions(compression=True, compression_codec="lz4"))
+    huff = TransformOptions(compression=True, compression_codec="tpu-huff-v1",
+                            encryption=DataKeyAndAAD(key, aad))
+    assert ours.detransform(ours.transform(chunks, huff), DetransformOptions(
+        compression=True, compression_codec="tpu-huff-v1", encryption=DataKeyAndAAD(key, aad),
+        max_original_chunk_size=4096,
+    )) == chunks
     pytest.importorskip("zstandard")
     opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(key, aad))
     stored = ours.transform(chunks, opts)

@@ -70,18 +70,31 @@ NOT_YET_PORTED = frozenset({
     "metrics.num.samples", "metrics.sample.window.ms", "metrics.recording.level",
 })
 
-ZSTD = "zstd"
-
-
 def _codec_id(name: str, value) -> None:
-    if value != ZSTD:
+    import warnings
+
+    from tieredstorage_tpu_torch.transform.api import THUFF, TLZHUFF, ZSTD
+
+    if value not in (ZSTD, THUFF, TLZHUFF):
         raise ConfigException(
-            f"Invalid value {value!r} for configuration {name}: only {ZSTD!r} is "
-            "ported to tieredstorage_tpu_torch (the device codecs are not yet ported)"
+            f"Invalid value {value!r} for configuration {name}: "
+            f"must be one of [{ZSTD!r}, {THUFF!r}, {TLZHUFF!r}]"
+        )
+    if value == TLZHUFF:
+        # Demoted behind tpu-huff-v1 in the JAX package, with the same
+        # warning: still supported for reading existing manifests; new
+        # uploads should use tpu-huff-v1.
+        warnings.warn(
+            f"{TLZHUFF!r} is deprecated as a configured codec: its device LZ "
+            f"stage is two orders of magnitude slower than every alternative "
+            f"(BENCH_r05). Use {THUFF!r} (device) or {ZSTD!r} (host) instead; "
+            f"existing {TLZHUFF!r} segments remain readable.",
+            DeprecationWarning,
+            stacklevel=2,
         )
 
 
-_codec_id.description = "[zstd]"
+_codec_id.description = "[zstd, tpu-huff-v1, tpu-lzhuff-v1]"
 
 
 def _base_def() -> ConfigDef:
@@ -120,10 +133,16 @@ def _base_def() -> ConfigDef:
             "compressed (requires compression.enabled).",
     ))
     d.define(ConfigKey(
-        "compression.codec", "string", default=ZSTD, importance="medium",
+        "compression.codec", "string", default="zstd", importance="medium",
         validator=_codec_id,
-        doc="Compression codec id recorded in the manifest: 'zstd' (needs the "
-            "zstandard package).",
+        doc="Compression codec id recorded in the manifest: 'zstd' "
+            "(reference-compatible) or 'tpu-huff-v1' (order-0 device codec, "
+            "the preferred device choice). 'tpu-lzhuff-v1' (device LZ + "
+            "Huffman) is DEPRECATED — demoted behind tpu-huff-v1 in the JAX "
+            "package after its benchmark (BENCH_r05) measured it two orders "
+            "of magnitude slower on both compress and ranged fetch; "
+            "configuring it emits a DeprecationWarning, existing segments "
+            "remain readable.",
     ))
     d.define(ConfigKey(
         "encryption.enabled", "bool", default=False, importance="high",

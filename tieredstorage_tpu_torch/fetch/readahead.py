@@ -1,10 +1,10 @@
 """Predictive sequential readahead: speculate FUTURE windows, pre-admit them.
 
 Counterpart of tieredstorage_tpu/fetch/readahead.py, without the flight
-recorder (not ported). The window batcher that would admit speculative
-decrypts as background-class work is not ported either: speculative windows
-carry the work-class and speculative tags all the same, and launch on the
-card as they come.
+recorder (not ported). Speculative windows carry the background work class
+and the speculative tag: with `transform.batch.enabled` the window batcher
+(transform/batcher.py) admits them as background-class work; without it
+they launch on the card as they come.
 
 Kafka consumers replay log segments front to back, so the fetch stream of a
 replaying consumer is near-perfectly predictable — yet without this tier a

@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("aes_ctr.cu", "ghash.cu")
+SOURCES = ("aes_ctr.cu", "ghash.cu", "huffman.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,13 +45,15 @@ _SIGNATURES = {
     "aes_ctr_keystream": ("tst_aes_ctr_keystream", (_P, _P, ctypes.c_uint, _I, _I, _P)),
     "ghash_tree": ("tst_ghash_tree", (_P, _I, _I, _I, _P, _P, _P, _P, _P)),
     "ghash_level1": ("tst_ghash_level1", (_P, _I, _I, _P, _P)),
+    "huffman_decode": ("tst_huffman_decode", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P)),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in _SIGNATURES}
 LAUNCH_ROWS: dict[str, collections.Counter] = {name: collections.Counter() for name in _SIGNATURES}
 _LOCK = threading.Lock()
 _LIB: list[ctypes.CDLL] = []
-#: What the last build printed (nvcc -Xptxas -v), and how long it took.
+#: What the last build printed (nvcc -Xptxas -v), how long it took, and when
+#: each source's nvcc finished (seconds from the start of the build).
 BUILD_LOG: dict[str, object] = {}
 
 
@@ -113,12 +115,20 @@ def build() -> Path:
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
-    logs, failed = [], []
-    for name, _obj, proc in procs:
+    logs, failed, seconds = [], [], {}
+
+    def wait(name, proc):
         text, _ = proc.communicate()
+        seconds[name] = time.monotonic() - start
         logs.append(f"== {name}\n{text}")
         if proc.returncode != 0:
             failed.append(name)
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _obj, proc in procs]
+    for th in waiters:
+        th.start()
+    for th in waiters:
+        th.join()
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     tmp = out_dir / f".{lib.name}.{os.getpid()}"
@@ -129,7 +139,8 @@ def build() -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
     os.replace(tmp, lib)
-    BUILD_LOG.update(seconds=time.monotonic() - start, log="\n".join(logs))
+    BUILD_LOG.update(seconds=time.monotonic() - start, log="\n".join(sorted(logs)),
+                     source_seconds=dict(sorted(seconds.items())))
     return lib
 
 

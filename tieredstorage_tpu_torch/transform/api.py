@@ -15,12 +15,17 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
 
-#: The compression codec id this package implements: the reference-compatible
-#: zstd frame with content size, one frame per chunk
-#: (CompressionChunkEnumeration.java:50-63). A manifest may also record the
-#: JAX package's device codecs ("tpu-huff-v1", "tpu-lzhuff-v1"), which are not
-#: yet ported: the backend refuses them by name.
+#: Compression codec ids recordable in the manifest. "zstd" is the
+#: reference-compatible default (zstd frame with content size, one frame per
+#: chunk — CompressionChunkEnumeration.java:50-63). "tpu-huff-v1" is the
+#: order-0 device codec: chunk-batched canonical Huffman encoded with torch
+#: ops and decoded by a CUDA kernel (transform/thuff.py). "tpu-lzhuff-v1"
+#: layers LZ match-finding under the same Huffman stage (ops/lz.py +
+#: transform/lzhuff.py). All are recorded in the manifest's
+#: compressionCodec field, and frames are the JAX package's byte for byte.
 ZSTD = "zstd"
+THUFF = "tpu-huff-v1"
+TLZHUFF = "tpu-lzhuff-v1"
 
 
 class AuthenticationError(ValueError):

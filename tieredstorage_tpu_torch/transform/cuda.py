@@ -18,7 +18,13 @@ window's event — host staging of window k overlaps the device work of the
 windows before it.
 
 Wire format is the JAX package's and the reference's: per chunk
-`IV || ciphertext || tag` (after an optional per-chunk zstd frame).
+`IV || ciphertext || tag` (after an optional per-chunk compression frame).
+Compression follows the JAX backend's seam: zstd through the native host
+library when it builds (tieredstorage_tpu_torch/native, the JAX package's
+route, so frames match), else through `zstandard`; the device codecs
+tpu-huff-v1 and tpu-lzhuff-v1 run on the backend's device (the Huffman
+decoder is the CUDA kernel of csrc/huffman.cu there), never on the CPU
+behind a CUDA backend's back.
 
 The device comes from `transform.device` (default `cuda:0`; `cpu` runs the
 plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
@@ -47,6 +53,7 @@ try:  # Optional dependency: only the zstd codec path needs it.
 except ImportError:  # pragma: no cover - exercised only without zstandard
     zstandard = None
 
+from tieredstorage_tpu_torch import native
 from tieredstorage_tpu_torch.config.configdef import ConfigException
 from tieredstorage_tpu_torch.ops import gcm as gcm_ops
 from tieredstorage_tpu_torch.ops.gcm import (
@@ -57,6 +64,8 @@ from tieredstorage_tpu_torch.ops.gcm import (
 )
 from tieredstorage_tpu_torch.security.aes import IV_SIZE, TAG_SIZE
 from tieredstorage_tpu_torch.transform.api import (
+    THUFF,
+    TLZHUFF,
     ZSTD,
     AuthenticationError,
     DetransformOptions,
@@ -339,16 +348,24 @@ class CudaTransformBackend(TransformBackend):
         return self._encrypt_finish(staged)
 
     def _compress_batch(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
+        if opts.compression_codec == THUFF:
+            from tieredstorage_tpu_torch.transform import thuff
+
+            return thuff.compress_batch(chunks, device=self.device)
+        if opts.compression_codec == TLZHUFF:
+            from tieredstorage_tpu_torch.transform import lzhuff
+
+            return lzhuff.compress_batch(chunks, device=self.device)
         if opts.compression_codec != ZSTD:
-            raise NotImplementedError(
-                f"Codec {opts.compression_codec!r} is not yet ported to tieredstorage_tpu_torch"
-            )
+            raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
+        level = opts.compression_level
+        if self._use_native():
+            return native.zstd_compress_batch(chunks, level=level)
         if zstandard is None:
             raise ModuleNotFoundError(
                 "The 'zstandard' package is required for the 'zstd' codec "
                 "but is not installed"
             )
-        level = opts.compression_level
         return list(
             self._zstd_pool().map(
                 lambda c: zstandard.ZstdCompressor(
@@ -357,6 +374,15 @@ class CudaTransformBackend(TransformBackend):
                 chunks,
             )
         )
+
+    @staticmethod
+    def _use_native() -> bool:
+        """Host zstd stays on the CPU; prefer the C++ batch library over the
+        Python thread pool when it builds, as the JAX package does (its
+        frames then come from the same libzstd). Only the zstd half is
+        needed here, so libcrypto availability is not required
+        (native.load, not native.available)."""
+        return native.load() is not None
 
     def _make_ivs(self, n: int, opts: TransformOptions) -> np.ndarray:
         if opts.ivs is not None:
@@ -485,28 +511,38 @@ class CudaTransformBackend(TransformBackend):
         if opts.encryption is not None:
             out = self._decrypt_batch(out, opts)
         if opts.compression:
+            if opts.compression_codec == THUFF:
+                from tieredstorage_tpu_torch.transform import thuff
+
+                return thuff.decompress_batch(
+                    out, opts.max_original_chunk_size, device=self.device
+                )
+            if opts.compression_codec == TLZHUFF:
+                from tieredstorage_tpu_torch.transform import lzhuff
+
+                return lzhuff.decompress_batch(
+                    out, opts.max_original_chunk_size, device=self.device
+                )
             if opts.compression_codec != ZSTD:
-                raise NotImplementedError(
-                    f"Codec {opts.compression_codec!r} is not yet ported to tieredstorage_tpu_torch"
+                raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
+            if self._use_native():
+                out = native.zstd_decompress_batch(
+                    out, max_decompressed=opts.max_original_chunk_size
                 )
-            if zstandard is None:
-                raise ModuleNotFoundError(
-                    "The 'zstandard' package is required for the 'zstd' "
-                    "codec but is not installed"
-                )
-            limit = opts.max_original_chunk_size
-            for i, c in enumerate(out):
-                size = zstandard.frame_content_size(c)
-                if size < 0 or (limit is not None and size > limit):
-                    raise ValueError(
-                        f"Chunk {i}: zstd frame declares content size {size}, "
-                        f"limit {limit}"
+            else:
+                if zstandard is None:
+                    raise ModuleNotFoundError(
+                        "The 'zstandard' package is required for the 'zstd' "
+                        "codec but is not installed"
                     )
-            out = list(
-                self._zstd_pool().map(
-                    lambda c: zstandard.ZstdDecompressor().decompress(c), out
+                native.checked_frame_content_sizes(out, opts.max_original_chunk_size)
+                # One DCtx per chunk: zstandard (de)compressor objects are not
+                # thread-safe across the pool's workers.
+                out = list(
+                    self._zstd_pool().map(
+                        lambda c: zstandard.ZstdDecompressor().decompress(c), out
+                    )
                 )
-            )
         return out
 
     def _decrypt_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:

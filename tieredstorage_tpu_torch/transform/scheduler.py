@@ -1,8 +1,9 @@
 """Work classes for the device GCM queue: the scheduling half of the batcher.
 
 Counterpart of tieredstorage_tpu/transform/scheduler.py, whole. The window
-batcher that reads these classes is not yet ported; the fetch tiers already
-tag their work with them (chunk_cache.py, readahead.py).
+batcher (transform/batcher.py) reads these classes; the fetch tiers tag
+their work with them (chunk_cache.py, readahead.py), and the scrubber runs
+under BACKGROUND.
 
 The window batcher coalesces the decrypt path; this module makes
 the one device queue *work-class-aware* so every GCM consumer — foreground

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
-    python3 tools/torch_main_path_profile.py [--segment-mib N] [--seed N] [--out PATH]
+    python3 tools/torch_main_path_profile.py [--segment-mib N] [--seed N]
+        [--codec zstd|tpu-huff-v1|tpu-lzhuff-v1] [--out PATH]
 
 Copies one encrypted segment through the port's RemoteStorageManager
-(filesystem store, 4 MiB chunks, the segment and indexes of chip_smoke.py),
+(filesystem store, 4 MiB chunks, the segment and indexes of chip_smoke.py;
+with --codec, compressed with that codec, and the log Kafka-shaped as in
+chip_smoke.py's codec phase),
 then reads it back whole and with 16 ranged 1 MiB reads. Each phase runs
 twice: under `torch.profiler` with CPU and CUDA activities, which gives the
 wall time, the device time by kernel or copy (self device time of the
@@ -98,6 +101,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--segment-mib", type=int, default=256)
+    parser.add_argument("--codec", default=None,
+                        help="compress with this codec (default: no compression)")
     parser.add_argument("--out", default="chiprun_out/torch_main_path_profile.json")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -109,12 +114,13 @@ def main(argv=None) -> int:
 
     size = args.segment_mib * MIB
     work = Path(tempfile.mkdtemp(prefix="torch_profile_"))
-    record = {"card": chip_smoke.card_line(), "segment_bytes": size}
+    record = {"card": chip_smoke.card_line(), "segment_bytes": size, "codec": args.codec}
     try:
         seg_dir, store = work / "segment", work / "store"
         seg_dir.mkdir()
         store.mkdir()
-        md, sd, _files, _ = chip_smoke.write_segment(seg_dir, args.seed, size)
+        md, sd, _files, _ = chip_smoke.write_segment(
+            seg_dir, args.seed, size, kafka_shaped=args.codec is not None)
         pub, priv = generate_key_pair_pem_files(work, prefix="profile")
         rsm = RemoteStorageManager()
         rsm.configure({
@@ -124,6 +130,8 @@ def main(argv=None) -> int:
             "encryption.key.pairs": "k1",
             "encryption.key.pairs.k1.public.key.file": str(pub),
             "encryption.key.pairs.k1.private.key.file": str(priv),
+            "compression.enabled": args.codec is not None,
+            "compression.codec": args.codec or "zstd",
         })
         # Kernels built before the phases below. Every copy draws a new data
         # key, so each copy builds its GCM contexts anew, as in production.
