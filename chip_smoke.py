@@ -61,7 +61,9 @@ Phases, in order, each printing its seconds:
 7. codec — the native host library's build and load status; the Huffman
              decode kernel (csrc/huffman.cu) against its plain version at 16
              rows and one row of 4 MiB Kafka-shaped chunks (bench.py's
-             generator), bit for bit, timed, the plain version timed once;
+             generator), bit for bit, timed, the plain version timed once,
+             with its launch shape and its two kernels' device time under
+             torch.profiler (the table build's share);
              the compressed path: a fresh store, compression.codec
              tpu-huff-v1 with encryption, a 1 GiB Kafka-shaped segment
              (--segment-mib) copied, fetched whole and read in 64
@@ -996,8 +998,12 @@ def decode_kernel_phase(seed: int, device) -> dict:
     its times and its bound: the coded words, jump offsets and tables read
     once, the symbols and final bit positions written once, at the HBM
     rate. The operands are those a fetch lays out from the frames that the
-    port's encoder wrote on the card."""
-    from tieredstorage_tpu_torch.ops import huffman
+    port's encoder wrote on the card. Also the launch shape (lanes a block,
+    blocks) and, under torch.profiler, the device time of the call's two
+    kernels: the per-row table build and the decode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tieredstorage_tpu_torch.ops import _cuda, huffman
     from tieredstorage_tpu_torch.transform import thuff
 
     chunks = list(make_segment(16, CHUNK, seed))
@@ -1018,6 +1024,28 @@ def decode_kernel_phase(seed: int, device) -> dict:
               f"Huffman decode kernel does not invert the encoder at {rows} rows")
         del got, want
         rec["ms" + label] = time_cuda(lambda ops=ops: huffman.decode_batch(*ops), 20)
+        threads, per_lane = _cuda.decode_shape(ops[1].numel())
+        rec["threads_per_block" + label] = threads
+        rec["threads_per_lane" + label] = per_lane
+        rec["blocks" + label] = -(-ops[1].shape[1] * per_lane // threads) * rows
+        runs = 5
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                huffman.decode_batch(*ops)
+            torch.cuda.synchronize()
+        device_us = {"table": 0.0, "decode": 0.0}  # the table build; the decode kernel
+        for ev in prof.key_averages():
+            if "huffman_" in ev.key and "kernel" in ev.key:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0.0)
+                device_us["table" if "huffman_table_kernel" in ev.key else "decode"] += float(us)
+        table_ms = device_us["table"] / runs / 1e3
+        decode_ms = device_us["decode"] / runs / 1e3
+        rec["table_build_ms" + label] = table_ms
+        rec["table_decode_kernel_ms" + label] = decode_ms
+        rec["table_build_share" + label] = table_ms / (table_ms + decode_ms) if decode_ms else None
         t = time.perf_counter()
         huffman.decode_batch_plain(*ops)
         torch.cuda.synchronize()
@@ -1208,7 +1236,8 @@ def codec_phase(seed: int, segment_bytes: int, device, card: str) -> dict:
     decode = decode_kernel_phase(seed, device)
     out["decode_kernel"] = decode
     print("codec decode kernel: " + json.dumps({"card": card, **{
-        k: decode[k] for k in decode if k.startswith(("ms", "plain_ms", "bound", "max_abs", "lanes"))
+        k: decode[k] for k in decode
+        if k.startswith(("ms", "plain_ms", "bound", "max_abs", "lanes", "table", "threads", "blocks"))
     }}))
 
     for name, fn, size in (("path", codec_path, segment_bytes),

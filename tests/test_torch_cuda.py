@@ -19,6 +19,7 @@ from tieredstorage_tpu_torch.ops import _cuda, aes_bitsliced, gcm, ghash_cuda
 from tieredstorage_tpu_torch.ops.aes import key_expansion
 from tieredstorage_tpu_torch.rsm import RemoteStorageManager
 from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+from tests.torch_huffman_regimes import REGIMES, regimes
 
 pytestmark = pytest.mark.cuda
 
@@ -333,6 +334,59 @@ def test_huffman_decode_kernel_matches_plain_on_corrupt_streams(device):
     got = huffman.decode_batch(words, jump, *tabs)
     want = huffman.decode_batch_plain(words, jump, *tabs)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("tile", [1, 400], ids=["split", "per-lane"])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_huffman_decode_kernel_matches_plain_in_every_regime(device, regime, tile):
+    """4 rows of 4 jump blocks take the split kernel; the same rows 400
+    times over (6400 lanes) take one thread per lane."""
+    from tieredstorage_tpu_torch.ops import huffman
+
+    base = [t.cpu().numpy() for t in _decode_operands(_log_rows(4, 3 * 4096 + 5, seed=9), device)]
+    words, jump, tabs = regimes(base[0].view(np.uint32), base[1], base[2:], seed=5)[regime]
+    words, jump, *tabs = (np.tile(a, (tile, 1)) for a in (words, jump, *tabs))
+    assert (_cuda.decode_shape(jump.size)[1] > 1) == (tile == 1)
+    ops = [_on(device, words.view(np.int32)), _on(device, jump), *(_on(device, t) for t in tabs)]
+    before = _cuda.launch_counts()["huffman_decode"]
+    got = huffman.decode_batch(*ops)
+    assert _cuda.launch_counts()["huffman_decode"] == before + 1
+    want = huffman.decode_batch_plain(*ops)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_huffman_decode_kernel_takes_words_that_are_not_16_byte_aligned(device):
+    """The kernel reads words 16 bytes at a time; a view one odd-width row
+    in is copied first, and decodes as the plain version does."""
+    from tieredstorage_tpu_torch.ops import huffman
+
+    words, jump, *tabs = _decode_operands(_log_rows(2, 3 * 4096 + 5, seed=3), device)
+    ops = [t[1:] for t in (words, jump, *tabs)]
+    assert ops[0].shape[1] % 4 and ops[0].data_ptr() % 16
+    got = huffman.decode_batch(*ops)
+    want = huffman.decode_batch_plain(*ops)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_huffman_decode_kernel_on_a_fixed_length_code_row(device):
+    """Every symbol coded in 8 bits: offsets that differ mod 8 never meet."""
+    from tieredstorage_tpu_torch.ops import huffman
+    from tieredstorage_tpu_torch.transform import thuff
+
+    rng = np.random.default_rng(8)
+    n = 3 * 4096 + 100
+    data = rng.integers(0, 256, (1, n), dtype=np.uint8)
+    lengths = np.full((1, 256), 8, np.int32)
+    codes_rev = thuff.encode_tables(lengths[0])[None, :]
+    words, _, jump = huffman.encode_batch(*(_on(device, a) for a in (
+        data, np.array([n], np.int32), codes_rev, lengths)))
+    tabs = [_on(device, np.asarray(t, np.int32)[None, :]) for t in thuff.decode_tables(lengths[0])]
+    ops = [huffman.to_int32_bits(words), jump.to(torch.int32), *tabs]
+    symbols, final = huffman.decode_batch(*ops)
+    want = huffman.decode_batch_plain(*ops)
+    assert torch.equal(symbols, want[0]) and torch.equal(final, want[1])
+    assert symbols[0, :n].cpu().numpy().tobytes() == data.tobytes()
+    assert final[0, :3].tolist() == [8 * 4096, 16 * 4096, 24 * 4096]
 
 
 def test_thuff_codec_on_the_card_matches_the_cpu(device):

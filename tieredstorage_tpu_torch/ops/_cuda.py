@@ -45,7 +45,7 @@ _SIGNATURES = {
     "aes_ctr_keystream": ("tst_aes_ctr_keystream", (_P, _P, ctypes.c_uint, _I, _I, _P)),
     "ghash_tree": ("tst_ghash_tree", (_P, _I, _I, _I, _P, _P, _P, _P, _P)),
     "ghash_level1": ("tst_ghash_level1", (_P, _I, _I, _P, _P)),
-    "huffman_decode": ("tst_huffman_decode", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P)),
+    "huffman_decode": ("tst_huffman_decode", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P)),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in _SIGNATURES}
@@ -155,6 +155,10 @@ def library() -> ctypes.CDLL:
             lib.tst_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tst_cuda_error_string.restype = ctypes.c_char_p
             lib.tst_ghash_tree_slice.restype = ctypes.c_int
+            lib.tst_huffman_decode_threads.argtypes = []
+            lib.tst_huffman_decode_threads.restype = ctypes.c_int
+            lib.tst_huffman_split.argtypes = [ctypes.c_int]
+            lib.tst_huffman_split.restype = ctypes.c_int
             _LIB.append(lib)
         return _LIB[0]
 
@@ -162,6 +166,14 @@ def library() -> ctypes.CDLL:
 def tree_slice() -> int:
     """Groups per block of the GHASH tree kernel (csrc/ghash.cu kSlice)."""
     return library().tst_ghash_tree_slice()
+
+
+def decode_shape(lanes: int) -> tuple[int, int]:
+    """The Huffman decode's launch shape for a call of `lanes` (rows x jump
+    blocks) lanes: (threads a block, threads a lane) (csrc/huffman.cu
+    kThreads, and kSplit where the call splits its lanes, else 1)."""
+    lib = library()
+    return lib.tst_huffman_decode_threads(), lib.tst_huffman_split(lanes)
 
 
 def launch(name: str, *args, rows: int) -> None:

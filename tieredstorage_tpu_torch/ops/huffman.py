@@ -11,8 +11,10 @@ length-limited canonical Huffman coder batched over whole chunk windows:
 - `decode_batch`: block-parallel. The frame records the absolute bit offset
   of every JUMP_BLOCK-symbol block, so each (row, block) lane decodes its
   block's symbols in sequence while all lanes run at once. On a CUDA tensor
-  the wrapper launches csrc/huffman.cu (one thread per lane, JUMP_BLOCK
-  dependent steps in one kernel); on a CPU tensor it takes
+  the wrapper launches csrc/huffman.cu (a per-row table of every 15-bit
+  window's (length, symbol), then JUMP_BLOCK dependent steps of a
+  shared-memory lookup per lane, or, for calls of few lanes, 16 threads per
+  lane that split its bits and resynchronise); on a CPU tensor it takes
   `decode_batch_plain`, the same scan as JUMP_BLOCK steps of torch ops.
 
 Codes are stored bit-reversed so the stream reads MSB-first; the canonical
@@ -30,6 +32,9 @@ import torch
 JUMP_BLOCK = 4096
 
 MAX_CODE_LEN = 15
+
+#: Entries of the kernel's per-row decode table: one per 15-bit window.
+TABLE_ENTRIES = 1 << MAX_CODE_LEN
 
 #: Hard per-chunk cap of the v1 frame format: bit positions are int32
 #: (worst case MAX_CODE_LEN bits/symbol -> 128 MiB * 15 < 2^31) and the
@@ -156,11 +161,15 @@ def decode_batch(words, jump, first_code, counts, base, perm):
     final_bitpos = torch.empty((batch, n_blocks), dtype=torch.int32, device=words.device)
     if batch and n_blocks:
         words32, jump32, first32, counts32, base32, perm32 = ops
+        if words32.data_ptr() % 16:  # the kernel reads the words 16 bytes at a time
+            words32 = words32.clone()
+        # uint16 entries, (symbol << 8) | length, built by the call itself.
+        tables = torch.empty((batch, TABLE_ENTRIES), dtype=torch.int16, device=words.device)
         with torch.cuda.device(words.device):
             _cuda.launch(
                 "huffman_decode", words32.data_ptr(), w, jump32.data_ptr(), n_blocks,
                 first32.data_ptr(), counts32.data_ptr(), base32.data_ptr(), perm32.data_ptr(),
-                batch, symbols.data_ptr(), final_bitpos.data_ptr(), rows=batch,
+                batch, tables.data_ptr(), symbols.data_ptr(), final_bitpos.data_ptr(), rows=batch,
             )
     return symbols, final_bitpos
 
