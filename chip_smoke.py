@@ -74,6 +74,24 @@ Phases, in order, each printing its seconds:
              launch); a 256 MiB zstd leg through the native library when it
              loaded (else a line that says why); and tpu-lzhuff-v1 on two
              4 MiB chunks with the LZ analysis of one row timed alone.
+8. storage — the main path's keys (encryption on, 4 MiB chunks,
+             compression off) through the object-store backends, each store
+             one of the repo's emulators (tests/emulators/) in a child
+             process, its endpoint read from the child's first line; launch
+             counts zeroed before (a) and read after (c): (a) S3 at full
+             width: the 1 GiB segment (--segment-mib) with Kafka-sized
+             indexes against the emulator that checks every request's SigV4
+             signature, default 5 MiB parts: copy, whole fetch, 64 seeded
+             1 MiB ranged reads, every index, delete, then an empty listing;
+             (b) GCS (service-account JWTs minted by the port's own RS256
+             from a port-generated PKCS#8 key) and Azure Blob (SharedKey,
+             checked on every request), 256 MiB each (cut from 1 GiB for
+             time): copy, whole fetch, delete; (c) replicated storage over
+             S3 and the filesystem with write quorum 2, 256 MiB (cut for
+             time): copy, both replicas hold the objects, then a restarted
+             broker's RSM reads the segment after the S3 child was
+             terminated and must fail over. Every byte is compared and every
+             leg must launch AES and both GHASH kernels.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -84,7 +102,9 @@ failed check exits non-zero before those lines. Without CUDA the script exits
 from __future__ import annotations
 
 import argparse
+import base64
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -141,6 +161,9 @@ FP32_FLOPS_PER_S = 67e12
 #: Phase 6's scrub budget: `scrub.rate.bytes` cut from the 8 MiB/s default
 #: so a pass over 1 GiB takes seconds, not minutes.
 SCRUB_RATE = 512 * MIB
+#: Phase 8's object-store legs besides S3's: 256 MiB, cut from 1 GiB for time.
+STORAGE_CUT_BYTES = 256 * MIB
+REPO = Path(__file__).resolve().parent
 
 
 class SmokeFailure(Exception):
@@ -1258,6 +1281,256 @@ def codec_phase(seed: int, segment_bytes: int, device, card: str) -> dict:
     return out
 
 
+#: Phase 8's credentials. The S3 emulator checks every request's SigV4
+#: signature and the Azure emulator every request's SharedKey against these.
+S3_CREDENTIALS = ("smoke-access", "smoke-secret")
+AZURE_ACCOUNT = "smokeaccount"
+AZURE_KEY = base64.b64encode(bytes(range(64))).decode()
+
+_EMULATORS = {
+    "s3": "from tests.emulators.s3_emulator import S3Emulator\n"
+          f"emu = S3Emulator(credentials={S3_CREDENTIALS!r})",
+    "gcs": "from tests.emulators.gcs_emulator import GcsEmulator\nemu = GcsEmulator()",
+    "azure": "from tests.emulators.azure_emulator import AzureEmulator\n"
+             f"emu = AzureEmulator(account={AZURE_ACCOUNT!r}, account_key={AZURE_KEY!r})",
+}
+
+
+class EmulatorProcess:
+    """One of the repo's storage emulators, serving from a child process so
+    that its request handling stays off this process's interpreter lock. The
+    child prints its endpoint, then serves until its stdin closes."""
+
+    def __init__(self, kind: str) -> None:
+        code = _EMULATORS[kind] + "\nemu.start()\nprint(emu.endpoint, flush=True)\n" \
+            "import sys\nsys.stdin.read()\nemu.stop()\n"
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(REPO), os.environ.get("PYTHONPATH", "")) if p)}
+        self.kind = kind
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO, env=env, text=True,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self.endpoint = self.proc.stdout.readline().strip()
+        if not self.endpoint.startswith("http://"):
+            self.stop()
+            raise SmokeFailure(f"the {kind} emulator did not start (exit {self.proc.returncode})")
+
+    def terminate(self) -> None:
+        """Kill the store abruptly, as a crashed endpoint goes away."""
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+    def __enter__(self) -> "EmulatorProcess":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+def _backend_configs(kind: str, endpoint: str, gcs_credentials: str | None = None) -> dict:
+    """The `storage.`-stripped keys of one object-store backend."""
+    if kind == "s3":
+        return {"backend.class": "tieredstorage_tpu_torch.storage.s3.S3Storage",
+                "s3.bucket.name": "smoke", "s3.endpoint.url": endpoint,
+                "aws.access.key.id": S3_CREDENTIALS[0],
+                "aws.secret.access.key": S3_CREDENTIALS[1]}
+    if kind == "gcs":
+        return {"backend.class": "tieredstorage_tpu_torch.storage.gcs.GcsStorage",
+                "gcs.bucket.name": "smoke", "gcs.endpoint.url": endpoint,
+                "gcs.credentials.json": gcs_credentials}
+    return {"backend.class": "tieredstorage_tpu_torch.storage.azure.AzureBlobStorage",
+            "azure.account.name": AZURE_ACCOUNT, "azure.account.key": AZURE_KEY,
+            "azure.container.name": "smoke", "azure.endpoint.url": endpoint}
+
+
+def _store_rsm(storage: dict, pub: Path, priv: Path, device: str):
+    """The port's RSM with the main path's keys over `storage`."""
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+
+    configs = {k: v for k, v in _rsm_configs(Path(), pub, priv, device).items()
+               if not k.startswith("storage.")}
+    configs.update({f"storage.{k}": v for k, v in storage.items()})
+    rsm = RemoteStorageManager()
+    rsm.configure(configs)
+    return rsm
+
+
+def _listing(storage: dict, prefix: str = "smoke/") -> list[str]:
+    """Keys under `prefix`, through a backend configured apart from the RSM's."""
+    from tieredstorage_tpu_torch.storage.core import load_backend_class
+
+    configs = {k: v for k, v in storage.items() if k != "backend.class"}
+    backend = load_backend_class(storage["backend.class"])()
+    backend.configure(configs)
+    try:
+        return [k.value for k in backend.list_objects(prefix)]
+    finally:
+        backend.close()
+
+
+def _gcs_service_account() -> str:
+    """Service-account JSON holding a PKCS#8 key generated by the port."""
+    from tieredstorage_tpu_torch.security import rsa
+
+    pem = rsa.private_key_pem(rsa.generate_private_key(2048)).decode()
+    return json.dumps({"type": "service_account", "client_email": "smoke@smoke.iam",
+                       "private_key": pem})
+
+
+def _copy_fetch(rsm, md, sd, source: bytes, what: str) -> dict:
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    copy_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        fetched = stream.read()
+    fetch_s = time.perf_counter() - t
+    check(fetched == source, f"{what}: whole-segment fetch differs from the source")
+    gib = len(source) / (1 << 30)
+    return {"segment_bytes": len(source), "copy_s": copy_s, "fetch_s": fetch_s,
+            "copy_gib_s": gib / copy_s, "fetch_gib_s": gib / fetch_s}
+
+
+def _gcm_launched(launches: dict, what: str) -> None:
+    missing = [n for n in ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+               if launches.get(n, 0) <= 0]
+    check(not missing, f"{what}: GCM kernels never launched: {missing}")
+
+
+def storage_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0",
+                  cut_bytes: int = STORAGE_CUT_BYTES) -> dict:
+    """Phase 8: the main path through the S3, GCS, Azure and replicated
+    backends, each object store an emulator in a child process."""
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="storage")
+    gcs_credentials = _gcs_service_account()
+    out: dict = {}
+    _cuda.reset_launch_counts()
+
+    # (a) S3 at full width, every request's signature checked.
+    seg = work / "segment_s3"
+    seg.mkdir()
+    md, sd, files, leader_epoch = write_segment(seg, seed, segment_bytes)
+    source = files["log"].read_bytes()
+    before = _cuda.launch_counts()
+    with EmulatorProcess("s3") as emu:
+        storage = _backend_configs("s3", emu.endpoint)
+        rsm = _store_rsm(storage, pub, priv, device)
+        rec = _copy_fetch(rsm, md, sd, source, "storage s3")
+        check(len(_listing(storage)) == 3, "storage s3: the copy did not store 3 objects")
+        rng = np.random.default_rng(seed + 8)
+        latencies = []
+        for off in rng.integers(0, segment_bytes - MIB, 64):
+            off = int(off)
+            t = time.perf_counter()
+            with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                part = stream.read()
+            latencies.append((time.perf_counter() - t) * 1e3)
+            check(part == source[off : off + MIB], f"storage s3: ranged read at {off} differs")
+        for index_type, want in (
+            (IndexType.OFFSET, files["offset"].read_bytes()),
+            (IndexType.TIMESTAMP, files["time"].read_bytes()),
+            (IndexType.PRODUCER_SNAPSHOT, files["snapshot"].read_bytes()),
+            (IndexType.LEADER_EPOCH, leader_epoch),
+        ):
+            check(rsm.fetch_index(md, index_type).read() == want,
+                  f"storage s3: {index_type.name} index differs")
+        rsm.delete_log_segment_data(md)
+        check(_listing(storage) == [], "storage s3: objects left under the prefix after delete")
+        rsm.close()
+    rec["ranged_1mib_p50_ms"] = float(np.percentile(latencies, 50))
+    rec["ranged_1mib_p99_ms"] = float(np.percentile(latencies, 99))
+    rec["launches"] = _counts_delta(before, _cuda.launch_counts())
+    _gcm_launched(rec["launches"], "storage s3")
+    out["s3"] = rec
+    del source
+    shutil.rmtree(seg)
+
+    # (b) GCS and Azure at the cut size.
+    seg = work / "segment_cut"
+    seg.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 1, cut_bytes)
+    source = files["log"].read_bytes()
+    for kind in ("gcs", "azure"):
+        before = _cuda.launch_counts()
+        with EmulatorProcess(kind) as emu:
+            storage = _backend_configs(kind, emu.endpoint, gcs_credentials)
+            rsm = _store_rsm(storage, pub, priv, device)
+            rec = _copy_fetch(rsm, md, sd, source, f"storage {kind}")
+            if kind == "gcs":
+                check(rsm._storage._token_provider is not None
+                      and rsm._storage._token_provider.token().count(".") == 2,
+                      "storage gcs: no service-account JWT was minted")
+            rsm.delete_log_segment_data(md)
+            check(_listing(storage) == [], f"storage {kind}: objects left after delete")
+            rsm.close()
+        rec["launches"] = _counts_delta(before, _cuda.launch_counts())
+        _gcm_launched(rec["launches"], f"storage {kind}")
+        out[kind] = rec
+
+    # (c) Replicated: S3 and the filesystem, write quorum 2. The reading RSM
+    # is a restarted broker's: no health history, so S3, listed first, is
+    # its primary when the S3 child is gone. The call timeout bounds each
+    # read of the dead store, and the prober's first round (the 30 s
+    # default) comes after the leg.
+    fs_root = work / "replica_fs"
+    fs_root.mkdir()
+    before = _cuda.launch_counts()
+    with EmulatorProcess("s3") as emu:
+        s3_child = _backend_configs("s3", emu.endpoint)
+        storage = {
+            "backend.class": "tieredstorage_tpu_torch.storage.replicated.ReplicatedStorageBackend",
+            "replication.replicas": "s3,fs",
+            **{f"replication.replica.s3.{k}": v for k, v in s3_child.items()},
+            "replication.replica.s3.s3.api.call.timeout": 2000,
+            "replication.replica.fs.backend.class":
+                "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+            "replication.replica.fs.root": str(fs_root),
+            "replication.write.quorum": 2,
+            "replication.probe.interval.ms": 30_000,
+        }
+        writer = _store_rsm(storage, pub, priv, device)
+        t = time.perf_counter()
+        writer.copy_log_segment_data(md, sd)
+        rec = {"segment_bytes": cut_bytes, "copy_s": time.perf_counter() - t}
+        for state in writer.replicated_storage.replica_states:
+            held = [k.value for k in state.backend.list_objects("smoke/")]
+            check(len(held) == 3, f"storage replicated: replica {state.name} holds {held}")
+        writer.close()
+        reader = _store_rsm(storage, pub, priv, device)
+        emu.terminate()
+        t = time.perf_counter()
+        with reader.fetch_log_segment(md, 0) as stream:
+            fetched = stream.read()
+        rec["fetch_after_s3_died_s"] = time.perf_counter() - t
+        check(fetched == source, "storage replicated: fetch after failover differs")
+        rep = reader.replicated_storage
+        rec["failovers"] = rep.failovers
+        rec["replica_health"] = rep.replica_health()
+        check(rep.failovers > 0, "storage replicated: the fetch never failed over")
+        reader.close()
+    gib = cut_bytes / (1 << 30)
+    rec["copy_gib_s"] = gib / rec["copy_s"]
+    rec["fetch_after_s3_died_gib_s"] = gib / rec["fetch_after_s3_died_s"]
+    rec["launches"] = _counts_delta(before, _cuda.launch_counts())
+    _gcm_launched(rec["launches"], "storage replicated")
+    out["replicated"] = rec
+    out["launches"] = _cuda.launch_counts()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -1350,6 +1623,19 @@ def main(argv=None) -> int:
     record["codec"] = codec
     kernels["huffman_decode"] = codec.pop("decode_kernel")
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_storage_"))
+    try:
+        t = time.perf_counter()
+        store = storage_phase(args.seed, args.segment_mib * MIB, work)
+        record["storage_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase storage: {record['storage_s']:.1f} s (GCS, Azure and replicated legs cut "
+          f"to {STORAGE_CUT_BYTES} bytes from 1 GiB for time)")
+    record["storage"] = store
+    for leg in ("s3", "gcs", "azure", "replicated"):
+        print(f"storage {leg}: " + json.dumps({"card": card, **store[leg]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     launches = main_rec["launches"]
     missing = [name for name in gcm_kernels if launches.get(name, 0) <= 0]
@@ -1373,6 +1659,7 @@ def main(argv=None) -> int:
         entry["launches_fetch_plane"] = plane["launches"][name]
         entry["launches_scheduler"] = sched["launches"][name]
         entry["launches_codec"] = codec_launches[name]
+        entry["launches_storage"] = store["launches"][name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -60,6 +60,29 @@ _COMPRESSION = (
     "tieredstorage_tpu_torch.transform.cpu",
 )
 
+#: Modules of the storage layer: the memory backend, the HTTP transport and
+#: its SOCKS5 proxy, the S3, GCS and Azure backends and replicated storage.
+_STORAGE = (
+    "tieredstorage_tpu_torch.storage.memory",
+    "tieredstorage_tpu_torch.storage.proxy",
+    "tieredstorage_tpu_torch.storage.httpclient",
+    "tieredstorage_tpu_torch.storage.replicated",
+    "tieredstorage_tpu_torch.storage.s3",
+    "tieredstorage_tpu_torch.storage.s3.signer",
+    "tieredstorage_tpu_torch.storage.s3.config",
+    "tieredstorage_tpu_torch.storage.s3.client",
+    "tieredstorage_tpu_torch.storage.s3.multipart",
+    "tieredstorage_tpu_torch.storage.s3.storage",
+    "tieredstorage_tpu_torch.storage.gcs",
+    "tieredstorage_tpu_torch.storage.gcs.auth",
+    "tieredstorage_tpu_torch.storage.gcs.config",
+    "tieredstorage_tpu_torch.storage.gcs.storage",
+    "tieredstorage_tpu_torch.storage.azure",
+    "tieredstorage_tpu_torch.storage.azure.auth",
+    "tieredstorage_tpu_torch.storage.azure.config",
+    "tieredstorage_tpu_torch.storage.azure.storage",
+)
+
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
@@ -68,9 +91,10 @@ def test_port_and_chip_smoke_import_without_jax():
     )
     assert res.returncode == 0, res.stderr
     *_, names, count = res.stdout.strip().splitlines()
-    assert int(count) >= 36 + len(_COMPRESSION)  # every module was imported
+    assert int(count) >= 36 + len(_COMPRESSION) + len(_STORAGE)  # every module was imported
     assert set(_SCHEDULER_AND_SCRUB) <= set(names.split())
     assert set(_COMPRESSION) <= set(names.split())
+    assert set(_STORAGE) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -114,7 +114,7 @@ CORPORA = {
 @pytest.fixture(scope="module")
 def frames():
     chunks = list(CORPORA.values())
-    ours = compress_batch(chunks)
+    ours = compress_batch(chunks, device="cpu")
     theirs = jax_lzhuff.compress_batch(chunks)
     return chunks, ours, theirs
 
@@ -127,7 +127,7 @@ def test_frames_equal_jax(frames):
 
 def test_each_package_reads_the_others_frames(frames):
     chunks, ours, theirs = frames
-    assert decompress_batch(theirs) == chunks
+    assert decompress_batch(theirs, device="cpu") == chunks
     assert jax_lzhuff.decompress_batch(ours) == chunks
 
 
@@ -136,7 +136,7 @@ def test_numpy_expander_reads_the_frames(frames, monkeypatch):
 
     chunks, ours, _ = frames
     monkeypatch.setattr(native, "lz_expand", lambda *a: None)
-    assert decompress_batch(ours[:3]) == chunks[:3]
+    assert decompress_batch(ours[:3], device="cpu") == chunks[:3]
 
 
 def test_structure_random_and_mixed_batches():
@@ -148,10 +148,10 @@ def test_structure_random_and_mixed_batches():
         b"\x00" * 8_000,
         text_corpus()[:8_000],
     ]
-    ours = compress_batch(chunks)
+    ours = compress_batch(chunks, device="cpu")
     assert ours == jax_lzhuff.compress_batch(chunks)
     assert len(ours[2]) == _HEADER.size + 4_000  # RAW
-    assert decompress_batch(ours) == chunks
+    assert decompress_batch(ours, device="cpu") == chunks
     n_dict = _BODY.unpack_from(ours[0][_HEADER.size:])[2]
     assert 0 < n_dict <= 255  # the offset dictionary engages on log records
 
@@ -183,7 +183,7 @@ def _same_error(frames_, **kwargs) -> str:
     with pytest.raises(jax_lzhuff.LzhuffFormatError) as theirs:
         jax_lzhuff.decompress_batch(frames_, **kwargs)
     with pytest.raises(LzhuffFormatError) as ours:
-        decompress_batch(frames_, **kwargs)
+        decompress_batch(frames_, device="cpu", **kwargs)
     assert str(ours.value) == str(theirs.value)
     return str(ours.value)
 
@@ -191,7 +191,7 @@ def _same_error(frames_, **kwargs) -> str:
 class TestMalformedFrames:
     @pytest.fixture(scope="class")
     def frame(self):
-        return compress_batch([b"payload " * 2000])[0]
+        return compress_batch([b"payload " * 2000], device="cpu")[0]
 
     def test_bad_magic_and_short_frame(self, frame):
         assert "magic" in _same_error([b"XX" + frame[2:]])
@@ -219,4 +219,19 @@ class TestMalformedFrames:
 
     def test_oversized_chunk_rejected_on_compress(self):
         with pytest.raises(LzhuffFormatError, match="frame limit"):
-            compress_batch([b"\x00" * (lzhuff.MAX_CHUNK_BYTES + 1)])
+            compress_batch([b"\x00" * (lzhuff.MAX_CHUNK_BYTES + 1)], device="cpu")
+
+
+@pytest.mark.parametrize("call", ["frames_from_analysis", "compress_batch", "decompress_batch"])
+def test_entry_points_default_to_the_card_and_raise_without_cuda(call, monkeypatch):
+    """No device given means cuda:0; without CUDA that raises, and nothing
+    falls back to the CPU."""
+    chunks = [b"payload " * 2000]
+    frames = compress_batch(chunks, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if call == "frames_from_analysis":
+            empty = np.zeros((1, 1), np.int32)
+            lzhuff.frames_from_analysis(chunks, [(0, chunks[0])], empty, empty, empty)
+        else:
+            getattr(lzhuff, call)(chunks if call == "compress_batch" else frames)

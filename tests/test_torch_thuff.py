@@ -13,6 +13,7 @@ import struct
 
 import numpy as np
 import pytest
+import torch
 
 from tests.test_thuff import _reference_decode
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -34,7 +35,7 @@ def _kraft(lengths) -> float:
 
 
 def _same_frames(chunks: list[bytes]) -> list[bytes]:
-    ours = compress_batch(chunks)
+    ours = compress_batch(chunks, device="cpu")
     assert ours == jax_thuff.compress_batch(chunks)
     return ours
 
@@ -43,7 +44,7 @@ def _same_error(frames, **kwargs) -> str:
     with pytest.raises(jax_thuff.ThuffFormatError) as theirs:
         jax_thuff.decompress_batch(frames, **kwargs)
     with pytest.raises(ThuffFormatError) as ours:
-        decompress_batch(frames, **kwargs)
+        decompress_batch(frames, device="cpu", **kwargs)
     assert str(ours.value) == str(theirs.value)
     assert isinstance(ours.value, ValueError)
     return str(ours.value)
@@ -133,14 +134,14 @@ class TestFrames:
             assert _reference_decode(frame) == text
             if size >= 4095:  # below ~1 KiB the 128 B table wins and RAW kicks in
                 assert len(frame) < 0.75 * len(text)
-        assert decompress_batch(frames) == texts
+        assert decompress_batch(frames, device="cpu") == texts
         assert jax_thuff.decompress_batch(frames) == texts
 
     def test_incompressible_goes_raw(self):
         noise = np.random.default_rng(9).integers(0, 256, 10_000, dtype=np.uint8).tobytes()
         [frame] = _same_frames([noise])
         assert frame[3] & 0x01 and len(frame) == len(noise) + 8
-        assert decompress_batch([frame]) == [noise]
+        assert decompress_batch([frame], device="cpu") == [noise]
 
     def test_mixed_batch_cross_reads(self):
         rng = np.random.default_rng(3)
@@ -155,7 +156,7 @@ class TestFrames:
             (b"abcdefgh" * 2048)[: 2 * JUMP_BLOCK],
         ]
         frames = _same_frames(chunks)
-        assert decompress_batch(frames) == chunks
+        assert decompress_batch(frames, device="cpu") == chunks
         assert jax_thuff.decompress_batch(frames) == chunks
         for frame, chunk in zip(frames, chunks):
             assert _reference_decode(frame) == chunk
@@ -165,7 +166,7 @@ class TestFrames:
         chunk = b"the quick brown fox " * 300
         arr = np.frombuffer(chunk, np.uint8)
         lens = limited_huffman_lengths(np.bincount(arr, minlength=256))
-        [frame] = compress_batch([chunk])
+        [frame] = compress_batch([chunk], device="cpu")
         _, _, _, _ = thuff._HEADER.unpack_from(frame)
         bits, n_jump = struct.unpack_from("<IH", frame, 8)
         jump = np.frombuffer(frame, "<u4", count=n_jump, offset=8 + 6 + 128)
@@ -176,17 +177,17 @@ class TestFrames:
 
 class TestFormatErrors:
     def test_size_guard(self):
-        frames = compress_batch([b"hello world" * 100])
+        frames = compress_batch([b"hello world" * 100], device="cpu")
         assert "exceeds chunk limit" in _same_error(frames, max_original_chunk_size=10)
 
     def test_size_guard_boundary_is_inclusive(self):
         data = b"hello world " * 100
-        frames = compress_batch([data])
-        assert decompress_batch(frames, max_original_chunk_size=len(data)) == [data]
+        frames = compress_batch([data], device="cpu")
+        assert decompress_batch(frames, max_original_chunk_size=len(data), device="cpu") == [data]
 
     def test_short_frame_and_bad_magic(self):
         assert _same_error([b"TH\x01"]) == "frame shorter than header"
-        [frame] = compress_batch([b"data data data"])
+        [frame] = compress_batch([b"data data data"], device="cpu")
         assert "magic" in _same_error([b"XX" + frame[2:]])
         assert "magic" in _same_error([frame[:2] + b"\x02" + frame[3:]])
 
@@ -197,7 +198,7 @@ class TestFormatErrors:
         assert _same_error([coded]) == "coded frame shorter than tables"
 
     def test_truncated_payload_and_jump_table(self):
-        [frame] = compress_batch([b"abcd" * 5000])
+        [frame] = compress_batch([b"abcd" * 5000], device="cpu")
         assert not frame[3] & 0x01
         assert "truncated" in _same_error([frame[:-40]])
         assert "jump table truncated" == _same_error([frame[: 8 + 6 + 128 + 2]])
@@ -206,7 +207,7 @@ class TestFormatErrors:
         assert _same_error([bytes(f)]) == "jump table size mismatch"
 
     def test_overdeclared_bits_rejected(self):
-        [frame] = compress_batch([b"abcd" * 5000])
+        [frame] = compress_batch([b"abcd" * 5000], device="cpu")
         f = bytearray(frame)
         struct.pack_into("<I", f, 8, 20000 * 15 + 1)
         assert "payload bits" in _same_error([bytes(f)])
@@ -220,7 +221,7 @@ class TestFormatErrors:
                 return MAX_CHUNK_BYTES + 1
 
         with pytest.raises(ThuffFormatError, match="frame limit"):
-            compress_batch([FakeBytes(b"x")])
+            compress_batch([FakeBytes(b"x")], device="cpu")
 
     def test_corrupt_block_boundary_and_final_block(self):
         """The decoder's corruption checks, which read final_bitpos: a
@@ -229,7 +230,7 @@ class TestFormatErrors:
         full = (b"abcdefgh" * 2048)[: 2 * JUMP_BLOCK]
         part = (b"abcdefgh" * 400)[:3000]
         fox = (b"the quick brown fox " * 200)[:3000]
-        frames = compress_batch([full, part, fox])
+        frames = compress_batch([full, part, fox], device="cpu")
         bad_full = bytearray(frames[0])
         off = 8 + 6 + 128 + 4
         struct.pack_into("<I", bad_full, off, struct.unpack_from("<I", bad_full, off)[0] + 1)
@@ -248,6 +249,19 @@ class TestFormatErrors:
 def test_payload_is_about_the_entropy():
     rng = np.random.default_rng(4)
     data = bytes(rng.choice(4, 50_000, p=[0.5, 0.25, 0.125, 0.125]).astype(np.uint8))
-    [frame] = compress_batch([data])
+    [frame] = compress_batch([data], device="cpu")
     entropy_bits = 50_000 * (0.5 * 1 + 0.25 * 2 + 0.25 * 3)
     assert len(frame) < math.ceil(entropy_bits / 8) + 8 + 6 + 128 + 4 * 13 + 64
+
+
+@pytest.mark.parametrize("call", ["compress_batch", "decode_operands", "decompress_batch"])
+def test_entry_points_default_to_the_card_and_raise_without_cuda(call, monkeypatch):
+    """No device given means cuda:0; without CUDA that raises, and nothing
+    falls back to the CPU."""
+    frames = compress_batch([b"hello world" * 100], device="cpu")
+    _, coded = thuff.parse_frames(frames)
+    arg = {"compress_batch": [b"hello world"], "decode_operands": coded,
+           "decompress_batch": frames}[call]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(thuff, call)(arg)

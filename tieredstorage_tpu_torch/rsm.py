@@ -80,6 +80,7 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackend,
     StorageBackendException,
 )
+from tieredstorage_tpu_torch.storage.replicated import ReplicatedStorageBackend
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
 from tieredstorage_tpu_torch.transform.pipeline import SegmentTransformation
 from tieredstorage_tpu_torch.utils.ratelimit import RateLimitedStream, TokenBucket
@@ -221,6 +222,14 @@ class RemoteStorageManager:
     @property
     def scrub_scheduler(self):
         return self._scrub_scheduler
+
+    @property
+    def replicated_storage(self) -> Optional[ReplicatedStorageBackend]:
+        """The storage backend when it is a ReplicatedStorageBackend (replica
+        health, failover and quorum counters), else None."""
+        if isinstance(self._storage, ReplicatedStorageBackend):
+            return self._storage
+        return None
 
     def scrub_status(self) -> dict:
         """The scrub scheduler's status, or ``{"enabled": False}``."""
@@ -584,11 +593,14 @@ class RemoteStorageManager:
 
     def close(self) -> None:
         # The scrub scheduler first (its passes read through the store and
-        # the transform backend), then the chunk chain: its close drains the
-        # readahead and cache pools, whose loads reach the transform backend
-        # closed last.
+        # the transform backend), then the replicated store's prober and
+        # write pool (as in the JAX package), then the chunk chain: its close
+        # drains the readahead and cache pools, whose loads reach the
+        # transform backend closed last.
         if self._scrub_scheduler is not None:
             self._scrub_scheduler.stop()
+        if self.replicated_storage is not None:
+            self.replicated_storage.close()
         if self._chunk_manager is not None and hasattr(self._chunk_manager, "close"):
             self._chunk_manager.close()
         for cache in (self._manifest_lookahead, self._manifest_cache, self._indexes_cache):

@@ -6,6 +6,8 @@ SubjectPublicKeyInfo public keys, PKCS#8 private keys — the formats the
 reference's RsaKeyReader loads; PKCS#1 "RSA ... KEY" blocks are read too),
 key pairs are generated with Python's `pow` and Miller–Rabin, and the padding
 is RFC 8017 EME-OAEP with an empty label and MGF1 sharing the OAEP digest.
+The same private operation signs the GCS service-account JWTs
+(RSASSA-PKCS1-v1_5 with SHA-256, `sign_pkcs1v15_sha256`).
 Key files and wrapped data keys are byte-compatible with the JAX package's.
 Enveloping happens once per segment, so speed does not matter here.
 """
@@ -327,6 +329,22 @@ def _rsa_private_op(key: RsaPrivateKey, data: int) -> int:
     m2 = pow(data % key.q, key.dmq1, key.q)
     h = ((m1 - m2) * key.iqmp) % key.p
     return m2 + h * key.q
+
+
+#: DER prefix of the DigestInfo for SHA-256 (RFC 8017 §9.2, note 1).
+_SHA256_DIGEST_INFO = bytes.fromhex("3031300d060960864801650304020105000420")
+
+
+def sign_pkcs1v15_sha256(key: RsaPrivateKey, message: bytes) -> bytes:
+    """RSASSA-PKCS1-v1_5 signature of `message` with SHA-256 (RFC 8017 §8.2,
+    EMSA-PKCS1-v1_5 of §9.2): the RS256 of a JWT. Deterministic, so equal to
+    any other correct signer's output for the same key and message."""
+    k = (key.key_size + 7) // 8
+    t = _SHA256_DIGEST_INFO + hashlib.sha256(message).digest()
+    if k < len(t) + 11:
+        raise ValueError("RSA key too short for a SHA-256 PKCS#1 v1.5 signature")
+    em = b"\x00\x01" + b"\xff" * (k - len(t) - 3) + b"\x00" + t
+    return _rsa_private_op(key, int.from_bytes(em, "big")).to_bytes(k, "big")
 
 
 class RsaEncryptionProvider:

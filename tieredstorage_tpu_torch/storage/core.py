@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import importlib
 from typing import BinaryIO, Iterable, Mapping, Optional
 
 
@@ -92,6 +93,30 @@ class BytesRange:
         return f"BytesRange{{{self.from_position}..{self.to_position}}}"
 
 
+def iter_chunks(stream: BinaryIO, chunk_size: int, *, read_size: int = 1 << 20):
+    """Yield successive `chunk_size` slices of `stream` (last may be short).
+
+    Single-sources the accumulate-and-slice EOF handling used by the block/
+    resumable upload paths of the cloud backends.
+    """
+    pending = b""
+    eof = False
+    while True:
+        while len(pending) < chunk_size and not eof:
+            block = stream.read(read_size)
+            if not block:
+                eof = True
+                break
+            pending += block
+        if eof and not pending:
+            return
+        chunk, pending = pending[:chunk_size], pending[chunk_size:]
+        if chunk:
+            yield chunk
+        if eof and not pending:
+            return
+
+
 class ObjectUploader(abc.ABC):
     """Reference: storage/core/.../ObjectUploader.java:21-27."""
 
@@ -155,3 +180,23 @@ class StorageBackend(ObjectUploader, ObjectFetcher, ObjectDeleter, ObjectLister)
 
     def configure(self, configs: Mapping[str, object]) -> None:  # noqa: B027
         """Configure from the `storage.`-prefixed config subset."""
+
+
+def load_backend_class(class_path: str) -> type:
+    """Resolve a `module:Class` or dotted `module.Class` path to a class.
+
+    The reflective analogue of the reference's `storage.backend.class`
+    instantiation (core/.../config/RemoteStorageManagerConfig.java:315-320).
+    """
+    if ":" in class_path:
+        module_name, _, class_name = class_path.partition(":")
+    else:
+        module_name, _, class_name = class_path.rpartition(".")
+    if not module_name:
+        raise ValueError(f"Invalid backend class path: {class_path!r}")
+    module = importlib.import_module(module_name)
+    try:
+        cls = getattr(module, class_name)
+    except AttributeError as e:
+        raise ValueError(f"Class {class_name!r} not found in {module_name!r}") from e
+    return cls

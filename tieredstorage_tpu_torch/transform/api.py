@@ -13,7 +13,31 @@ import abc
 import dataclasses
 from typing import Iterable, Iterator, Optional, Sequence
 
+import torch
+
 from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+
+#: The device the port's entry points run on unless the caller asks for
+#: another (the CPU, for the plain versions).
+DEFAULT_DEVICE = "cuda:0"
+
+
+def resolve_device(spec=DEFAULT_DEVICE) -> torch.device:
+    """`spec` as a torch.device. A CUDA device without CUDA, or one that does
+    not exist, raises: nothing falls back to the CPU."""
+    dev = torch.device(spec)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but CUDA is not available; ask for the "
+                "CPU (device='cpu', or transform.device=cpu in the RSM) to run "
+                "the plain versions there"
+            )
+        if (dev.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"device {dev} does not exist")
+    elif dev.type != "cpu":
+        raise ValueError(f"Unsupported device {dev}")
+    return dev
 
 #: Compression codec ids recordable in the manifest. "zstd" is the
 #: reference-compatible default (zstd frame with content size, one frame per

@@ -51,11 +51,11 @@ class CpuTransformBackend(TransformBackend):
                 # codecs are torch ops; on the CPU backend they run on the CPU).
                 from tieredstorage_tpu_torch.transform import thuff
 
-                out = thuff.compress_batch(out)
+                out = thuff.compress_batch(out, device="cpu")
             elif opts.compression_codec == TLZHUFF:
                 from tieredstorage_tpu_torch.transform import lzhuff
 
-                out = lzhuff.compress_batch(out)
+                out = lzhuff.compress_batch(out, device="cpu")
             elif opts.compression_codec != ZSTD:
                 raise ValueError(
                     f"CPU backend supports only {ZSTD!r}/{THUFF!r}/{TLZHUFF!r} "
@@ -101,11 +101,15 @@ class CpuTransformBackend(TransformBackend):
             if opts.compression_codec == THUFF:
                 from tieredstorage_tpu_torch.transform import thuff
 
-                out = thuff.decompress_batch(out, opts.max_original_chunk_size)
+                out = thuff.decompress_batch(
+                    out, opts.max_original_chunk_size, device="cpu"
+                )
             elif opts.compression_codec == TLZHUFF:
                 from tieredstorage_tpu_torch.transform import lzhuff
 
-                out = lzhuff.decompress_batch(out, opts.max_original_chunk_size)
+                out = lzhuff.decompress_batch(
+                    out, opts.max_original_chunk_size, device="cpu"
+                )
             elif opts.compression_codec != ZSTD:
                 raise ValueError(
                     f"CPU backend supports only {ZSTD!r}/{THUFF!r}/{TLZHUFF!r} "

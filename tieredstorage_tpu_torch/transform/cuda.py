@@ -64,6 +64,7 @@ from tieredstorage_tpu_torch.ops.gcm import (
 )
 from tieredstorage_tpu_torch.security.aes import IV_SIZE, TAG_SIZE
 from tieredstorage_tpu_torch.transform.api import (
+    DEFAULT_DEVICE,
     THUFF,
     TLZHUFF,
     ZSTD,
@@ -71,6 +72,7 @@ from tieredstorage_tpu_torch.transform.api import (
     DetransformOptions,
     TransformBackend,
     TransformOptions,
+    resolve_device,
 )
 
 
@@ -172,7 +174,7 @@ class CudaTransformBackend(TransformBackend):
     pipeline_depth = 3
 
     def __init__(self, device=None):
-        self._device_spec = "cuda:0" if device is None else str(device)
+        self._device_spec = DEFAULT_DEVICE if device is None else str(device)
         self._device: Optional[torch.device] = None
         self._stats_lock = threading.Lock()
         self.dispatch_stats = DispatchStats()
@@ -188,18 +190,7 @@ class CudaTransformBackend(TransformBackend):
     def device(self) -> torch.device:
         """The resolved device; a CUDA device without CUDA raises."""
         if self._device is None:
-            dev = torch.device(self._device_spec)
-            if dev.type == "cuda":
-                if not torch.cuda.is_available():
-                    raise RuntimeError(
-                        f"transform device {dev} requested but CUDA is not available; "
-                        "set transform.device=cpu to run the plain versions on the CPU"
-                    )
-                if (dev.index or 0) >= torch.cuda.device_count():
-                    raise RuntimeError(f"transform device {dev} does not exist")
-            elif dev.type != "cpu":
-                raise ValueError(f"Unsupported transform device {dev}")
-            self._device = dev
+            self._device = resolve_device(self._device_spec)
         return self._device
 
     def configure(self, configs: dict) -> None:
@@ -596,7 +587,7 @@ def _definition():
 
     d = ConfigDef()
     d.define(ConfigKey(
-        "device", "string", default="cuda:0", importance="high",
+        "device", "string", default=DEFAULT_DEVICE, importance="high",
         doc="Device of the window programs: a CUDA device (default cuda:0), or "
             "'cpu' to run the kernels' plain PyTorch versions. A CUDA device "
             "on a machine without CUDA fails at configure.",

@@ -2,8 +2,9 @@
 
 Counterpart of tieredstorage_tpu/transform/lzhuff.py, whole: frames are the
 JAX package's byte for byte, and each package reads the other's. The LZ
-analysis (ops/lz.py) and the Huffman stage (transform/thuff.py) run on the
-`device` the caller passes.
+analysis (ops/lz.py) and the Huffman stage (transform/thuff.py) run on
+`device`: `cuda:0` unless the caller asks for the CPU (without CUDA the
+default raises).
 
 Closes the gap to the reference's zstd (the missing half of the codec,
 core/.../transform/CompressionChunkEnumeration.java:50-63):
@@ -57,6 +58,7 @@ import torch
 from tieredstorage_tpu_torch import native
 from tieredstorage_tpu_torch.ops.lz import MIN_MATCH, lz_analyze_batch, lz_shape
 from tieredstorage_tpu_torch.transform import thuff
+from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, resolve_device
 
 CODEC_ID = "tpu-lzhuff-v1"
 _MAGIC = b"TL"
@@ -221,13 +223,14 @@ def frames_from_analysis(
     sel: np.ndarray,
     lens: np.ndarray,
     dists: np.ndarray,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> list[bytes]:
     """Serialize + entropy-code + frame a window from `lz_analyze_batch`
     arrays (rows aligned with `live`), RAW-framing anything the pipeline
     failed to shrink. The host-serialize seam after the device analysis,
     kept apart as in the JAX package so another analysis can share the
     framing."""
+    device = resolve_device(device)
     out: list[bytes] = [_raw_frame(c) for c in chunks]
     streams: list[bytes] = []  # _N_STREAMS per live chunk
     dicts: list[bytes] = []
@@ -257,9 +260,10 @@ def frames_from_analysis(
     return out
 
 
-def compress_batch(chunks: list[bytes], device="cpu") -> list[bytes]:
+def compress_batch(chunks: list[bytes], device=DEFAULT_DEVICE) -> list[bytes]:
     """LZ-analyze a window on `device`, entropy-code the streams there,
     RAW-frame anything the pipeline fails to shrink."""
+    device = resolve_device(device)
     if not chunks:
         return []
     for c in chunks:
@@ -278,7 +282,6 @@ def compress_batch(chunks: list[bytes], device="cpu") -> list[bytes]:
     for row, (_, c) in enumerate(live):
         data[row, : len(c)] = np.frombuffer(c, np.uint8)
         n_sym[row] = len(c)
-    device = torch.device(device)
     lens, dists, sel = lz_analyze_batch(
         torch.from_numpy(data).to(device), torch.from_numpy(n_sym).to(device)
     )
@@ -327,8 +330,9 @@ def _expand(orig_len: int, records: np.ndarray, lits: np.ndarray) -> bytes:
 
 def decompress_batch(
     frames: list[bytes], max_original_chunk_size: int | None = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> list[bytes]:
+    device = resolve_device(device)
     if not frames:
         return []
     out: list[bytes | None] = [None] * len(frames)

@@ -19,7 +19,8 @@ way the reference's per-chunk zstd frames are
 Tables are canonical Huffman, length-limited to 15 bits by package-merge;
 the stream stores each code bit-reversed so it reads MSB-first. The heavy
 work (per-symbol lookup, prefix-sum bit placement, scatter packing,
-block-parallel decode) runs batched on the `device` the caller passes —
+block-parallel decode) runs batched on `device` (`cuda:0` unless the
+caller asks for the CPU; without CUDA the default raises) —
 ops/huffman.py: torch ops for the encoder, the CUDA kernel of
 csrc/huffman.cu for the decoder on a GPU. Histograms and table construction
 are host-side numpy: 256-entry problems are not device work. zstd remains the default/compatibility codec; the manifest records
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from tieredstorage_tpu_torch.ops.gcm import bucket_max_bytes
+from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, resolve_device
 from tieredstorage_tpu_torch.ops.huffman import (
     JUMP_BLOCK,
     MAX_CHUNK_BYTES,
@@ -179,8 +181,9 @@ def _unpack_lengths(raw: bytes) -> np.ndarray:
 
 
 # -------------------------------------------------------------------- batch
-def compress_batch(chunks: list[bytes], device="cpu") -> list[bytes]:
+def compress_batch(chunks: list[bytes], device=DEFAULT_DEVICE) -> list[bytes]:
     """Compress a window of chunks on `device`; RAW-frames incompressible ones."""
+    device = resolve_device(device)
     if not chunks:
         return []
     for c in chunks:
@@ -203,7 +206,6 @@ def compress_batch(chunks: list[bytes], device="cpu") -> list[bytes]:
     for row, (_, c) in enumerate(live):
         data[row, : len(c)] = np.frombuffer(c, dtype=np.uint8)
         n_sym[row] = len(c)
-    device = torch.device(device)
     data_t = torch.from_numpy(data).to(device)
     n_sym_t = torch.from_numpy(n_sym).to(device)
     # The symbol histograms on the device (the JAX package counts them on
@@ -309,10 +311,11 @@ def parse_frames(
     return out, coded
 
 
-def decode_operands(coded: list[CodedFrame], device="cpu") -> list[torch.Tensor]:
+def decode_operands(coded: list[CodedFrame], device=DEFAULT_DEVICE) -> list[torch.Tensor]:
     """Lay coded frames out as `ops.huffman.decode_batch`'s operands on
     `device`: words as int32 bit patterns [B, max_words], jump [B, J], and
     each row's first_code, counts, base and perm tables."""
+    device = resolve_device(device)
     n_max = _bucket(max(c.orig_len for c in coded))
     j_max = _ceil_div(n_max, JUMP_BLOCK)
     w_max = max_words(n_max)
@@ -327,16 +330,16 @@ def decode_operands(coded: list[CodedFrame], device="cpu") -> list[torch.Tensor]
         first_b[row], counts_b[row], base_b[row], perm_b[row] = decode_tables(c.lengths)
         words_b[row, : len(c.words)] = c.words
         jump_b[row, : len(c.jump)] = c.jump
-    device = torch.device(device)
     return [torch.from_numpy(a).to(device)
             for a in (words_b.view(np.int32), jump_b, first_b, counts_b, base_b, perm_b)]
 
 
 def decompress_batch(
     frames: list[bytes], max_original_chunk_size: int | None = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> list[bytes]:
     """Decompress a window of tpu-huff-v1 frames (block-parallel on `device`)."""
+    device = resolve_device(device)
     if not frames:
         return []
     out, coded = parse_frames(frames, max_original_chunk_size)

@@ -2,10 +2,13 @@
 """Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
 
     python3 tools/torch_main_path_profile.py [--segment-mib N] [--seed N]
-        [--codec zstd|tpu-huff-v1|tpu-lzhuff-v1] [--out PATH]
+        [--codec zstd|tpu-huff-v1|tpu-lzhuff-v1] [--storage filesystem|s3]
+        [--out PATH]
 
 Copies one encrypted segment through the port's RemoteStorageManager
-(filesystem store, 4 MiB chunks, the segment and indexes of chip_smoke.py;
+(a filesystem store, or with --storage s3 the S3 backend against the
+signature-verifying S3 emulator in a child process as chip_smoke.py's
+storage phase runs it; 4 MiB chunks, the segment and indexes of chip_smoke.py;
 with --codec, compressed with that codec, and the log Kafka-shaped as in
 chip_smoke.py's codec phase),
 then reads it back whole and with 16 ranged 1 MiB reads. Each phase runs
@@ -14,7 +17,9 @@ wall time, the device time by kernel or copy (self device time of the
 device activities in `key_averages()`, leaving out the host ops that
 launched them), their sum and the device's busy share of the wall time
 (one stream, so the sum does not double count); then under cProfile, which
-gives the host time by function of the port. Needs a CUDA device; imports
+gives the host time by function of the port, and apart the functions of its
+storage layer (`storage/`) with their call counts, so host ms per storage
+request is cumulative ms over calls. Needs a CUDA device; imports
 nothing of JAX. The record is written to --out as JSON.
 """
 
@@ -62,14 +67,17 @@ def _host_profiled(fn) -> dict:
     wall = time.perf_counter() - t
     stats = pstats.Stats(prof).stats
     rows = [
-        (f"{Path(file).name}:{line}({name})", ncalls, cum)
+        (f"{Path(file).name}:{line}({name})", ncalls, cum, file)
         for (file, line, name), (_cc, ncalls, _tt, cum, _callers) in stats.items()
         if "tieredstorage_tpu_torch" in file
     ]
     rows.sort(key=lambda r: -r[2])
+    storage = [r for r in rows if "/storage/" in r[3]]
     return {
         "wall_ms": wall * 1e3,
-        "top": {name: {"cum_ms": cum * 1e3, "calls": n} for name, n, cum in rows[:15]},
+        "top": {name: {"cum_ms": cum * 1e3, "calls": n} for name, n, cum, _ in rows[:15]},
+        "storage": {name: {"cum_ms": cum * 1e3, "calls": n}
+                    for name, n, cum, _ in storage[:10]},
     }
 
 
@@ -103,6 +111,8 @@ def main(argv=None) -> int:
     parser.add_argument("--segment-mib", type=int, default=256)
     parser.add_argument("--codec", default=None,
                         help="compress with this codec (default: no compression)")
+    parser.add_argument("--storage", choices=("filesystem", "s3"), default="filesystem",
+                        help="the store: a directory, or the S3 emulator in a child process")
     parser.add_argument("--out", default="chiprun_out/torch_main_path_profile.json")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -114,7 +124,9 @@ def main(argv=None) -> int:
 
     size = args.segment_mib * MIB
     work = Path(tempfile.mkdtemp(prefix="torch_profile_"))
-    record = {"card": chip_smoke.card_line(), "segment_bytes": size, "codec": args.codec}
+    record = {"card": chip_smoke.card_line(), "segment_bytes": size, "codec": args.codec,
+              "storage": args.storage}
+    emulator = chip_smoke.EmulatorProcess("s3") if args.storage == "s3" else None
     try:
         seg_dir, store = work / "segment", work / "store"
         seg_dir.mkdir()
@@ -122,10 +134,18 @@ def main(argv=None) -> int:
         md, sd, _files, _ = chip_smoke.write_segment(
             seg_dir, args.seed, size, kafka_shaped=args.codec is not None)
         pub, priv = generate_key_pair_pem_files(work, prefix="profile")
+        if emulator is None:
+            storage = {
+                "storage.backend.class":
+                    "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+                "storage.root": str(store),
+            }
+        else:
+            storage = {f"storage.{k}": v for k, v in
+                       chip_smoke._backend_configs("s3", emulator.endpoint).items()}
         rsm = RemoteStorageManager()
         rsm.configure({
-            "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
-            "storage.root": str(store), "chunk.size": chip_smoke.CHUNK,
+            **storage, "chunk.size": chip_smoke.CHUNK,
             "encryption.enabled": True, "encryption.key.pair.id": "k1",
             "encryption.key.pairs": "k1",
             "encryption.key.pairs.k1.public.key.file": str(pub),
@@ -162,6 +182,8 @@ def main(argv=None) -> int:
         rsm.delete_log_segment_data(md)
         rsm.close()
     finally:
+        if emulator is not None:
+            emulator.stop()
         shutil.rmtree(work, ignore_errors=True)
 
     for phase in ("copy", "fetch_whole", "ranged_16x1mib"):
@@ -174,6 +196,10 @@ def main(argv=None) -> int:
         print(f"{phase} host (cProfile): wall {host['wall_ms']:.1f} ms")
         for name, v in host["top"].items():
             print(f"  {v['cum_ms']:10.3f} ms  x{v['calls']:<5} {name[:90]}")
+        print(f"{phase} storage layer (cProfile):")
+        for name, v in host["storage"].items():
+            print(f"  {v['cum_ms']:10.3f} ms  x{v['calls']:<5} "
+                  f"({v['cum_ms'] / max(v['calls'], 1):.3f} ms a call) {name[:80]}")
     print(f"card: {record['card']}")
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
