@@ -92,6 +92,24 @@ Phases, in order, each printing its seconds:
              broker's RSM reads the segment after the S3 child was
              terminated and must fail over. Every byte is compared and every
              leg must launch AES and both GHASH kernels.
+9. lifecycle, repair and faults — the main path's keys on a fresh store,
+             the launch counts zeroed before (a) and read after (d): (a) with
+             the upload intent journal (`lifecycle.*`, a 1 s grace), a copy of
+             the 1 GiB segment killed at its third upload (the manifest) by a
+             BaseException that escapes the rollback; a fresh RSM over the
+             same journal and store, whose startup sweep must delete exactly
+             the two stranded objects; the retried copy, a whole fetch, a
+             manifest truncated to 17 bytes that a sweep quarantines (fetch
+             refused, nothing deleted), and a tombstoned delete; copies with
+             the journal and without it in turns (plain, journal, journal,
+             plain); (b) `device.launch:flaky=1` under the batcher: 4 readers
+             of 64 MiB slices in 1 MiB reads, `launch_retries` equal to the
+             plane's injections; (c) `storage.read:partial=3@1` and
+             `fetch:corrupt@2` each refused with AuthenticationError, then a
+             clean re-read; (d) three filesystem replicas at write quorum 2,
+             one missing the `.log` and one with a flipped byte: one
+             anti-entropy pass whose CRC32C arbitration runs on the card,
+             then an in-sync pass, equal replicas and a byte-exact fetch.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -1400,9 +1418,9 @@ def _copy_fetch(rsm, md, sd, source: bytes, what: str) -> dict:
             "copy_gib_s": gib / copy_s, "fetch_gib_s": gib / fetch_s}
 
 
-def _gcm_launched(launches: dict, what: str) -> None:
-    missing = [n for n in ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
-               if launches.get(n, 0) <= 0]
+def _gcm_launched(launches: dict, what: str,
+                  names=("aes_ctr_keystream", "ghash_tree", "ghash_level1")) -> None:
+    missing = [n for n in names if launches.get(n, 0) <= 0]
     check(not missing, f"{what}: GCM kernels never launched: {missing}")
 
 
@@ -1531,6 +1549,302 @@ def storage_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda
     return out
 
 
+class SimulatedKill(BaseException):
+    """Phase 9's in-process kill: raised from the storage upload seam, it
+    escapes the copy's rollback (`except Exception`), so store and journal
+    stay as a kill -9 at that instant leaves them."""
+
+
+def _fs_files(root: Path) -> list[str]:
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+
+def _refused_with(exc: BaseException, cls) -> bool:
+    chain, cur = [], exc
+    while cur is not None and cur not in chain:
+        chain.append(cur)
+        cur = cur.__cause__ or cur.__context__
+    return any(isinstance(c, cls) for c in chain)
+
+
+def _first_mib_refusal(rsm, md, what: str, cls) -> str:
+    """Read the segment's first MiB, which must fail with `cls` in the
+    cause chain and no CUDA error; returns the raised type's name."""
+    try:
+        with rsm.fetch_log_segment(md, 0, MIB - 1) as stream:
+            stream.read()
+    except Exception as e:  # noqa: BLE001 - the cause chain is checked
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # an asynchronous kernel fault raises here
+        check(_refused_with(e, cls), f"fault read: the {what} chunk failed without {cls.__name__}: {e!r}")
+        check(not _refused_with(e, torch.cuda.CudaError), f"fault read: CUDA error {e!r}")
+        return type(e).__name__
+    raise SmokeFailure(f"fault read: the {what} chunk was served")
+
+
+def _lifecycle_drill(rsm_at, md, sd, source: bytes, store: Path, plain_copy) -> dict:
+    """Phase 9 (a): the crash, the restart sweep, the retried copy and
+    fetch, a truncated manifest's quarantine and a tombstoned delete."""
+    from tieredstorage_tpu_torch.errors import RemoteStorageException
+
+    gib = len(source) / (1 << 30)
+    rec: dict = {"copy_s": {"plain": [plain_copy()], "journal": []}}
+    dying = rsm_at()
+    real_upload = dying._storage.upload
+    calls = [0]
+
+    def upload(stream, key):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise SimulatedKill(f"killed during upload 3 ({key})")
+        return real_upload(stream, key)
+
+    dying._storage.upload = upload
+    try:
+        dying.copy_log_segment_data(md, sd)
+        raise SmokeFailure("lifecycle: the killed copy returned")
+    except SimulatedKill:
+        pass
+    stranded = _fs_files(store)
+    check(len(stranded) == 2, f"lifecycle: the kill left {stranded}")
+    check(dying.lifecycle_journal.pending_upload_count == 1, "lifecycle: no pending intent")
+    dying.close()  # stops its threads; closing appends nothing to the journal
+
+    t = time.perf_counter()
+    rsm = rsm_at()
+    rec["restart_configure_s"] = time.perf_counter() - t
+    sweeper = rsm.recovery_sweeper
+    rec["startup_sweep_s"] = sweeper.last_report.duration_s
+    rec["orphans_deleted_total"] = sweeper.orphans_deleted_total
+    check(sweeper.orphans_deleted_total == 2,
+          f"lifecycle: the startup sweep deleted {sweeper.orphans_deleted_total}")
+    check(_fs_files(store) == [], f"lifecycle: left after the sweep {_fs_files(store)}")
+    check(rsm.lifecycle_journal.pending_upload_count == 0, "lifecycle: intents still pending")
+
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    rec["copy_s"]["journal"].append(time.perf_counter() - t)
+    t = time.perf_counter()
+    with rsm.fetch_log_segment(md, 0) as stream:
+        check(stream.read() == source, "lifecycle: the fetch after recovery differs")
+    rec["fetch_s"] = time.perf_counter() - t
+
+    [manifest] = store.rglob("*.rsm-manifest")
+    manifest.write_bytes(manifest.read_bytes()[:17])
+    report = rsm.recovery_sweeper.sweep_once()
+    check(len(report.quarantined) == 1 and not report.orphans_deleted,
+          f"lifecycle: truncated-manifest sweep gave {report.to_json()}")
+    try:
+        rsm.fetch_segment_manifest(md)
+        raise SmokeFailure("lifecycle: a quarantined manifest was served")
+    except RemoteStorageException as e:
+        check("quarantine" in str(e), f"lifecycle: refused without the quarantine: {e}")
+    check(len(_fs_files(store)) == 3, "lifecycle: the sweep deleted part of a quarantined segment")
+    rsm.delete_log_segment_data(md)
+    check(rsm.lifecycle_journal.pending_tombstone_count == 0, "lifecycle: a tombstone is pending")
+    check(_fs_files(store) == [], "lifecycle: the delete left objects")
+
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)  # the segment (b) and (c) read
+    rec["copy_s"]["journal"].append(time.perf_counter() - t)
+    rec["copy_s"]["plain"].append(plain_copy())
+    rec["journal"] = rsm.lifecycle_status()["journal"]
+    rsm.close()
+    rec["copy_gib_s"] = {k: [gib / x for x in v] for k, v in rec["copy_s"].items()}
+    mean = {k: sum(v) / len(v) for k, v in rec["copy_s"].items()}
+    rec["journal_cost"] = mean["journal"] / mean["plain"] - 1.0
+    return rec
+
+
+def lifecycle_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 9: the lifecycle journal and recovery sweeper, the fault plane
+    and anti-entropy repair; the launch counts are zeroed before (a) and
+    read after (d)."""
+    from tieredstorage_tpu_torch.ops import _cuda, crc32c
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.transform.api import AuthenticationError
+    from tieredstorage_tpu_torch.utils import faults
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="lifecycle")
+    seg = work / "segment"
+    seg.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 90, segment_bytes)
+    source = files["log"].read_bytes()
+    store, side = work / "store", work / "side"
+    store.mkdir()
+    out: dict = {"segment_bytes": segment_bytes}
+    lifecycle = {
+        "lifecycle.enabled": True, "lifecycle.journal.path": str(work / "journal.jsonl"),
+        "storage.overwrite.enabled": True, "lifecycle.sweep.interval.ms": 3_600_000,
+        "lifecycle.grace.ms": 1000,
+    }
+
+    def rsm_at(root: Path = store, extra=None) -> RemoteStorageManager:
+        rsm = RemoteStorageManager()
+        rsm.configure(_rsm_configs(root, pub, priv, device, extra))
+        return rsm
+
+    def plain_copy() -> float:
+        side.mkdir()
+        writer = rsm_at(side)
+        try:
+            t = time.perf_counter()
+            writer.copy_log_segment_data(md, sd)
+            return time.perf_counter() - t
+        finally:
+            writer.close()
+            shutil.rmtree(side)
+
+    _cuda.reset_launch_counts()
+    out["sweep"] = _lifecycle_drill(lambda: rsm_at(store, lifecycle), md, sd, source, store,
+                                    plain_copy)
+
+    # (b) A merged launch that fails once: four readers of 64 MiB slices.
+    slice_bytes = min(64 * MIB, segment_bytes // 4)
+    reader = rsm_at(store, {"transform.batch.enabled": True, "retry.launch.attempts": 2,
+                            "faults.spec": ["device.launch:flaky=1"]})
+    plane = faults.plane()
+    bad: list = []
+    try:
+        batcher = reader.transform_backend.batcher
+        before = _cuda.launch_counts()
+
+        def consumer(j: int):
+            for off in range(j * slice_bytes, (j + 1) * slice_bytes, MIB):
+                with reader.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                    if stream.read() != source[off : off + MIB]:
+                        bad.append(off)
+
+        t = time.perf_counter()
+        errors = _run_threads([lambda j=j: consumer(j) for j in range(4)])
+        wall = time.perf_counter() - t
+        injected = plane.fired[("device.launch", "flaky")]
+        launched = _counts_delta(before, _cuda.launch_counts())
+    finally:
+        faults.install(None)
+        reader.close()
+    check(not errors, f"fault launch: readers failed: {errors!r}")
+    check(not bad, f"fault launch: reads differ at {bad[:4]}")
+    check(batcher.launch_retries >= 1 and batcher.launch_retries == injected,
+          f"fault launch: {batcher.launch_retries} retries for {injected} injections")
+    _gcm_launched(launched, "fault launch", ("aes_ctr_keystream", "ghash_tree"))
+    out["launch"] = {"readers": 4, "slice_bytes": slice_bytes, "wall_s": wall,
+                     "launch_retries": batcher.launch_retries, "injections": injected,
+                     "merged_launches": batcher.launches,
+                     "batched_windows": batcher.batched_windows, "launches": launched}
+
+    # (c) A torn chunk read, then a corrupted one, then a clean re-read.
+    read: dict = {}
+    rsm = rsm_at(store, {"faults.spec": ["storage.read:partial=3@1"]})
+    try:
+        read["torn"] = _first_mib_refusal(rsm, md, "torn", AuthenticationError)
+        read["torn_injections"] = [list(i) for i in faults.plane().injections]
+    finally:
+        faults.install(None)
+        rsm.close()
+    check(len(read["torn_injections"]) == 1 and read["torn_injections"][0][2].endswith(".log"),
+          f"fault read: the torn read was {read['torn_injections']}")
+    rsm = rsm_at(store, {"fault.injection.enabled": True, "fault.schedule": ["fetch:corrupt@2"]})
+    try:
+        read["corrupt"] = _first_mib_refusal(rsm, md, "corrupt", AuthenticationError)
+        read["corrupt_injections"] = [list(i) for i in rsm._fault_schedule.injections]
+    finally:
+        rsm.close()
+    check(len(read["corrupt_injections"]) == 1 and read["corrupt_injections"][0][2].endswith(".log"),
+          f"fault read: the corrupted fetch was {read['corrupt_injections']}")
+    rsm = rsm_at(store)
+    with rsm.fetch_log_segment(md, 0, MIB - 1) as stream:
+        check(stream.read() == source[:MIB], "fault read: the clean re-read differs")
+    rsm.delete_log_segment_data(md)
+    rsm.close()
+    read["clean_reread"] = True
+    out["read"] = read
+
+    # (d) Anti-entropy over three filesystem replicas at write quorum 2.
+    roots = {n: work / f"replica_{n}" for n in "abc"}
+    for root in roots.values():
+        root.mkdir()
+    fs = "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage"
+    storage = {
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.replicated.ReplicatedStorageBackend",
+        "storage.replication.replicas": "a,b,c",
+        **{f"storage.replication.replica.{n}.backend.class": fs for n in roots},
+        **{f"storage.replication.replica.{n}.root": str(r) for n, r in roots.items()},
+        **{f"storage.replication.replica.{n}.overwrite.enabled": True for n in roots},
+        "storage.replication.write.quorum": 2,
+        "storage.replication.probe.interval.ms": None,
+        "scrub.checksums.enabled": True,
+        "replication.antientropy.enabled": True,
+        "replication.antientropy.interval.ms": 3_600_000,
+        "replication.antientropy.rate.bytes": None,
+    }
+    rsm = RemoteStorageManager()
+    configs = _rsm_configs(Path(), pub, priv, device, storage)
+    del configs["storage.root"]
+    rsm.configure(configs)
+    rec: dict = {"segment_bytes": segment_bytes}
+    t = time.perf_counter()
+    rsm.copy_log_segment_data(md, sd)
+    rec["copy_s"] = time.perf_counter() - t
+    logs = {n: next(r.rglob("*.log")) for n, r in roots.items()}
+    logs["c"].unlink()
+    with open(logs["a"], "r+b") as f:
+        pos = 3 * (CHUNK + 28) + 12 + 777
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x01]))
+    crc_devices: list = []
+    crc_ms: list = []
+    real_chunks = crc32c.crc32c_chunks
+
+    def timed_chunks(data, dev):
+        crc_devices.append(str(torch.device(dev)))
+        if torch.device(dev).type != "cuda":
+            return real_chunks(data, dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = real_chunks(data, dev)
+        end.record()
+        end.synchronize()
+        crc_ms.append(start.elapsed_time(end))
+        return got
+
+    crc32c.crc32c_chunks = timed_chunks
+    try:
+        first = rsm.antientropy.run_once()
+        second = rsm.antientropy.run_once()
+    finally:
+        crc32c.crc32c_chunks = real_chunks
+    check(first.missing_copies >= 1 and first.divergent_keys == 1
+          and first.repairs == first.missing_copies + first.divergent_keys,
+          f"antientropy: the diverged pass gave {first.to_json()}")
+    check(crc_devices and set(crc_devices) == {str(torch.device(device))},
+          f"antientropy: CRC32C ran on {sorted(set(crc_devices))}")
+    check(second.in_sync, f"antientropy: the second pass gave {second.to_json()}")
+    blobs = {n: _fs_files(r) for n, r in roots.items()}
+    check(blobs["a"] == blobs["b"] == blobs["c"] and len(blobs["a"]) == 3,
+          f"antientropy: replica listings differ {blobs}")
+    for rel in blobs["a"]:
+        check((roots["a"] / rel).read_bytes() == (roots["b"] / rel).read_bytes()
+              == (roots["c"] / rel).read_bytes(), f"antientropy: replicas differ on {rel}")
+    with rsm.fetch_log_segment(md, 0) as stream:
+        check(stream.read() == source, "antientropy: the fetch after repair differs")
+    rsm.close()
+    rec.update({
+        "diverged": first.to_json(), "in_sync": second.to_json(),
+        "diverged_pass_s": first.duration_s, "in_sync_pass_s": second.duration_s,
+        "bytes_compared": [first.bytes_compared, second.bytes_compared],
+        "crc32c_calls": len(crc_devices), "crc32c_device": sorted(set(crc_devices)),
+        "crc32c_device_ms": sum(crc_ms),
+    })
+    out["antientropy"] = rec
+    out["launches"] = _cuda.launch_counts()
+    return out
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -1636,7 +1950,31 @@ def main(argv=None) -> int:
     for leg in ("s3", "gcs", "azure", "replicated"):
         print(f"storage {leg}: " + json.dumps({"card": card, **store[leg]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
+    try:
+        t = time.perf_counter()
+        life = lifecycle_phase(args.seed, args.segment_mib * MIB, work)
+        record["lifecycle_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase lifecycle, repair and faults: {record['lifecycle_s']:.1f} s "
+          "(replication.antientropy.rate.bytes unthrottled, cut from 8388608 for time)")
+    record["lifecycle"] = life
+    sweep = life["sweep"]
+    print("lifecycle sweep: " + json.dumps({"card": card, **{k: sweep[k] for k in (
+        "copy_gib_s", "copy_s", "journal_cost", "startup_sweep_s", "restart_configure_s",
+        "orphans_deleted_total", "fetch_s")}, "journal": sweep["journal"]}))
+    print("fault launch: " + json.dumps({"card": card, **life["launch"]}))
+    print("fault read: " + json.dumps({"card": card, **life["read"]}))
+    ae = life["antientropy"]
+    print("antientropy: " + json.dumps({"card": card, **{k: ae[k] for k in (
+        "segment_bytes", "copy_s", "diverged_pass_s", "in_sync_pass_s", "bytes_compared",
+        "crc32c_calls", "crc32c_device", "crc32c_device_ms")},
+        "repairs": ae["diverged"]["repairs"], "missing_copies": ae["diverged"]["missing_copies"],
+        "divergent_keys": ae["diverged"]["divergent_keys"]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+    _gcm_launched(life["launches"], "lifecycle phase")
     launches = main_rec["launches"]
     missing = [name for name in gcm_kernels if launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -1660,6 +1998,7 @@ def main(argv=None) -> int:
         entry["launches_scheduler"] = sched["launches"][name]
         entry["launches_codec"] = codec_launches[name]
         entry["launches_storage"] = store["launches"][name]
+        entry["launches_lifecycle"] = life["launches"][name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -499,3 +499,171 @@ def test_rsm_over_a_signature_verifying_s3_emulator_on_the_card(device, tmp_path
         rsm.close()
     finally:
         emu.stop()
+
+
+def test_merged_flush_under_a_flaky_launch_matches_unbatched(device):
+    """``device.launch:flaky=1``: the merged launch's first attempt fails
+    before staging; the retry restages from the untouched packed input and
+    every caller's bytes equal the unbatched decrypt's."""
+    import threading
+
+    from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+    from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
+    from tieredstorage_tpu_torch.transform.batcher import WindowBatcher
+    from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+    from tieredstorage_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(63)
+    enc = DataKeyAndAAD(rng.bytes(32), rng.bytes(32))
+    windows = [[rng.bytes(1 << 20), rng.bytes((1 << 20) - 64 * i)] for i in range(3)]
+    plain = CudaTransformBackend()
+    plain.configure({})
+    wires = [plain.transform(w, TransformOptions(encryption=enc)) for w in windows]
+    unbatched = [plain.detransform(w, DetransformOptions(encryption=enc)) for w in wires]
+    backend = CudaTransformBackend()
+    backend.configure({})
+    batcher = WindowBatcher(backend, wait_ms=50, launch_attempts=2, launch_backoff_s=0.0)
+    batcher._inflight += 1
+    backend.batcher = batcher
+    plane = faults.FaultPlane.parse("device.launch:flaky=1")
+    prior = faults.install(plane)
+    try:
+        results: list = [None] * 3
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+            i, backend.detransform(wires[i], DetransformOptions(encryption=enc)))) for i in range(3)]
+        for t in threads:
+            t.start()
+        with batcher._cond:
+            assert batcher._cond.wait_for(
+                lambda: sum(len(v) for v in batcher._buckets.values()) == 3, timeout=60)
+        before = _cuda.launch_counts()["aes_ctr_keystream"]
+        assert batcher.flush_now() == 1
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        faults.install(prior)
+    assert results == unbatched == windows
+    assert batcher.launch_retries == 1 == plane.fired[("device.launch", "flaky")]
+    assert (batcher.launch_failures, batcher.launches) == (0, 1)
+    assert _cuda.launch_counts()["aes_ctr_keystream"] == before + 1
+    plain.close()
+    backend.close()
+
+
+@pytest.mark.parametrize("keep", [3, 4096 + 100], ids=["under-iv-and-tag", "short-row"])
+def test_torn_chunk_fetch_on_the_card_raises_authentication_error(device, tmp_path, keep):
+    """``storage.read:partial``: the chunk window is shorter than the
+    manifest says. The fetch must fail on the tag, with the port's
+    AuthenticationError as the cause and no CUDA error, and a fresh RSM
+    then reads the chunk back."""
+    from tieredstorage_tpu_torch.transform.api import AuthenticationError
+    from tieredstorage_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(64)
+    log = rng.bytes(3 * (64 << 10) + 77)
+    paths = {}
+    for name, data in (("log", log), ("index", rng.bytes(48)), ("timeindex", rng.bytes(72)),
+                       ("snapshot", rng.bytes(40))):
+        paths[name] = tmp_path / f"00000000000000000000.{name}"
+        paths[name].write_bytes(data)
+    tip = metadata.TopicIdPartition(metadata.KafkaUuid(rng.bytes(16)), metadata.TopicPartition("t", 0))
+    md = metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(rng.bytes(16))),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    )
+    sd = metadata.LogSegmentData(
+        log_segment=paths["log"], offset_index=paths["index"], time_index=paths["timeindex"],
+        producer_snapshot_index=paths["snapshot"], transaction_index=None,
+        leader_epoch_index=b"0\n1\n0 0\n",
+    )
+    pub, priv = generate_key_pair_pem_files(tmp_path, prefix="torn")
+    store = tmp_path / "store"
+    store.mkdir()
+    configs = {
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": 64 << 10, "key.prefix": "torn/",
+        "transform.device": str(device), "encryption.enabled": True,
+        "encryption.key.pair.id": "k", "encryption.key.pairs": "k",
+        "encryption.key.pairs.k.public.key.file": str(pub),
+        "encryption.key.pairs.k.private.key.file": str(priv),
+    }
+    writer = RemoteStorageManager()
+    writer.configure(configs)
+    writer.copy_log_segment_data(md, sd)
+    writer.close()
+    rsm = RemoteStorageManager()
+    rsm.configure({**configs, "faults.spec": [f"storage.read:partial={keep}@1"]})
+    try:
+        with pytest.raises(Exception) as info:
+            with rsm.fetch_log_segment(md, 0, 99) as stream:
+                stream.read()
+        chain, cur = [], info.value
+        while cur is not None and cur not in chain:
+            chain.append(cur)
+            cur = cur.__cause__ or cur.__context__
+        assert any(isinstance(c, AuthenticationError) for c in chain)
+        assert not any(isinstance(c, torch.cuda.CudaError) for c in chain)
+        torch.cuda.synchronize(device)
+    finally:
+        faults.install(None)
+        rsm.close()
+    fresh = RemoteStorageManager()
+    fresh.configure(configs)
+    with fresh.fetch_log_segment(md, 0) as stream:
+        assert stream.read() == log
+    fresh.close()
+
+
+def test_antientropy_arbitrates_with_crc32c_on_the_card(device):
+    """Three replicas: one holds the correct `.log`, one a flipped byte,
+    one none. The majority ties, so only the manifest's checksums decide,
+    and their CRC32C runs on the card."""
+    import base64
+    import io
+    import json
+
+    from tieredstorage_tpu_torch.manifest.chunk_index import FixedSizeChunkIndex, chunk_index_to_json
+    from tieredstorage_tpu_torch.ops import crc32c
+    from tieredstorage_tpu_torch.scrub.antientropy import AntiEntropyRepairer
+    from tieredstorage_tpu_torch.storage.core import ObjectKey
+    from tieredstorage_tpu_torch.storage.memory import InMemoryStorage
+    from tieredstorage_tpu_torch.storage.replicated import ReplicatedStorageBackend
+
+    chunk, n = (4 << 20) + 28, 4
+    rng = np.random.default_rng(65)
+    log = rng.bytes(chunk * n)
+    flipped = bytearray(log)
+    flipped[chunk + 1000] ^= 0x01
+    sums = [crc32c.crc32c_host(log[i : i + chunk]) for i in range(0, len(log), chunk)]
+    manifest = json.dumps({
+        "version": "1", "chunkIndex": chunk_index_to_json(FixedSizeChunkIndex(chunk, len(log), chunk, chunk)),
+        "chunkChecksums": base64.b64encode(b"".join(c.to_bytes(4, "big") for c in sums)).decode(),
+        "compression": False, "segmentIndexes": {},
+    }).encode()
+    children = []
+    for name, blob in (("a", bytes(flipped)), ("b", log), ("c", None)):
+        child = InMemoryStorage()
+        child.configure({})
+        child.upload(io.BytesIO(manifest), ObjectKey("p/s.rsm-manifest"))
+        if blob is not None:
+            child.upload(io.BytesIO(blob), ObjectKey("p/s.log"))
+        children.append((name, child))
+    rep = ReplicatedStorageBackend(children)
+    seen = []
+    real = crc32c.crc32c_chunks
+
+    def counted(data, dev):
+        seen.append(torch.device(dev))
+        return real(data, dev)
+
+    crc32c.crc32c_chunks = counted
+    try:
+        report = AntiEntropyRepairer(rep, prefix="p/").run_once()
+    finally:
+        crc32c.crc32c_chunks = real
+    assert (report.missing_copies, report.divergent_keys, report.repairs) == (1, 1, 2)
+    assert seen and all(d.type == "cuda" for d in seen)
+    for _, child in children:
+        assert child.object("p/s.log") == log
+    assert AntiEntropyRepairer(rep, prefix="p/", device=device).run_once().in_sync
+    rep.close()

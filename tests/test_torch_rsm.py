@@ -186,7 +186,7 @@ def test_segments_cross_read_between_packages(tmp_path, keys, writer):
 
 @pytest.mark.parametrize(
     "key", ["tracing.enabled", "deadline.default.ms", "hedge.enabled",
-            "lifecycle.enabled", "fleet.enabled"],
+            "breaker.enabled", "fleet.enabled"],
 )
 def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
     configs = _configs(
@@ -195,6 +195,47 @@ def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
     )
     with pytest.raises(ConfigException, match=f"{key} is not yet ported"):
         RemoteStorageManager().configure(configs)
+
+
+FAULT_LIFECYCLE_REPLICATION_KEYS = [
+    "fault.injection.enabled", "fault.schedule", "fault.seed", "faults.spec", "faults.seed",
+    "replication.antientropy.enabled", "replication.antientropy.interval.ms",
+    "replication.antientropy.rate.bytes", "lifecycle.enabled", "lifecycle.journal.path",
+    "lifecycle.sweep.interval.ms", "lifecycle.sweep.on.start", "lifecycle.grace.ms",
+]
+#: One value each key accepts and one its validator refuses (None: the type
+#: accepts every value of it).
+KEY_PROBES = {
+    "fault.injection.enabled": (False, None), "fault.schedule": (["upload:raise@3"], ["upload:explode"]),
+    "fault.seed": (7, None), "faults.spec": (["storage.read:error@2"], ["bogus.site:error"]),
+    "faults.seed": (7, None), "replication.antientropy.enabled": (False, None),
+    "replication.antientropy.interval.ms": (1, 0), "replication.antientropy.rate.bytes": (16 * 1024, 1024),
+    "lifecycle.enabled": (False, None), "lifecycle.journal.path": ("/j.wal", " "),
+    "lifecycle.sweep.interval.ms": (1, 0), "lifecycle.sweep.on.start": (True, None),
+    "lifecycle.grace.ms": (0, -1),
+}
+
+
+@pytest.mark.parametrize("key", FAULT_LIFECYCLE_REPLICATION_KEYS)
+def test_fault_lifecycle_and_replication_keys_are_jax_keys(key):
+    from tieredstorage_tpu.config.configdef import ConfigException as JaxConfigException
+    from tieredstorage_tpu.config.rsm_config import _base_def as jax_base_def
+    from tieredstorage_tpu_torch.config.rsm_config import NOT_YET_PORTED, _base_def
+
+    assert key not in NOT_YET_PORTED
+    port, jax = _base_def().keys[key], jax_base_def().keys[key]
+    assert (port.type, port.default, port.importance) == (jax.type, jax.default, jax.importance)
+    assert getattr(port.validator, "description", None) == getattr(jax.validator, "description", None)
+    good, bad = KEY_PROBES[key]
+    for validator in (port.validator, jax.validator):
+        if validator is not None:
+            validator(key, good)
+    if bad is not None:
+        with pytest.raises(ConfigException) as port_err:
+            port.validator(key, bad)
+        with pytest.raises(JaxConfigException) as jax_err:
+            jax.validator(key, bad)
+        assert str(port_err.value) == str(jax_err.value)
 
 
 def test_unported_codec_is_refused(tmp_path, keys):

@@ -458,7 +458,7 @@ def test_detransform_failure_is_isolated_to_its_chunk(tmp_path, poison_chunk):
     )
     storage.upload(io.BytesIO(bytes(data)), ObjectKey("s/0.log"))
     storage.upload(io.BytesIO(manifest_to_json(manifest).encode()), ObjectKey("s/0.rsm-manifest"))
-    report = Scrubber(storage, transform_backend=_RejectingBackend()).scrub_once()
+    report = Scrubber(storage, transform_backend=_RejectingBackend(), device="cpu").scrub_once()
     assert [f.chunk_id for f in report.findings if f.kind == CORRUPT_CHUNK] == (
         [] if poison_chunk is None else [2])
 
@@ -485,7 +485,7 @@ def test_throttle_slices_oversized_batches(monkeypatch):
     consume would clamp at capacity and under-throttle)."""
     fake = _FakeTime()
     monkeypatch.setattr(ratelimit, "time", fake)
-    scrubber = Scrubber(FileSystemStorage(), rate_bucket=TokenBucket(16 * 1024))
+    scrubber = Scrubber(FileSystemStorage(), rate_bucket=TokenBucket(16 * 1024), device="cpu")
     scrubber._throttle(48 * 1024)
     assert fake.now - 100.0 == pytest.approx(2.0)
     with pytest.raises(ValueError, match="at least"):
@@ -494,7 +494,7 @@ def test_throttle_slices_oversized_batches(monkeypatch):
 
 class _CountingScrubber(Scrubber):
     def __init__(self, target: int, fail: bool = False) -> None:
-        super().__init__(FileSystemStorage())
+        super().__init__(FileSystemStorage(), device="cpu")
         self.reached = threading.Event()
         self._target, self._fail = target, fail
 
@@ -528,7 +528,7 @@ def test_run_now_skips_the_sleep_and_status_shape():
         assert scrubber.reached.wait(timeout=30)
     finally:
         scheduler.stop()
-    status = ScrubScheduler(Scrubber(FileSystemStorage()), interval_ms=1000).status()
+    status = ScrubScheduler(Scrubber(FileSystemStorage(), device="cpu"), interval_ms=1000).status()
     assert {"state", "interval_ms", "passes", "findings_total", "repairs_total",
             "bytes_scanned_total", "chunks_verified_total"} <= set(status)
     assert status["state"] == "stopped" and "last_pass" not in status

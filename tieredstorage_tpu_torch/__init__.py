@@ -15,7 +15,10 @@ Layer map:
   fetch/            — chunk manager + ranged range enumeration
   manifest/         — manifest + chunk-index data model, wire-compatible
   security/         — AES-GCM data keys, RSA envelope encryption (no deps)
-  storage/          — storage backend SPI + filesystem backend
+  storage/          — storage backend SPI, the backends, the lifecycle journal
+  scrub/            — scrubber, recovery sweeper, anti-entropy repair
+  faults/           — fault-injecting storage backend (utils/faults.py: the
+                      fault plane at the I/O seams)
   ops/              — GCM, CRC32C, Huffman and LZ on torch tensors; kernel
                       wrappers and plain versions
   csrc/             — the CUDA C++ kernels (built with nvcc at first use)

@@ -68,6 +68,27 @@ def null_or(validator: Callable[[str, Any], None]):
     return check
 
 
+def parseable_by(parser: Callable[[Any], Any], description: str = "parseable"):
+    """Validate a value by attempting to parse it; the parser's error text
+    becomes the config error message (used for structured string configs like
+    `fault.schedule` rules)."""
+
+    def check(name: str, value) -> None:
+        if value is None or value == "" or value == []:
+            return
+        try:
+            parser(value)
+        except ConfigException:
+            raise
+        except Exception as e:
+            raise ConfigException(
+                f"Invalid value {value!r} for configuration {name}: {e}"
+            ) from e
+
+    check.description = description
+    return check
+
+
 def non_empty_string(name: str, value) -> None:
     if value is not None and str(value).strip() == "":
         raise ConfigException(f"Invalid value for configuration {name}: String must be non-empty")

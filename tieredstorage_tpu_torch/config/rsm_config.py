@@ -6,7 +6,10 @@ Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
 with the two-phase `encryption.key.pairs.<id>.*` define),
 `custom.metadata.fields.include`, `upload.rate.limit.bytes.per.second`,
 `retry.launch.*` (the window batcher's launch retry), `scrub.*` (the
-scrubber, its scheduler and the upload checksums), `transform.backend.class`
+scrubber, its scheduler and the upload checksums), `fault.*` and `faults.*`
+(the fault-injecting backend and the fault plane), `lifecycle.*` (the
+intent journal and the recovery sweeper), `replication.antientropy.*`
+(anti-entropy repair of a replicated store), `transform.backend.class`
 (default: this package's CudaTransformBackend) and the `transform.*` subtree
 its backend reads, and the fetch plane's keys, which their own modules parse:
 `fetch.chunk.cache.*`, `fetch.manifest.cache.*`, `fetch.indexes.cache.*`
@@ -27,6 +30,7 @@ from tieredstorage_tpu_torch.config.configdef import (
     in_range,
     non_empty_string,
     null_or,
+    parseable_by,
     subset_with_prefix,
 )
 
@@ -42,15 +46,13 @@ FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 NOT_YET_PORTED = frozenset({
     "tracing.enabled", "tracing.jax.profiler.enabled", "tracing.max.spans",
     "tracing.export.path",
-    "fault.injection.enabled", "fault.schedule", "fault.seed",
     "breaker.enabled", "breaker.failure.threshold", "breaker.cooldown.ms",
     "deadline.default.ms", "hedge.enabled", "hedge.delay.ms",
     "hedge.delay.min.samples", "hedge.budget.percent", "retry.budget.enabled",
     "retry.budget.percent", "retry.budget.capacity", "retry.budget.max.attempts",
     "retry.budget.backoff.ms", "breaker.peer.failure.threshold",
     "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts",
-    "faults.spec",
-    "faults.seed", "admission.enabled", "admission.max.concurrent",
+    "admission.enabled", "admission.max.concurrent",
     "admission.max.queue", "admission.queue.timeout.ms",
     "admission.retry.after.ms", "sidecar.grpc.max.workers",
     "sidecar.http.max.workers", "fleet.enabled", "fleet.instance.id",
@@ -58,11 +60,7 @@ NOT_YET_PORTED = frozenset({
     "fleet.peer.down.cooldown.ms", "fleet.replication.factor",
     "fleet.gossip.enabled", "fleet.gossip.interval.ms",
     "fleet.gossip.probe.timeout.ms", "fleet.gossip.suspect.periods",
-    "fleet.gossip.dead.periods", "replication.antientropy.enabled",
-    "replication.antientropy.interval.ms", "replication.antientropy.rate.bytes",
-    "lifecycle.enabled",
-    "lifecycle.journal.path", "lifecycle.sweep.interval.ms",
-    "lifecycle.sweep.on.start", "lifecycle.grace.ms", "flight.enabled",
+    "fleet.gossip.dead.periods", "flight.enabled",
     "flight.ring.size", "timeline.enabled", "timeline.ring.size", "slo.enabled",
     "slo.window.short.ms", "slo.window.long.ms", "slo.fetch.latency.threshold.ms",
     "slo.fetch.latency.objective.percent", "slo.error.rate.objective.percent",
@@ -95,6 +93,28 @@ def _codec_id(name: str, value) -> None:
 
 
 _codec_id.description = "[zstd, tpu-huff-v1, tpu-lzhuff-v1]"
+
+
+def _parse_fault_rules(value) -> None:
+    from tieredstorage_tpu_torch.faults.schedule import FaultSchedule
+
+    FaultSchedule.parse(value)
+
+
+_valid_fault_schedule = parseable_by(
+    _parse_fault_rules, "fault rules 'op:action[=arg][@trigger]'"
+)
+
+
+def _parse_fault_spec(value) -> None:
+    from tieredstorage_tpu_torch.utils.faults import FaultPlane
+
+    FaultPlane.parse(value)
+
+
+_valid_fault_spec = parseable_by(
+    _parse_fault_spec, "fault rules 'site:kind[=arg][@trigger][~match]'"
+)
 
 
 def _base_def() -> ConfigDef:
@@ -163,6 +183,30 @@ def _base_def() -> ConfigDef:
             "(REMOTE_SIZE, OBJECT_PREFIX, OBJECT_KEY).",
     ))
     d.define(ConfigKey(
+        "fault.injection.enabled", "bool", default=False, importance="low",
+        doc="Wrap the storage backend in a FaultInjectingBackend executing "
+            "fault.schedule (chaos/soak runs only; never enable in "
+            "production).",
+    ))
+    d.define(ConfigKey(
+        "fault.schedule", "list", default=[], validator=_valid_fault_schedule,
+        importance="low",
+        doc="Deterministic fault rules 'op:action[=arg][@trigger]' with op in "
+            "[upload, fetch, delete, list, *], action in [raise, key-not-found, "
+            "delay, truncate, corrupt], trigger '@N' (Nth call), '@every=K', "
+            "'@from=N' (every call from the Nth onward — a hard failure that "
+            "starts mid-run and never recovers), "
+            "or '@p=P' (seeded probability). delay accepts a jittered range "
+            "'delay=lo..hi' (uniform seeded draw per firing, in ms) for "
+            "realistic tail-latency distributions. E.g. 'upload:raise@3, "
+            "fetch:corrupt=7@1, fetch:delay=10..250@p=0.2'.",
+    ))
+    d.define(ConfigKey(
+        "fault.seed", "long", default=0, importance="low",
+        doc="Seed for probabilistic fault triggers (deterministic for a "
+            "given seed and call sequence).",
+    ))
+    d.define(ConfigKey(
         "upload.rate.limit.bytes.per.second", "int", default=None,
         validator=null_or(in_range(1024 * 1024, INT_MAX)),
         importance="medium",
@@ -181,6 +225,44 @@ def _base_def() -> ConfigDef:
         validator=in_range(0, None), importance="low",
         doc="Base backoff (ms) before a merged-launch re-dispatch; the "
             "actual sleep is decorrelated-jitter up to 4x this value.",
+    ))
+    d.define(ConfigKey(
+        "faults.spec", "list", default=[], validator=_valid_fault_spec,
+        importance="low",
+        doc="Fault-plane rules 'site:kind[=arg][@trigger][~match]' "
+            "(utils/faults.py) armed at RSM configure time — the same "
+            "grammar as the TSTPU_FAULTS env var. site in [storage.read, "
+            "storage.write, peer.forward, gossip.probe, device.launch, "
+            "lifecycle.journal, lifecycle.sweep, *]; "
+            "kind in [error, latency, partial, flaky]; trigger '@N', "
+            "'@every=K', '@from=N', '@p=P'; '~match' restricts to keys "
+            "containing the substring. Empty (the default) installs "
+            "nothing: every seam's fire() stays a single attribute read.",
+    ))
+    d.define(ConfigKey(
+        "faults.seed", "long", default=0, importance="low",
+        doc="Seed for the fault plane's probabilistic triggers and latency "
+            "ranges (deterministic for a given seed and call sequence).",
+    ))
+    d.define(ConfigKey(
+        "replication.antientropy.enabled", "bool", default=False, importance="medium",
+        doc="Run the background anti-entropy repairer when the storage "
+            "backend is a ReplicatedStorageBackend: periodic passes diff "
+            "the replicas by prefix, arbitrate divergent copies (manifest "
+            "chunkChecksums for .log objects, majority/health otherwise), "
+            "and copy missing/divergent objects back toward quorum.",
+    ))
+    d.define(ConfigKey(
+        "replication.antientropy.interval.ms", "long", default=600_000,
+        validator=in_range(1, None), importance="medium",
+        doc="Period between anti-entropy passes.",
+    ))
+    d.define(ConfigKey(
+        "replication.antientropy.rate.bytes", "int", default=8 * 1024 * 1024,
+        validator=null_or(in_range(16 * 1024, INT_MAX)), importance="low",
+        doc="Anti-entropy read/copy budget in bytes/s (token bucket) so "
+            "replica diffing never starves foreground traffic; null "
+            "disables throttling.",
     ))
     d.define(ConfigKey(
         "scrub.enabled", "bool", default=False, importance="medium",
@@ -217,6 +299,59 @@ def _base_def() -> ConfigDef:
             "(chunkChecksums) at upload, giving scrub passes at-rest ground "
             "truth without detransforming. Adds one batched CRC pass per "
             "upload window (ops/crc32c), on the transform device.",
+    ))
+    d.define(ConfigKey(
+        "lifecycle.enabled", "bool", default=False, importance="medium",
+        doc="Arm the crash-consistent segment lifecycle plane: "
+            "an upload intent journal (storage/lifecycle.py) records "
+            "{segment, expected keys} before the first uploaded byte and "
+            "marks commit when the manifest lands; delete tombstones make "
+            "retried/crash-interrupted deletes converge; the recovery "
+            "sweeper (scrub/sweeper.py) reconciles journal + store listing "
+            "against manifest reachability on startup and on a paced "
+            "period. Requires lifecycle.journal.path.",
+    ))
+    d.define(ConfigKey(
+        "lifecycle.journal.path", "string", default=None,
+        validator=non_empty_string, importance="medium",
+        doc="Filesystem path of the upload intent journal (append-only "
+            "JSONL WAL, fsynced per intent record, compacted in place). "
+            "Must survive process restarts — put it next to the broker's "
+            "log dirs, NOT on tmpfs. Required when lifecycle.enabled.",
+    ))
+    d.define(ConfigKey(
+        "lifecycle.sweep.interval.ms", "long", default=300_000,
+        validator=in_range(1, None), importance="medium",
+        doc="Period between recovery sweeps; the first scheduled sweep "
+            "starts after a random jitter in [0, interval) so restarting "
+            "fleets don't synchronize their listing load.",
+    ))
+    d.define(ConfigKey(
+        "lifecycle.sweep.on.start", "bool", default=True, importance="medium",
+        doc="Run one synchronous recovery sweep during configure(), before "
+            "serving — the crash-recovery path: anything the journal names "
+            "as stranded by a previous process is deleted in this first "
+            "sweep (zero permanent orphans after one sweep).",
+    ))
+    d.define(ConfigKey(
+        "lifecycle.grace.ms", "long", default=14_400_000,
+        validator=in_range(0, None), importance="medium",
+        doc="Grace window for orphan candidates the journal does NOT name "
+            "(another broker's in-flight upload on the fleet-shared "
+            "prefix, a foreign journal's crash): deleted only after "
+            "staying manifest-unreachable this long past the sweeper "
+            "first seeing them. MUST comfortably exceed the slowest "
+            "end-to-end segment upload (.log + .indexes + manifest) any "
+            "fleet member can perform — the sweeper lists the shared "
+            "prefix, so a peer's uncommitted objects are protected ONLY "
+            "by this window, and a too-small value lets a sweep delete "
+            "them mid-upload (cross-process data loss: the peer's "
+            "manifest then lands referencing missing keys). The default "
+            "is 4 hours; values under 10 minutes are warned about at "
+            "startup. This process's own in-flight uploads are exempt "
+            "via the journal's in-flight tracking, and journal-named "
+            "orphans of finished operations need no grace — the journal "
+            "proves no commit happened.",
     ))
     return d
 
@@ -368,6 +503,58 @@ class RemoteStorageManagerConfig:
     @property
     def scrub_checksums_enabled(self) -> bool:
         return self._values["scrub.checksums.enabled"]
+
+    @property
+    def fault_injection_enabled(self) -> bool:
+        return self._values["fault.injection.enabled"]
+
+    @property
+    def fault_schedule(self) -> list[str]:
+        return self._values["fault.schedule"]
+
+    @property
+    def fault_seed(self) -> int:
+        return self._values["fault.seed"]
+
+    @property
+    def faults_spec(self) -> list[str]:
+        return self._values["faults.spec"]
+
+    @property
+    def faults_seed(self) -> int:
+        return self._values["faults.seed"]
+
+    @property
+    def replication_antientropy_enabled(self) -> bool:
+        return self._values["replication.antientropy.enabled"]
+
+    @property
+    def replication_antientropy_interval_ms(self) -> int:
+        return self._values["replication.antientropy.interval.ms"]
+
+    @property
+    def replication_antientropy_rate_bytes(self) -> Optional[int]:
+        return self._values["replication.antientropy.rate.bytes"]
+
+    @property
+    def lifecycle_enabled(self) -> bool:
+        return self._values["lifecycle.enabled"]
+
+    @property
+    def lifecycle_journal_path(self) -> Optional[str]:
+        return self._values["lifecycle.journal.path"]
+
+    @property
+    def lifecycle_sweep_interval_ms(self) -> int:
+        return self._values["lifecycle.sweep.interval.ms"]
+
+    @property
+    def lifecycle_sweep_on_start(self) -> bool:
+        return self._values["lifecycle.sweep.on.start"]
+
+    @property
+    def lifecycle_grace_ms(self) -> int:
+        return self._values["lifecycle.grace.ms"]
 
     def fetch_indexes_cache_configs(self) -> dict[str, Any]:
         return subset_with_prefix(self._props, FETCH_INDEXES_CACHE_PREFIX)

@@ -1,8 +1,9 @@
 """Chunk managers: resolve (object key, manifest, chunk id) -> plaintext chunk.
 
 Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without the planes
-this package has not ported yet (tracing spans, the flight recorder, fault
-injection, hedging). The quarantine has the JAX package's external hook
+this package has not ported yet (tracing spans, the flight recorder,
+hedging). `_fetch_stored` is the fault plane's `storage.read` seam
+(utils/faults.py). The quarantine has the JAX package's external hook
 (`quarantine`), through which the scrubber gates objects it found corrupt.
 `get_chunks` fetches a window of chunks with ONE ranged request (chunks are
 contiguous on the stored side) and detransforms them in ONE backend call.
@@ -25,6 +26,7 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackendException,
 )
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformBackend
+from tieredstorage_tpu_torch.utils import faults
 from tieredstorage_tpu_torch.utils.deadline import check_deadline
 from tieredstorage_tpu_torch.utils.streams import read_exactly
 
@@ -150,7 +152,12 @@ class DefaultChunkManager(ChunkManager):
     def _fetch_stored(
         self, objects_key: ObjectKey, chunks, contiguous: bool
     ) -> list[bytes]:
-        """Read the stored (transformed) bytes of a chunk window."""
+        """Read the stored (transformed) bytes of a chunk window.
+
+        The fault plane's `storage.read` seam: an `error` fault propagates
+        as a backend failure; `partial` tears the fetched bytes, so the GCM
+        tag check of the detransform must refuse them."""
+        torn = faults.fire("storage.read", str(objects_key))
         if contiguous:
             # One ranged GET covering the window on the transformed side.
             whole = BytesRange.of(
@@ -158,9 +165,12 @@ class DefaultChunkManager(ChunkManager):
                 chunks[-1].transformed_position + chunks[-1].transformed_size - 1,
             )
             with self._fetcher.fetch(objects_key, whole) as stream:
-                return [read_exactly(stream, c.transformed_size) for c in chunks]
-        stored = []
-        for c in chunks:
-            with self._fetcher.fetch(objects_key, c.range()) as stream:
-                stored.append(read_exactly(stream, c.transformed_size))
+                stored = [read_exactly(stream, c.transformed_size) for c in chunks]
+        else:
+            stored = []
+            for c in chunks:
+                with self._fetcher.fetch(objects_key, c.range()) as stream:
+                    stored.append(read_exactly(stream, c.transformed_size))
+        if torn:
+            stored = [faults.mutate(b, torn) for b in stored]
         return stored

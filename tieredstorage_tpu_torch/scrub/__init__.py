@@ -2,11 +2,16 @@
 
 Counterpart of tieredstorage_tpu/scrub/, as far as this package has ported
 it: the scrubber (enumerate, CRC32C and detransform verification,
-quarantine, repair) and its scheduler. Anti-entropy (needs replicated
-storage), the recovery sweeper (with the segment lifecycle) and the
-scrub-metrics group are not yet ported.
+quarantine, repair) and its scheduler, the recovery sweeper of the segment
+lifecycle, and anti-entropy repair across replicas. The scrub-metrics group
+is not yet ported.
 """
 
+from tieredstorage_tpu_torch.scrub.antientropy import (
+    AntiEntropyRepairer,
+    AntiEntropyReport,
+    AntiEntropyScheduler,
+)
 from tieredstorage_tpu_torch.scrub.scheduler import ScrubScheduler
 from tieredstorage_tpu_torch.scrub.scrubber import (
     INDEXES_SUFFIX,
@@ -16,13 +21,26 @@ from tieredstorage_tpu_torch.scrub.scrubber import (
     ScrubReport,
     Scrubber,
 )
+from tieredstorage_tpu_torch.scrub.sweeper import (
+    RecoverySweeper,
+    SweeperInvariantError,
+    SweepReport,
+    SweepScheduler,
+)
 
 __all__ = [
     "INDEXES_SUFFIX",
     "LOG_SUFFIX",
     "MANIFEST_SUFFIX",
+    "AntiEntropyRepairer",
+    "AntiEntropyReport",
+    "AntiEntropyScheduler",
+    "RecoverySweeper",
     "ScrubFinding",
     "ScrubReport",
     "ScrubScheduler",
     "Scrubber",
+    "SweepReport",
+    "SweepScheduler",
+    "SweeperInvariantError",
 ]

@@ -15,7 +15,8 @@ A pass has three stages:
    (storage IO throttled through a `TokenBucket` so scrubbing never starves
    foreground fetches), every batch is CRC32C-verified against the manifest's
    `chunkChecksums` through the batched tree (`ops/crc32c.crc32c_batch`, on
-   the transform backend's device; small groups on the host table), and
+   the transform backend's device, or on `device` for a host backend; small
+   groups on the host table), and
    transformed segments additionally round-trip
    detransform (AES-GCM tag check / decompress) — byte-identical coverage to
    a real fetch, without a consumer in the loop. The detransform runs under
@@ -48,6 +49,7 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackend,
     StorageBackendException,
 )
+from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, checksum_device
 from tieredstorage_tpu_torch.utils.ratelimit import TokenBucket
 from tieredstorage_tpu_torch.utils.streams import read_exactly
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
@@ -140,9 +142,12 @@ class Scrubber:
         quarantine: Optional[Callable[[ObjectKey, str], None]] = None,
         verify_transforms: bool = True,
         tracer=NOOP_TRACER,
+        device=DEFAULT_DEVICE,
     ) -> None:
         if batch_chunks < 1:
             raise ValueError("batch_chunks must be >= 1")
+        #: Where the CRC32C verification runs (api.checksum_device).
+        self._crc_device = checksum_device(transform_backend, device)
         self._storage = storage
         self.prefix = prefix
         self._transform_backend = transform_backend
@@ -326,8 +331,7 @@ class Scrubber:
             return set()
         from tieredstorage_tpu_torch.ops.crc32c import crc32c_batch
 
-        device = getattr(self._transform_backend, "device", None)
-        got = crc32c_batch(stored, "cpu" if device is None else device)
+        got = crc32c_batch(stored, self._crc_device)
         bad: set[int] = set()
         for c, crc in zip(chunks, got):
             want = recorded[c.id] if c.id < len(recorded) else None

@@ -39,6 +39,15 @@ def resolve_device(spec=DEFAULT_DEVICE) -> torch.device:
         raise ValueError(f"Unsupported device {dev}")
     return dev
 
+
+def checksum_device(backend, device=DEFAULT_DEVICE) -> torch.device:
+    """Where CRC32C work next to `backend` runs (upload checksums, scrub
+    verification, anti-entropy arbitration): the backend's own `device`, or,
+    for a host backend without one, `device` (the RSM's `transform.device`)
+    through `resolve_device` — `cuda:0` unless the CPU is asked for."""
+    own = getattr(backend, "device", None)
+    return own if own is not None else resolve_device(device)
+
 #: Compression codec ids recordable in the manifest. "zstd" is the
 #: reference-compatible default (zstd frame with content size, one frame per
 #: chunk — CompressionChunkEnumeration.java:50-63). "tpu-huff-v1" is the

@@ -2,8 +2,9 @@
 
 Counterpart of tieredstorage_tpu/transform/batcher.py, whole, without the
 planes this package has not ported (the flight recorder, `utils/locks`
-witnesses, the fault plane, the metrics groups): `on_flush` and `timeline`
-stay as hook attributes, None unless a caller sets them.
+witnesses, the metrics groups): `on_flush` and `timeline` stay as hook
+attributes, None unless a caller sets them. `_launch_once` is the fault
+plane's `device.launch` seam (utils/faults.py), keyed by work class.
 
 A window of the fetch path is one packed launch per request; under many
 concurrent consumers that is many small launches, each paying the per-launch
@@ -76,6 +77,7 @@ from tieredstorage_tpu_torch.transform.scheduler import (
     is_speculative,
     validate_work_class,
 )
+from tieredstorage_tpu_torch.utils import faults
 from tieredstorage_tpu_torch.utils.retry import RetryPolicy, call_with_retry
 
 
@@ -595,11 +597,17 @@ class WindowBatcher:
         with self._cond:
             self.launch_retries += 1
 
-    def _launch_once(self, ctx, packed: torch.Tensor, out_host: torch.Tensor, decrypt: bool):
+    def _launch_once(
+        self, ctx, packed: torch.Tensor, out_host: torch.Tensor, decrypt: bool,
+        work_class: str,
+    ):
         """One stage + launch attempt of a merged flush, replay-safe: the
         launch reads ``packed`` and never writes it; its output lands in
-        ``out_host``. Returns the CUDA event that marks ``out_host`` ready
-        (None on the CPU, where the launch writes ``out_host`` in place)."""
+        ``out_host``. ``device.launch`` is the fault-injection seam (keyed by
+        work class), before the stage. Returns the CUDA event that marks
+        ``out_host`` ready (None on the CPU, where the launch writes
+        ``out_host`` in place)."""
+        faults.fire("device.launch", work_class)
         backend = self._backend
         if backend.device.type == "cuda":
             with torch.cuda.device(backend.device):
@@ -674,7 +682,7 @@ class WindowBatcher:
             pk[rows:, n_bytes + IV_SIZE] = 16
             t0 = self._now()
             ready = call_with_retry(
-                lambda: self._launch_once(ctx, packed, out_host, decrypt),
+                lambda: self._launch_once(ctx, packed, out_host, decrypt, work_class),
                 policy=self._launch_policy,
                 site="device.launch",
                 on_retry=self._on_launch_retry,

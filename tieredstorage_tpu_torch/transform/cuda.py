@@ -545,7 +545,9 @@ class CudaTransformBackend(TransformBackend):
         `_decrypt_window` itself."""
         for i, c in enumerate(chunks):
             if len(c) < IV_SIZE + TAG_SIZE:
-                raise ValueError(f"Encrypted chunk {i} shorter than IV+tag")
+                # A torn chunk cannot authenticate: refuse it before any
+                # staging or launch is sized from it.
+                raise AuthenticationError(f"Encrypted chunk {i} shorter than IV+tag")
         ivs = np.stack([np.frombuffer(c[:IV_SIZE], dtype=np.uint8) for c in chunks])
         received_tags = [c[-TAG_SIZE:] for c in chunks]
         sizes = [len(c) - IV_SIZE - TAG_SIZE for c in chunks]

@@ -27,9 +27,11 @@ from tieredstorage_tpu_torch.manifest.chunk_index import (
     VariableSizeChunkIndexBuilder,
 )
 from tieredstorage_tpu_torch.transform.api import (
+    DEFAULT_DEVICE,
     DetransformOptions,
     TransformBackend,
     TransformOptions,
+    checksum_device,
 )
 from tieredstorage_tpu_torch.utils.streams import LazyConcatStream
 
@@ -62,11 +64,13 @@ class SegmentTransformation:
         opts: TransformOptions,
         chunking_disabled: bool = False,
         collect_checksums: bool = False,
+        device=DEFAULT_DEVICE,
     ):
         # chunking_disabled: treat the whole stream as a single chunk
         # (used for index blobs).
         # collect_checksums: record CRC32C of every transformed chunk as it
-        # streams out (`scrub.checksums.enabled`).
+        # streams out (`scrub.checksums.enabled`), on the backend's device,
+        # or on `device` for a host backend (api.checksum_device).
         self._source = source
         self.original_file_size = original_file_size
         self.original_chunk_size = (
@@ -77,6 +81,7 @@ class SegmentTransformation:
         self._chunk_index: Optional[ChunkIndex] = None
         self._collect_checksums = collect_checksums
         self._checksums: Optional[list[int]] = [] if collect_checksums else None
+        self._crc_device = checksum_device(backend, device) if collect_checksums else None
 
     @property
     def chunk_index(self) -> ChunkIndex:
@@ -96,8 +101,7 @@ class SegmentTransformation:
     def _crc_batch(self, chunks: list[bytes]) -> None:
         from tieredstorage_tpu_torch.ops.crc32c import crc32c_batch
 
-        device = getattr(self._backend, "device", None)
-        self._checksums.extend(crc32c_batch(chunks, "cpu" if device is None else device))
+        self._checksums.extend(crc32c_batch(chunks, self._crc_device))
 
     def stream(self) -> BinaryIO:
         if self._opts.is_identity:
