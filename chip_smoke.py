@@ -110,6 +110,29 @@ Phases, in order, each printing its seconds:
              one missing the `.log` and one with a flipped byte: one
              anti-entropy pass whose CRC32C arbitration runs on the card,
              then an in-sync pass, equal replicas and a byte-exact fetch.
+10. observability — the main path's keys on fresh stores, the launch
+             counts zeroed before (a) and read after (c): (a) a plain RSM and
+             one with `tracing.enabled`, `flight.enabled`, `timeline.enabled`
+             and `tracing.export.path` copy and fetch the 1 GiB segment in
+             turns (plain, observed, observed, plain; the cost is mean
+             observed / mean plain - 1), then 64 seeded 1 MiB ranged reads on
+             the observed RSM, each inside a flight record: the wall time of
+             each `fetch_log_segment` call against the `remote-fetch-time`
+             histogram's p50/p99 (the same or a neighbouring bucket), the retained
+             records and the slowest one's notes, and a scrape of
+             `PrometheusExporter` on 127.0.0.1:0 (every line a comment or a
+             sample; copy count, object uploads counted from the store
+             listing and requested bytes equal to what was done); (b) the
+             batcher on: 4 readers of 64 MiB slices in 1 MiB reads, each in a
+             flight record: the timeline's flush records equal the merged
+             launches, every trace id of a flush resolves to a record with
+             that flush's `gcm.batch:<id>` stage and a request slice that
+             holds the launch slice, the `batch-occupancy` count equals the
+             launches and the Chrome export passes `validate_chrome_events`;
+             (c) one 1 MiB read under torch.profiler with
+             `tracing.jax.profiler.enabled`: the `rsm.fetch_log_segment`
+             range is there, and the AES and GHASH-tree launches fall inside
+             the read's span and its `chunk.detransform` range.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -121,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import os
 import shutil
@@ -1845,6 +1869,428 @@ def lifecycle_phase(seed: int, segment_bytes: int, work: Path, device: str = "cu
 
 
 
+def _nearest_rank(samples, q: float) -> float:
+    """The nearest-rank percentile (the sample at rank ceil(q * n))."""
+    ordered = sorted(samples)
+    return ordered[max(1, int(np.ceil(q * len(ordered)))) - 1]
+
+
+def _bucket_width(bounds, value: float) -> float:
+    """Width of the histogram bucket (lower, upper] holding `value`."""
+    lower = 0.0
+    for upper in bounds:
+        if value <= upper:
+            return upper - lower
+        lower = upper
+    return float("inf")
+
+
+
+def metrics_work_ms(per_fetch: dict, segment_bytes: int) -> dict:
+    """Host ms of the `Metrics` records of one whole fetch (the request's
+    two, then `per_fetch[base]` records of each per-chunk family) and of one
+    copy (three object uploads and the copy time), on a fresh registry; the
+    median of seven runs."""
+    from tieredstorage_tpu_torch.metrics.rsm_metrics import Metrics
+
+    metrics = Metrics()
+
+    def fetch():
+        metrics.record_segment_fetch_requested_bytes("smoke", 0, segment_bytes)
+        metrics.record_segment_fetch_time("smoke", 0, 0.4)
+        for _ in range(per_fetch.get("chunk-fetch-time", 0)):
+            metrics.record_chunk_fetch(15.0, CHUNK)
+        for _ in range(per_fetch.get("cache-get-time", 0)):
+            metrics.record_cache_get(15.0)
+
+    def copy():
+        for suffix in ("log", "indexes", "rsm-manifest"):
+            metrics.record_object_upload("smoke", 0, suffix, segment_bytes)
+        metrics.record_segment_copy_time("smoke", 0, 3000.0)
+
+    out = {}
+    for what, fn in (("fetch", fetch), ("copy", copy)):
+        fn()  # the sensors exist before the timed runs, as in a running RSM
+        times = []
+        for _ in range(7):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[f"metrics_{what}_ms"] = statistics.median(times)
+    return out
+
+
+def _scrape(exporter_port: int, path: str) -> tuple[bytes, float]:
+    import urllib.request
+
+    t = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{exporter_port}{path}", timeout=60) as resp:
+        body = resp.read()
+    return body, (time.perf_counter() - t) * 1e3
+
+
+def _exposition_samples(text: str) -> dict:
+    """`name{labels}` -> value of every sample line; fails on a line that
+    is neither a comment nor a sample."""
+    import re
+
+    sample = re.compile(r"([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^}]*\})?) (\S+)")
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        m = sample.fullmatch(line)
+        check(m is not None, f"observability: scrape line is not a sample: {line!r}")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def observability_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 10: the observability plane on the main path. (a) plain and
+    observed RSMs copy and fetch in turns, then 64 ranged reads on the
+    observed one, its flight records and a Prometheus scrape; (b) the
+    batcher's merged launches against the scheduler timeline and the
+    flight records; (c) one ranged read under torch.profiler. The launch
+    counts are zeroed before (a) and read after (c)."""
+    from tieredstorage_tpu_torch.metrics.prometheus import PrometheusExporter
+    from tieredstorage_tpu_torch.metrics.timeline import validate_chrome_events
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="observe")
+    seg = work / "segment"
+    seg.mkdir()
+    base_md, sd, files, _ = write_segment(seg, seed + 100, segment_bytes)
+    kept = None  # the segment the observed RSM keeps for (a)-(c)
+    source = files["log"].read_bytes()
+    plain_store, obs_store = work / "plain", work / "observed"
+    plain_store.mkdir()
+    obs_store.mkdir()
+    trace_path = work / "trace.json"
+    # The span ring holds every span of the phase, so each fetch call's
+    # rsm.fetch_log_segment span is there to compare with the histogram.
+    observed_keys = {"tracing.enabled": True, "flight.enabled": True, "timeline.enabled": True,
+                     "tracing.export.path": str(trace_path), "tracing.max.spans": 1 << 16}
+    gib = segment_bytes / (1 << 30)
+    out: dict = {"segment_bytes": segment_bytes}
+    rng_ids = np.random.default_rng(seed + 102)
+
+    _cuda.reset_launch_counts()
+    plain = RemoteStorageManager()
+    plain.configure(_rsm_configs(plain_store, pub, priv, device))
+    observed = RemoteStorageManager()
+    observed.configure(_rsm_configs(obs_store, pub, priv, device, observed_keys))
+    call_ms: list = []  # the observed RSM's fetch_log_segment calls, wall
+
+    def turn(rsm, store: Path, keep: bool) -> dict:
+        # Each turn copies the segment under a segment id of its own: an RSM
+        # caches a segment's manifest, and a copy under an id it has read
+        # before would be read with the earlier copy's data key.
+        nonlocal kept
+        seg_id = base_md.remote_log_segment_id
+        md = dataclasses.replace(base_md, remote_log_segment_id=dataclasses.replace(
+            seg_id, id=type(seg_id.id)(rng_ids.bytes(16))))
+        t = time.perf_counter()
+        rsm.copy_log_segment_data(md, sd)
+        copy_s = time.perf_counter() - t
+        objects = len(_fs_files(store))
+        with rsm.flight_recorder.request("smoke.fetch"):
+            t = time.perf_counter()
+            stream = rsm.fetch_log_segment(md, 0)
+            if rsm is observed:
+                call_ms.append((time.perf_counter() - t) * 1e3)
+            with stream:
+                ok = stream.read() == source
+            fetch_s = time.perf_counter() - t
+        check(ok, "observability: a whole-segment fetch differs from the source")
+        if keep:
+            kept = md
+        else:
+            rsm.delete_log_segment_data(md)
+        return {"copy_s": copy_s, "fetch_s": fetch_s, "objects": objects}
+
+    # Two rounds of plain, observed, observed, plain; the last observed
+    # turn's segment stays for the reads below.
+    order = ["plain", "observed", "observed", "plain"] * 2
+    keep_at = len(order) - 2
+    turns = [(k, turn(plain, plain_store, False) if k == "plain"
+              else turn(observed, obs_store, i == keep_at)) for i, k in enumerate(order)]
+    plain.close()
+    md = kept
+
+    def arm_cost(what: str, rows) -> float:
+        mean = {k: statistics.mean(r[f"{what}_s"] for n, r in rows if n == k)
+                for k in ("plain", "observed")}
+        return mean["observed"] / mean["plain"] - 1.0
+
+    cost: dict = {"turns": order}
+    for what in ("copy", "fetch"):
+        plain_s = [r[f"{what}_s"] for n, r in turns if n == "plain"]
+        cost[f"{what}_gib_s"] = [gib / r[f"{what}_s"] for _, r in turns]
+        cost[f"{what}_cost"] = arm_cost(what, turns)
+        cost[f"{what}_cost_rounds"] = [arm_cost(what, turns[:4]), arm_cost(what, turns[4:])]
+        cost[f"{what}_plain_spread"] = (max(plain_s) - min(plain_s)) / statistics.mean(plain_s)
+    # Metrics are always on, in the plain RSM too: time the records one
+    # fetch and one copy of the observed RSM made, on a registry of their own.
+    fetches = sum(1 for n, _ in turns if n == "observed")
+    per_fetch = {base: observed.metrics.histogram(base).count // fetches
+                 for base in ("chunk-fetch-time", "cache-get-time") if observed.metrics.histogram(base)}
+    cost["metrics_records_per_fetch"] = per_fetch
+    cost.update(metrics_work_ms(per_fetch, segment_bytes))
+    for what in ("copy", "fetch"):
+        plain_ms = 1e3 * statistics.mean(r[f"{what}_s"] for n, r in turns if n == "plain")
+        cost[f"metrics_{what}_share"] = cost[f"metrics_{what}_ms"] / plain_ms
+    out["cost"] = cost
+
+    rng = np.random.default_rng(seed + 101)
+    read_ms: list = []
+    requested = fetches * segment_bytes
+    for off in rng.integers(0, segment_bytes - MIB, 64):
+        off = int(off)
+        with observed.flight_recorder.request("smoke.ranged_read"):
+            t = time.perf_counter()
+            stream = observed.fetch_log_segment(md, off, off + MIB - 1)
+            call_ms.append((time.perf_counter() - t) * 1e3)
+            with stream:
+                part = stream.read()
+            read_ms.append((time.perf_counter() - t) * 1e3)
+        check(part == source[off : off + MIB], f"observability: ranged read at {off} differs")
+        requested += MIB
+    metrics = observed.metrics
+    hist = metrics.histogram("remote-fetch-time")
+    ranged: dict = {"reads": len(read_ms), "read_p50_ms": _nearest_rank(read_ms, 0.5),
+                    "read_p99_ms": _nearest_rank(read_ms, 0.99), "calls": len(call_ms)}
+    # The histogram's quantiles against those of the same calls'
+    # rsm.fetch_log_segment spans, within the width of the bucket that holds
+    # the span's. The span also holds `_traced`'s flight record and the
+    # metrics record; the wall here also holds the span's own opening and
+    # closing. Both gaps are printed.
+    spans_ms = [sp.duration_s * 1e3 for sp in observed.tracer.spans("rsm.fetch_log_segment")]
+    check(hist.count == len(call_ms) == len(spans_ms),
+          f"observability: remote-fetch-time counted {hist.count} of {len(call_ms)} calls, "
+          f"{len(spans_ms)} spans")
+    for q, label in ((0.5, "p50"), (0.99, "p99")):
+        wall, span = _nearest_rank(call_ms, q), _nearest_rank(spans_ms, q)
+        histogram = metrics.latency_quantile("remote-fetch-time", q)
+        width = _bucket_width(hist._bounds, span)
+        ranged.update({f"call_{label}_ms": wall, f"span_{label}_ms": span,
+                       f"histogram_{label}_ms": histogram, f"bucket_width_{label}_ms": width,
+                       f"wall_minus_span_{label}_ms": wall - span,
+                       f"span_minus_histogram_{label}_ms": span - histogram})
+        check(abs(span - histogram) <= width,
+              f"observability: remote-fetch-time {label} {histogram} ms against the spans' "
+              f"{span} ms, more than the bucket's {width} ms apart")
+    out["ranged"] = ranged
+
+    recorder = observed.flight_recorder
+    retained = [r.to_dict() for r in recorder.slowest()]
+    reads = [r for r in retained if r["name"] in ("smoke.fetch", "smoke.ranged_read")]
+    check(reads, "observability: no read was retained by the flight recorder")
+    slowest = reads[0]
+    out["flight"] = {"requests_seen": recorder.requests_seen, "retained": len(retained),
+                     "ring_size": recorder.ring_size,
+                     "slowest_overall": {k: retained[0][k] for k in ("name", "duration_ms")},
+                     "slowest_read": {k: slowest.get(k) for k in (
+                         "name", "duration_ms", "tiers", "counters",
+                         "gcm_dispatches_per_window", "gcm_hbm_roundtrips_per_window")},
+                     "slowest_read_stages": len(slowest["stages"])}
+    check(slowest["counters"].get("gcm.windows", 0) > 0,
+          f"observability: the slowest read has no GCM window notes: {slowest['counters']}")
+
+    exporter = PrometheusExporter([metrics.registry], host="127.0.0.1", port=0,
+                                  tracer=observed.tracer, flight_recorder=recorder).start()
+    try:
+        body, scrape_ms = _scrape(exporter.port, "/metrics")
+        varz, varz_ms = _scrape(exporter.port, "/varz")
+        health, _ = _scrape(exporter.port, "/healthz")
+    finally:
+        exporter.stop()
+    samples = _exposition_samples(body.decode())
+    group = "remote_storage_manager_metrics"
+    copies = sum(1 for n, _ in turns if n == "observed")
+    uploaded = sum(r["objects"] for n, r in turns if n == "observed")
+    check(samples.get(f"{group}_segment_copy_time_ms_count") == copies,
+          f"observability: copy count {samples.get(f'{group}_segment_copy_time_ms_count')} "
+          f"for {copies} copies")
+    check(samples.get(f"{group}_object_upload_total") == uploaded,
+          f"observability: {samples.get(f'{group}_object_upload_total')} uploads counted, "
+          f"{uploaded} objects listed")
+    check(samples.get(f"{group}_segment_fetch_requested_bytes_total") == requested,
+          f"observability: {samples.get(f'{group}_segment_fetch_requested_bytes_total')} "
+          f"requested bytes counted, {requested} requested")
+    check(health == b"ok\n" and json.loads(varz)["flight"]["requests_seen"] == recorder.requests_seen,
+          "observability: /healthz or /varz answered wrong")
+    out["scrape"] = {"bytes": len(body), "series": len(samples), "scrape_ms": scrape_ms,
+                     "varz_ms": varz_ms, "copies": copies, "objects_uploaded": uploaded,
+                     "requested_bytes": requested}
+
+    # (b) The scheduler timeline: 4 readers x 64 MiB in 1 MiB reads.
+    slice_bytes = min(64 * MIB, segment_bytes // 4)
+    batched = RemoteStorageManager()
+    batched.configure(_rsm_configs(obs_store, pub, priv, device, {
+        "tracing.enabled": True, "flight.enabled": True, "timeline.enabled": True,
+        "transform.batch.enabled": True, "flight.ring.size": 4096,
+        "timeline.ring.size": 65536}))
+    bad: list = []
+    try:
+        batcher = batched.transform_backend.batcher
+        flights = batched.flight_recorder
+
+        def consumer(j: int):
+            for off in range(j * slice_bytes, (j + 1) * slice_bytes, MIB):
+                with flights.request("smoke.consumer_read", trace_id=f"read-{j}-{off}"):
+                    with batched.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                        if stream.read() != source[off : off + MIB]:
+                            bad.append(off)
+
+        t = time.perf_counter()
+        errors = _run_threads([lambda j=j: consumer(j) for j in range(4)])
+        wall = time.perf_counter() - t
+        timeline = batched.timeline
+        events = [e for e in timeline.events() if e["kind"] == "flush"]
+        records = {r.trace_id: r for r in flights.slowest() + flights.failures()}
+        occupancy = batched.metrics.registry.stat(next(iter(
+            batched.metrics.registry.find("batch-occupancy"))))
+        export = timeline.export_chrome_trace([r.to_dict() for r in records.values()])
+        n_events = validate_chrome_events(export["traceEvents"])
+        joined, unjoined, outside = 0, [], []
+        for ev in events:
+            for trace_id in ev["trace_ids"]:
+                rec = records.get(trace_id)
+                if rec is None or f"gcm.batch:{ev['batch_id']}" not in [s[0] for s in rec.stages]:
+                    unjoined.append((ev["batch_id"], trace_id))
+                    continue
+                joined += 1
+                if not rec.start_s <= ev["begin_s"] <= ev["end_s"] <= rec.end_s:
+                    outside.append((ev["batch_id"], trace_id))
+    finally:
+        batched.close()
+    check(not errors and not bad, f"observability: consumers failed {errors!r} or differ at {bad[:4]}")
+    check(len(events) == timeline.launches_recorded == batcher.launches > 0,
+          f"observability: {len(events)} flush records, {timeline.launches_recorded} recorded, "
+          f"{batcher.launches} merged launches")
+    check(not unjoined and joined > 0,
+          f"observability: {len(unjoined)} flush trace ids join no gcm.batch record: {unjoined[:4]}")
+    check(not outside, f"observability: launch slices outside their requests: {outside[:4]}")
+    check(occupancy.count == batcher.launches,
+          f"observability: batch-occupancy counted {occupancy.count} of {batcher.launches} launches")
+    out["timeline"] = {"readers": 4, "slice_bytes": slice_bytes, "wall_s": wall,
+                       "merged_launches": batcher.launches, "flush_records": len(events),
+                       "batched_windows": batcher.batched_windows,
+                       "fast_path_windows": batcher.fast_path_windows,
+                       "trace_ids_joined": joined, "chrome_events": n_events,
+                       "occupancy_mean": occupancy.sum / max(1, occupancy.count)}
+
+    # (c) One ranged read under torch.profiler, spans forwarded.
+    off = 6 * CHUNK + 123
+    out["profile"] = _profile_in_child({
+        "configs": _rsm_configs(obs_store, pub, priv, device, {
+            "tracing.enabled": True, "tracing.jax.profiler.enabled": True}),
+        "md": md, "warm_off": off - CHUNK, "off": off, "expected": source[off : off + MIB],
+        "device": str(device), "work": str(work),
+    }, work)
+    observed.delete_log_segment_data(md)
+    observed.close()
+    check(trace_path.exists() and json.loads(trace_path.read_text())["traceEvents"],
+          "observability: close() wrote no Chrome trace to tracing.export.path")
+    out["launches"] = _cuda.launch_counts()
+    return out
+
+
+def _profile_in_child(args: dict, work: Path) -> dict:
+    """Run phase 10 (c) in a child process, whose profiler session is then
+    its first: in the whole smoke, a session opened after phase 7's
+    recorded none of the read's kernels."""
+    import pickle
+
+    args_path, out_path = work / "profile_args.pkl", work / "profile_rec.json"
+    args_path.write_bytes(pickle.dumps(args))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke._profile_child(sys.argv[1], "
+         "sys.argv[2])", str(args_path), str(out_path)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600,
+    )
+    check(res.returncode == 0, f"observability: the profiled read failed:\n{res.stdout[-3000:]}")
+    return json.loads(out_path.read_text())
+
+
+def _profile_child(args_path: str, out_path: str) -> None:
+    """The child of `_profile_in_child`: one warm read, then the profiled
+    read, on an RSM of its own over the observed store."""
+    import pickle
+
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+
+    args = pickle.loads(Path(args_path).read_bytes())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rsm = RemoteStorageManager()
+    rsm.configure(args["configs"])
+    try:
+        md, off, warm = args["md"], args["off"], args["warm_off"]
+        with rsm.fetch_log_segment(md, warm, warm + MIB - 1) as stream:
+            stream.read()  # the data key's contexts warm
+        rec = _profiled_read(rsm, md, args["expected"], off, args["device"], Path(args["work"]))
+    finally:
+        rsm.close()
+    Path(out_path).write_text(json.dumps(rec))
+
+
+def _profiled_read(rsm, md, expected: bytes, off: int, device, work: Path) -> dict:
+    """One 1 MiB read under torch.profiler (CPU and CUDA activities) inside
+    a `smoke.read` span. The RSM's `rsm.fetch_log_segment` range covers the
+    call, which returns a lazy stream; the drain's `chunk.detransform` and
+    `transform.decrypt` ranges enclose the kernels' launches."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch_profile(activities=activities) as prof:
+        with rsm.tracer.span("smoke.read"):
+            with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
+                part = stream.read()
+    check(part == expected, "observability: the profiled read differs")
+    path = work / "profile.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in (
+                "smoke.read", "rsm.fetch_log_segment", "chunk.detransform", "transform.decrypt"):
+            ranges.setdefault(e["name"], (e["ts"], e["ts"] + e["dur"]))
+    check("rsm.fetch_log_segment" in ranges,
+          f"observability: no rsm.fetch_log_segment range in the profile ({sorted(ranges)})")
+    rec: dict = {"ranges_host_ms": {n: (b - a) / 1e3 for n, (a, b) in ranges.items()}}
+    if torch.device(device).type != "cuda":
+        return rec
+    kernels = {"aes_ctr_keystream": "aes_ctr_kernel", "ghash_tree": "ghash_tree_"}
+    launches = {e["args"].get("correlation"): e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    read_lo, read_hi = ranges["smoke.read"]
+    detr_lo, detr_hi = ranges["chunk.detransform"]
+    device_us: dict = {}
+    for name, needle in kernels.items():
+        found = [e for e in events if e.get("cat") == "kernel" and needle in e["name"]]
+        check(found, f"observability: no {name} kernel in the profile")
+        device_us[name] = sum(e["dur"] for e in found)
+        for k in found:
+            # The host call that launched the kernel, joined by correlation id.
+            launch = launches.get(k["args"].get("correlation"))
+            check(launch is not None, f"observability: a {name} kernel has no launch call in the profile")
+            lo, hi = launch["ts"], launch["ts"] + launch["dur"]
+            check(read_lo <= lo and hi <= read_hi and detr_lo <= lo and hi <= detr_hi,
+                  f"observability: a {name} launch falls outside smoke.read/chunk.detransform")
+    fetch_lo, fetch_hi = ranges["rsm.fetch_log_segment"]
+    rec.update({"kernel_device_ms": {n: us / 1e3 for n, us in device_us.items()},
+                "fetch_range_ends_before_drain": fetch_hi <= detr_lo})
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -1973,8 +2419,21 @@ def main(argv=None) -> int:
         "repairs": ae["diverged"]["repairs"], "missing_copies": ae["diverged"]["missing_copies"],
         "divergent_keys": ae["diverged"]["divergent_keys"]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_observability_"))
+    try:
+        t = time.perf_counter()
+        obs = observability_phase(args.seed, args.segment_mib * MIB, work)
+        record["observability_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase observability: {record['observability_s']:.1f} s")
+    record["observability"] = obs
+    for part in ("cost", "ranged", "flight", "scrape", "timeline", "profile"):
+        print(f"observability {part}: " + json.dumps({"card": card, **obs[part]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     _gcm_launched(life["launches"], "lifecycle phase")
+    _gcm_launched(obs["launches"], "observability phase", ("aes_ctr_keystream", "ghash_tree"))
     launches = main_rec["launches"]
     missing = [name for name in gcm_kernels if launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -1999,6 +2458,7 @@ def main(argv=None) -> int:
         entry["launches_codec"] = codec_launches[name]
         entry["launches_storage"] = store["launches"][name]
         entry["launches_lifecycle"] = life["launches"][name]
+        entry["launches_observability"] = obs["launches"][name]
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -9,6 +9,8 @@ neither JAX nor the JAX package, so it runs on the machine with the card:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -667,3 +669,145 @@ def test_antientropy_arbitrates_with_crc32c_on_the_card(device):
         assert child.object("p/s.log") == log
     assert AntiEntropyRepairer(rep, prefix="p/", device=device).run_once().in_sync
     rep.close()
+
+
+def _observed_rsm(tmp_path, device, extra):
+    """An RSM on the card over a copied 8 MiB encrypted segment of 1 MiB
+    chunks, with the given observability keys."""
+    rng = np.random.default_rng(71)
+    chunk = 1 << 20
+    log = rng.bytes(8 * chunk)
+    seg, store = tmp_path / "seg", tmp_path / "store"
+    seg.mkdir()
+    store.mkdir()
+    paths = {}
+    for name, data in (("log", log), ("index", rng.bytes(48)), ("timeindex", rng.bytes(72))):
+        paths[name] = seg / f"00000000000000000000.{name}"
+        paths[name].write_bytes(data)
+    tip = metadata.TopicIdPartition(metadata.KafkaUuid(rng.bytes(16)), metadata.TopicPartition("t", 0))
+    md = metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(rng.bytes(16))),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    )
+    sd = metadata.LogSegmentData(
+        log_segment=paths["log"], offset_index=paths["index"], time_index=paths["timeindex"],
+        producer_snapshot_index=paths["index"], transaction_index=None,
+        leader_epoch_index=b"0\n1\n0 0\n",
+    )
+    pub, priv = generate_key_pair_pem_files(tmp_path, prefix="obs")
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": chunk, "key.prefix": "obs/",
+        "transform.device": str(device), "encryption.enabled": True,
+        "encryption.key.pair.id": "k", "encryption.key.pairs": "k",
+        "encryption.key.pairs.k.public.key.file": str(pub),
+        "encryption.key.pairs.k.private.key.file": str(priv), **extra,
+    })
+    rsm.copy_log_segment_data(md, sd)
+    return rsm, md, log, chunk
+
+
+def test_profiler_ranges_enclose_the_kernel_launches(device, tmp_path):
+    """With `tracing.jax.profiler.enabled`, a read under torch.profiler
+    shows the RSM's ranges, and the AES and GHASH-tree kernels launched by
+    the read fall inside its `chunk.detransform` range."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rsm, md, log, chunk = _observed_rsm(tmp_path, device, {
+        "tracing.enabled": True, "tracing.jax.profiler.enabled": True})
+    try:
+        with rsm.fetch_log_segment(md, 0, 99) as stream:  # contexts warm
+            assert stream.read() == log[:100]
+        start = 3 * chunk + 17
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with rsm.tracer.span("read"):
+                with rsm.fetch_log_segment(md, start, start + 4095) as stream:
+                    assert stream.read() == log[start : start + 4096]
+        path = tmp_path / "profile.json"
+        prof.export_chrome_trace(str(path))
+    finally:
+        rsm.close()
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"}
+    assert {"read", "rsm.fetch_log_segment", "chunk.detransform", "transform.decrypt"} <= set(ranges)
+    lo, hi = ranges["chunk.detransform"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    for needle in ("aes_ctr_kernel", "ghash_tree_"):
+        kernels = [e for e in events if e.get("cat") == "kernel" and needle in e["name"]]
+        assert kernels, needle
+        for k in kernels:
+            at = launches.get(k["args"].get("correlation"))
+            assert at is not None, f"{needle}: no launch call joined by correlation id"
+            assert lo <= at["ts"] and at["ts"] + at["dur"] <= hi, needle
+
+
+def test_scrape_does_not_wait_for_an_in_flight_launch(device, tmp_path):
+    """A scrape runs every gauge on the exporter's thread; none may touch
+    the device. With the default stream held by a sleep kernel and a
+    merged launch queued behind it, a scrape returns while the stream is
+    still busy, and the gauges read the host's counters."""
+    import threading
+    import urllib.request
+
+    from tieredstorage_tpu_torch.metrics.prometheus import PrometheusExporter
+
+    rsm, md, log, chunk = _observed_rsm(tmp_path, device, {
+        "transform.batch.enabled": True, "cache.device.bytes": 64 << 20,
+        "flight.enabled": True, "timeline.enabled": True})
+    batcher = rsm.transform_backend.batcher
+    exporter = PrometheusExporter([rsm.metrics.registry]).start()
+    results: list = [None] * 4
+
+    def merged_reads(first: int) -> list:
+        """Two concurrent reads, parked off the fast path so they merge;
+        returns the reader threads once the flusher has taken both."""
+        submitted = batcher.windows_submitted
+
+        def read(i):
+            with rsm.fetch_log_segment(md, i * chunk, i * chunk + 99) as stream:
+                results[i] = stream.read()
+
+        readers = [threading.Thread(target=read, args=(i,)) for i in (first, first + 1)]
+        for t in readers:
+            t.start()
+        with batcher._cond:
+            assert batcher._cond.wait_for(
+                lambda: batcher.windows_submitted == submitted + 2, timeout=30)
+        time.sleep(0.2)  # both admitted windows reach their bucket
+        with batcher._cond:  # and the flusher has taken them
+            assert batcher._cond.wait_for(
+                lambda: not any(batcher._buckets.values()), timeout=30)
+        return readers
+
+    try:
+        with batcher._cond:
+            batcher._inflight += 1  # park the fast path: the reads merge
+        # A first merged launch builds the key's varlen context (host work
+        # that holds the GIL), so the measured one below only stages.
+        for t in merged_reads(0):
+            t.join(timeout=60)
+        torch.cuda._sleep(4_000_000_000)  # about 2 s on the default stream
+        readers = merged_reads(2)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics", timeout=30) as r:
+            body = r.read().decode()
+        scrape_s = time.perf_counter() - t0
+        busy = not torch.cuda.current_stream(device).query()
+        with batcher._cond:
+            batcher._inflight -= 1
+        for t in readers:
+            t.join(timeout=60)
+        submitted = batcher.windows_submitted
+    finally:
+        exporter.stop()
+        rsm.close()
+    assert busy, "the scrape waited for the device"
+    assert scrape_s < 1.0
+    assert results == [log[i * chunk : i * chunk + 100] for i in range(4)]
+    assert "hot_cache_metrics_hot_cache_device_bytes_resident" in body
+    assert f"batch_metrics_batch_windows_submitted_total {submitted}.0" in body

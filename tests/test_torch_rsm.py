@@ -185,7 +185,7 @@ def test_segments_cross_read_between_packages(tmp_path, keys, writer):
 
 
 @pytest.mark.parametrize(
-    "key", ["tracing.enabled", "deadline.default.ms", "hedge.enabled",
+    "key", ["slo.enabled", "deadline.default.ms", "hedge.enabled",
             "breaker.enabled", "fleet.enabled"],
 )
 def test_unported_keys_are_refused_by_name(tmp_path, keys, key):

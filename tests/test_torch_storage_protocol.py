@@ -236,7 +236,13 @@ def test_error_mapping_and_messages_equal_jax(kind, emulators):
         theirs.fetch(JaxObjectKey("errors/ten.log"), JaxBytesRange.of(10, 20))
     assert str(ours_ir.value) == str(theirs_ir.value)
     assert type(theirs_ir.value).__name__ == "InvalidRangeException"
-    assert ours.metrics is None
+    # The request metrics observe every attempt, as the JAX backend's do.
+    counted = [
+        {k: v for k, v in b.metrics.registry.snapshot().items()
+         if k.endswith(("-requests-total", "-errors-total"))}
+        for b in (ours, theirs)
+    ]
+    assert counted[0] == counted[1] and counted[0]
 
 
 # ------------------------------------------------------------------ GCS

@@ -19,6 +19,10 @@ Layer map:
   scrub/            — scrubber, recovery sweeper, anti-entropy repair
   faults/           — fault-injecting storage backend (utils/faults.py: the
                       fault plane at the I/O seams)
+  metrics/          — metrics registry, the metric groups, the Prometheus
+                      exporter and the device-scheduler timeline
+  utils/            — tracer (torch.profiler ranges), flight recorder, locks,
+                      retry, deadlines, the fault plane
   ops/              — GCM, CRC32C, Huffman and LZ on torch tensors; kernel
                       wrappers and plain versions
   csrc/             — the CUDA C++ kernels (built with nvcc at first use)

@@ -5,7 +5,8 @@ Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
 `key.prefix.mask`, `chunk.size`, `compression.*`, `encryption.*` (keyring
 with the two-phase `encryption.key.pairs.<id>.*` define),
 `custom.metadata.fields.include`, `upload.rate.limit.bytes.per.second`,
-`retry.launch.*` (the window batcher's launch retry), `scrub.*` (the
+`retry.launch.*` (the window batcher's launch retry), `tracing.*`,
+`flight.*`, `timeline.*` and `metrics.*` (the observability plane), `scrub.*` (the
 scrubber, its scheduler and the upload checksums), `fault.*` and `faults.*`
 (the fault-injecting backend and the fault plane), `lifecycle.*` (the
 intent journal and the recovery sweeper), `replication.antientropy.*`
@@ -44,8 +45,6 @@ FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 
 #: Keys of the JAX package's configuration that this package has not ported.
 NOT_YET_PORTED = frozenset({
-    "tracing.enabled", "tracing.jax.profiler.enabled", "tracing.max.spans",
-    "tracing.export.path",
     "breaker.enabled", "breaker.failure.threshold", "breaker.cooldown.ms",
     "deadline.default.ms", "hedge.enabled", "hedge.delay.ms",
     "hedge.delay.min.samples", "hedge.budget.percent", "retry.budget.enabled",
@@ -60,12 +59,10 @@ NOT_YET_PORTED = frozenset({
     "fleet.peer.down.cooldown.ms", "fleet.replication.factor",
     "fleet.gossip.enabled", "fleet.gossip.interval.ms",
     "fleet.gossip.probe.timeout.ms", "fleet.gossip.suspect.periods",
-    "fleet.gossip.dead.periods", "flight.enabled",
-    "flight.ring.size", "timeline.enabled", "timeline.ring.size", "slo.enabled",
+    "fleet.gossip.dead.periods", "slo.enabled",
     "slo.window.short.ms", "slo.window.long.ms", "slo.fetch.latency.threshold.ms",
     "slo.fetch.latency.objective.percent", "slo.error.rate.objective.percent",
     "slo.shed.rate.max.percent", "slo.cache.hit.floor.percent",
-    "metrics.num.samples", "metrics.sample.window.ms", "metrics.recording.level",
 })
 
 def _codec_id(name: str, value) -> None:
@@ -115,6 +112,16 @@ def _parse_fault_spec(value) -> None:
 _valid_fault_spec = parseable_by(
     _parse_fault_spec, "fault rules 'site:kind[=arg][@trigger][~match]'"
 )
+
+
+def _valid_recording_level(name: str, value) -> None:
+    if str(value).upper() not in ("INFO", "DEBUG"):
+        raise ConfigException(
+            f"Invalid value {value!r} for configuration {name}: must be INFO or DEBUG"
+        )
+
+
+_valid_recording_level.description = "[INFO, DEBUG]"
 
 
 def _base_def() -> ConfigDef:
@@ -353,6 +360,83 @@ def _base_def() -> ConfigDef:
             "orphans of finished operations need no grace — the journal "
             "proves no commit happened.",
     ))
+    d.define(ConfigKey(
+        "tracing.enabled", "bool", default=False, importance="low",
+        doc="Record spans around RSM operations and the fetch, storage, "
+            "scrub and lifecycle stages below them (utils/tracing.py); "
+            "summaries are exposed via RemoteStorageManager.tracer.",
+    ))
+    d.define(ConfigKey(
+        "tracing.jax.profiler.enabled", "bool", default=False, importance="low",
+        doc="Forward tracing spans into torch.profiler record_function "
+            "ranges so they appear next to the CUDA kernels in a "
+            "torch.profiler (Kineto) trace; the key keeps the JAX "
+            "package's name (requires tracing.enabled).",
+    ))
+    d.define(ConfigKey(
+        "tracing.max.spans", "int", default=10_000,
+        validator=in_range(1, None), importance="low",
+        doc="Capacity of the tracer's span ring buffer; once full the oldest "
+            "spans are evicted (counted by the tracer-dropped-spans metric) "
+            "so long soak runs keep the newest spans.",
+    ))
+    d.define(ConfigKey(
+        "tracing.export.path", "string", default=None,
+        validator=non_empty_string, importance="low",
+        doc="Write the recorded spans as Chrome trace-event JSON to this "
+            "path on close() (loadable in Perfetto / chrome://tracing).",
+    ))
+    d.define(ConfigKey(
+        "flight.enabled", "bool", default=False, importance="medium",
+        doc="Arm the per-request flight recorder (utils/flightrecorder.py): "
+            "every RSM operation records its cache-tier outcomes (chunk "
+            "cache / device hot tier / backend), replica-failover activity, "
+            "GCM window accounting and the deadline budget remaining at "
+            "each stage; the slowest and failed requests are retained in a "
+            "bounded ring (RemoteStorageManager.flight_status), and latency "
+            "histograms attach the records' trace ids as bucket exemplars. "
+            "Disabled is zero-work.",
+    ))
+    d.define(ConfigKey(
+        "flight.ring.size", "int", default=64,
+        validator=in_range(1, 4096), importance="low",
+        doc="Requests retained by the flight recorder: the N slowest "
+            "completed requests (a fast request never evicts a slow one) "
+            "plus the N most recent failed ones.",
+    ))
+    d.define(ConfigKey(
+        "timeline.enabled", "bool", default=False, importance="medium",
+        doc="Arm the device-scheduler timeline ring (metrics/timeline.py): "
+            "every merged GCM launch records its scheduler context (work "
+            "class, bucket shape, rows/bytes, waiter count, queued age, "
+            "launch begin/end, occupancy, per-class queue depths, and the "
+            "waiting requests' flight-recorder trace ids), served by "
+            "RemoteStorageManager.timeline_status and exportable as "
+            "Chrome-trace/Perfetto JSON with flow edges joining flight "
+            "records to the launches that served them (the gcm.batch:<id> "
+            "stage markers). Disabled is zero-work.",
+    ))
+    d.define(ConfigKey(
+        "timeline.ring.size", "int", default=512,
+        validator=in_range(1, 65536), importance="low",
+        doc="Scheduler events retained by the timeline ring, strict FIFO "
+            "with explicit eviction accounting (recency matters here, not "
+            "extremes — the flight recorder keeps the slowest, the "
+            "timeline keeps the latest).",
+    ))
+    d.define(ConfigKey(
+        "metrics.num.samples", "int", default=2, validator=in_range(1, None), importance="low",
+        doc="Number of samples for metrics computation.",
+    ))
+    d.define(ConfigKey(
+        "metrics.sample.window.ms", "long", default=30_000, validator=in_range(1, None),
+        importance="low", doc="Metrics sample window.",
+    ))
+    d.define(ConfigKey(
+        "metrics.recording.level", "string", default="INFO",
+        validator=_valid_recording_level,
+        importance="low", doc="Metrics recording level (INFO, DEBUG).",
+    ))
     return d
 
 
@@ -555,6 +639,50 @@ class RemoteStorageManagerConfig:
     @property
     def lifecycle_grace_ms(self) -> int:
         return self._values["lifecycle.grace.ms"]
+
+    @property
+    def tracing_enabled(self) -> bool:
+        return self._values["tracing.enabled"]
+
+    @property
+    def tracing_jax_profiler_enabled(self) -> bool:
+        return self._values["tracing.jax.profiler.enabled"]
+
+    @property
+    def tracing_max_spans(self) -> int:
+        return self._values["tracing.max.spans"]
+
+    @property
+    def tracing_export_path(self) -> Optional[str]:
+        return self._values["tracing.export.path"]
+
+    @property
+    def flight_enabled(self) -> bool:
+        return self._values["flight.enabled"]
+
+    @property
+    def flight_ring_size(self) -> int:
+        return self._values["flight.ring.size"]
+
+    @property
+    def timeline_enabled(self) -> bool:
+        return self._values["timeline.enabled"]
+
+    @property
+    def timeline_ring_size(self) -> int:
+        return self._values["timeline.ring.size"]
+
+    @property
+    def metrics_num_samples(self) -> int:
+        return self._values["metrics.num.samples"]
+
+    @property
+    def metrics_sample_window_ms(self) -> int:
+        return self._values["metrics.sample.window.ms"]
+
+    @property
+    def metrics_recording_level(self) -> str:
+        return str(self._values["metrics.recording.level"]).upper()
 
     def fetch_indexes_cache_configs(self) -> dict[str, Any]:
         return subset_with_prefix(self._props, FETCH_INDEXES_CACHE_PREFIX)

@@ -1,7 +1,8 @@
 """Caching chunk manager with single-flight population and async prefetch.
 
-Counterpart of tieredstorage_tpu/fetch/cache/chunk_cache.py, without the
-planes this package has not ported (the flight recorder, metrics hooks).
+Counterpart of tieredstorage_tpu/fetch/cache/chunk_cache.py: its spans, the
+`on_get` latency hook, its flight notes, and the pool hop that re-binds the
+request's flight record and trace context to the worker that loads for it.
 
 Reference: core/.../fetch/cache/ChunkCache.java — `getChunk` computes through
 the async cache (miss → delegate fetch+detransform → `cacheChunk`; hit →
@@ -40,6 +41,7 @@ from tieredstorage_tpu_torch.transform.scheduler import (
     speculative_scope,
     work_class_scope,
 )
+from tieredstorage_tpu_torch.utils import flightrecorder as flight
 from tieredstorage_tpu_torch.utils.caching import LoadingCache, RemovalCause
 from tieredstorage_tpu_torch.utils.deadline import check_deadline, remaining_s
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
@@ -74,8 +76,15 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
     """Wraps a delegate ChunkManager; subclasses define the cached form T
     (bytes in memory, Path on disk)."""
 
-    #: Span recorder (the tracing plane is not ported: a no-op).
+    #: Span recorder; the RSM swaps in its configured tracer.
     tracer = NOOP_TRACER
+    #: Optional latency hook `(elapsed_ms)` per window read; the RSM wires it
+    #: to Metrics.record_cache_get.
+    on_get = None
+    #: Synthetic-record source for pool-side prefetch loads; the RSM wires
+    #: its configured FlightRecorder so prefetch windows are attributable to
+    #: the stream that triggered them.
+    flight_recorder = flight.NOOP_RECORDER
 
     def __init__(self, delegate: ChunkManager) -> None:
         self._delegate = delegate
@@ -130,6 +139,10 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
     def total_weight(self) -> int:
         return self._cache.total_weight
 
+    @property
+    def executor(self) -> ThreadPoolExecutor:
+        return self._executor
+
     def close(self) -> None:
         # Drain in-flight loads before returning: callers close the transform
         # backend right after, and a loader thread must not reach a closed
@@ -157,8 +170,12 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
         whole window is bounded by ONE `get.timeout.ms` deadline."""
         if not chunk_ids:
             return []
+        start = time.monotonic()
         with self.tracer.span("cache.get_chunks", chunks=len(chunk_ids)):
-            return self._get_chunks_timed(objects_key, manifest, chunk_ids)
+            out = self._get_chunks_timed(objects_key, manifest, chunk_ids)
+        if self.on_get is not None:
+            self.on_get((time.monotonic() - start) * 1000.0)
+        return out
 
     def _get_chunks_timed(
         self, objects_key: ObjectKey, manifest: SegmentManifestV1, chunk_ids: Sequence[int]
@@ -228,6 +245,7 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
             # the affected chunks straight from the delegate, without
             # re-caching — going through the cache again would just re-race
             # with its own evictions (or re-hit the broken disk).
+            flight.note("cache.fallback", len(fallback))
             refetched = self._delegate.get_chunks(objects_key, manifest, fallback)
             out.update(zip(fallback, refetched))
         return [out[cid] for cid in chunk_ids]
@@ -279,6 +297,8 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
                 self._cache.get_if_present(key)  # hit + recency
             else:
                 missing.append(cid)
+        if len(chunk_ids) > len(missing):
+            flight.note("tier.chunk_cache", len(chunk_ids) - len(missing))
         own: list[int] = []
         if missing:
             with self._inflight_lock:
@@ -291,22 +311,30 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
                     else:
                         self._inflight[key] = concurrent.futures.Future()
                         own.append(cid)
+        joined = len(missing) - len(own)
+        if joined:
+            flight.note("tier.inflight_join", joined)
         if own:
             if deadline is None:
                 futures.update(
                     self._load_owned(objects_key, manifest, own)
                 )
             else:
-                # The pool worker loads on behalf of THIS request: carry its
-                # work class and speculative flag across the hop (the request
-                # thread blocks right below), so a readahead window's decrypt
-                # keeps its BACKGROUND class and speculative label instead of
-                # silently becoming latency-class work on the pool thread.
-                # The prefetch branch (deadline=None, already on a pool
-                # worker) deliberately carries neither — it outlives the
-                # request that triggered it.
+                # The pool worker loads on behalf of THIS request: re-bind
+                # its flight record, trace context, work class and
+                # speculative flag across the hop (the request thread blocks
+                # right below), so the lower tiers' outcomes land on its
+                # record and its span tree, and a readahead window's decrypt
+                # keeps its BACKGROUND class and speculative label instead
+                # of silently becoming latency-class work on the pool
+                # thread. The prefetch branch (deadline=None, already on a
+                # pool worker) deliberately carries none of these — it
+                # outlives the request that triggered it.
+                record = flight.current_record()
+                traceparent = self.tracer.current_traceparent()
                 task = self._executor.submit(
-                    self._load_owned_bound, current_work_class(), is_speculative(),
+                    self._load_owned_bound, record, traceparent,
+                    current_work_class(), is_speculative(),
                     objects_key, manifest, own,
                 )
                 try:
@@ -319,8 +347,13 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
                     ) from None
         return futures
 
-    def _load_owned_bound(self, work_class, speculative, objects_key, manifest, own):
+    def _load_owned_bound(
+        self, record, traceparent, work_class, speculative,
+        objects_key, manifest, own,
+    ):
         with contextlib.ExitStack() as stack:
+            stack.enter_context(flight.bound(record))
+            stack.enter_context(self.tracer.continue_trace(traceparent))
             if work_class is not None:
                 stack.enter_context(work_class_scope(work_class))
             if speculative:
@@ -394,10 +427,16 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
             return
         # Fire-and-forget: one batched load covers the whole prefetch window
         # (deadline=None — already on a pool worker, fetch runs inline there).
-        self._executor.submit(self._prefetch_window, objects_key, manifest, ids)
+        # The originating request's trace id rides along so the pool-side
+        # load's synthetic flight record is attributable to its stream.
+        self._executor.submit(
+            self._prefetch_window, objects_key, manifest, ids,
+            flight.current_trace_id() or "",
+        )
 
     def _prefetch_window(
-        self, objects_key: ObjectKey, manifest: SegmentManifestV1, ids: Sequence[int],
+        self, objects_key: ObjectKey, manifest: SegmentManifestV1,
+        ids: Sequence[int], origin_trace_id: str = "",
     ) -> None:
         """Isolation boundary: a failed prefetch is counted, never raised —
         and the LoadingCache drops failed loads, so the entries stay clean
@@ -410,12 +449,25 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
         for one sub-window's fetch+detransform, not the whole prefetch
         range."""
         try:
+            # Prefetch runs on a pool worker: its spans are roots of their own
+            # trace and it does not re-bind the request's record (it outlives
+            # the request). But the work is NOT anonymous: it opens a
+            # synthetic flight record stamped with the originating stream's
+            # trace id.
             window = self._config.prefetch_window_chunks or len(ids)
-            with self.tracer.span("cache.prefetch", chunks=len(ids)):
-                for i in range(0, len(ids), max(1, window)):
-                    self._populate_window(
-                        objects_key, manifest, ids[i : i + max(1, window)], None,
-                    )
+            with self.flight_recorder.request(
+                "cache.prefetch", trace_id=origin_trace_id
+            ):
+                flight.note("prefetch.chunks", len(ids))
+                flight.stage(
+                    f"prefetch.segment:{objects_key.value.rsplit('/', 1)[-1]}"
+                )
+                with self.tracer.span("cache.prefetch", chunks=len(ids)):
+                    for i in range(0, len(ids), max(1, window)):
+                        self._populate_window(
+                            objects_key, manifest, ids[i : i + max(1, window)],
+                            None,
+                        )
         except Exception:
             self.prefetch_failures += 1
             self.tracer.event("cache.prefetch_failure", chunks=len(ids))

@@ -1,7 +1,9 @@
 """Device-resident hot-window cache: decrypt once, serve many.
 
-Counterpart of tieredstorage_tpu/fetch/cache/device_hot.py on torch tensors,
-without the flight recorder and the metrics gauges (not ported).
+Counterpart of tieredstorage_tpu/fetch/cache/device_hot.py on torch tensors.
+A hot serve notes ``tier.device_hot`` on the ambient flight record; the
+hot-cache-metrics gauges (metrics/cache_metrics.py) read the Python ints
+this tier keeps, never the device.
 
 The massed-replay shape the reference serves with Caffeine caches + prefetch
 — hundreds of consumers re-reading the same hot segment — pays a full
@@ -57,6 +59,7 @@ import numpy as np
 
 from tieredstorage_tpu_torch.config.configdef import ConfigDef, ConfigKey, in_range
 from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager
+from tieredstorage_tpu_torch.utils import flightrecorder as flightrec
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 # -------------------------------------------------------- capture plumbing
@@ -253,7 +256,7 @@ class DeviceHotCache(ChunkManager):
     """ChunkManager tier retaining the hottest decrypted windows resident
     (device tensor + host mirror) under ``cache.device.bytes``."""
 
-    #: Span/event recorder (the tracing plane is not ported: a no-op).
+    #: Span/event recorder; the RSM swaps in its configured tracer.
     tracer = NOOP_TRACER
 
     def __init__(
@@ -313,6 +316,11 @@ class DeviceHotCache(ChunkManager):
         with self._lock:
             return self._device_bytes
 
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
     def close(self) -> None:
         with self._lock:
             self._windows.clear()
@@ -342,6 +350,7 @@ class DeviceHotCache(ChunkManager):
             self.tracer.event(
                 "hot.hit", key=objects_key.value, chunks=len(chunk_ids)
             )
+            flightrec.note("tier.device_hot", len(chunk_ids))
             return served
         with capture_scope() as captured:
             chunks = self._delegate.get_chunks(objects_key, manifest, list(chunk_ids))

@@ -1,12 +1,12 @@
 """On-disk chunk cache: write-to-temp + atomic move, delete on eviction.
 
-Counterpart of tieredstorage_tpu/fetch/cache/disk.py, without the metrics
-taps (the metrics plane is not ported).
+Counterpart of tieredstorage_tpu/fetch/cache/disk.py, with its metrics taps
+(DiskCacheMetrics, metrics/cache_metrics.py).
 
 Reference: core/.../fetch/cache/DiskChunkCache.java — `cacheChunk` writes to
 `{path}/temp/{key}` then ATOMIC_MOVEs to `{path}/cache/{key}` (:70-87) so
 readers never observe partial files; the removal listener deletes the file
-(:98-115); weigher = file size; the directory pair is
+and records freed bytes (:98-115); weigher = file size; the directory pair is
 wiped on startup (config/DiskChunkCacheConfig.java:62-73).
 """
 
@@ -55,6 +55,7 @@ class DiskChunkCache(ChunkCache[Path]):
             except OSError:
                 pass
             raise
+        self.record_write(len(chunk))
         return final
 
     def cached_chunk_to_stream(self, cached: Path) -> BinaryIO:
@@ -65,8 +66,26 @@ class DiskChunkCache(ChunkCache[Path]):
 
     def on_removal(self, chunk_key: ChunkKey, cached: Path, cause: RemovalCause) -> None:
         try:
+            size = cached.stat().st_size
             cached.unlink()
+            self.record_delete(size)
         except FileNotFoundError:
             pass
         except OSError:
             log.warning("Failed to delete cached chunk file %s", cached, exc_info=True)
+
+    # Metric taps; wired by set_metrics_recorder
+    # (reference DiskChunkCacheMetrics.java:38-68).
+    def record_write(self, n_bytes: int) -> None:
+        if self._metrics_recorder is not None:
+            self._metrics_recorder.record_write(n_bytes)
+
+    def record_delete(self, n_bytes: int) -> None:
+        if self._metrics_recorder is not None:
+            self._metrics_recorder.record_delete(n_bytes)
+
+    _metrics_recorder = None
+
+    def set_metrics_recorder(self, recorder) -> None:
+        """Attach a write/delete byte recorder (DiskCacheMetrics)."""
+        self._metrics_recorder = recorder

@@ -1,8 +1,10 @@
 """Chunk managers: resolve (object key, manifest, chunk id) -> plaintext chunk.
 
-Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without the planes
-this package has not ported yet (tracing spans, the flight recorder,
-hedging). `_fetch_stored` is the fault plane's `storage.read` seam
+Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without hedging
+(the failure-policy plane is not ported yet). Spans, the `on_fetch` latency
+hook and the flight notes (tier, GCM window accounting, the merged launch a
+window rode) are the JAX package's. `_fetch_stored` is the fault plane's
+`storage.read` seam
 (utils/faults.py). The quarantine has the JAX package's external hook
 (`quarantine`), through which the scrubber gates objects it found corrupt.
 `get_chunks` fetches a window of chunks with ONE ranged request (chunks are
@@ -26,9 +28,10 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackendException,
 )
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformBackend
-from tieredstorage_tpu_torch.utils import faults
+from tieredstorage_tpu_torch.utils import faults, flightrecorder as flight
 from tieredstorage_tpu_torch.utils.deadline import check_deadline
 from tieredstorage_tpu_torch.utils.streams import read_exactly
+from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 log = logging.getLogger(__name__)
 
@@ -58,6 +61,13 @@ class ChunkManager(abc.ABC):
 class DefaultChunkManager(ChunkManager):
     #: How long a key stays quarantined after a detransform failure.
     DEFAULT_QUARANTINE_TTL_S = 60.0
+
+    #: Span recorder; the RSM swaps in its configured tracer so the storage
+    #: GET and detransform stages land in the request's trace tree.
+    tracer = NOOP_TRACER
+    #: Optional latency hook `(elapsed_ms, plaintext_bytes)` per batch; the
+    #: RSM wires it to Metrics.record_chunk_fetch.
+    on_fetch: Optional[Callable[[float, int], None]] = None
     #: Optional pre-detransform hook `(opts)` — the device hot-window tier
     #: (fetch/cache/device_hot.py `note_detransform`) records the window's
     #: DetransformOptions so admission can tell whether the decrypt output
@@ -106,6 +116,7 @@ class DefaultChunkManager(ChunkManager):
         with self._quarantine_lock:
             self.corruptions += 1
             self._quarantine[key.value] = (self._now() + self.quarantine_ttl_s, reason)
+        self.tracer.event("chunk.quarantine", key=key.value, reason=reason)
         log.warning("Quarantining %s for %.0fs: %s", key, self.quarantine_ttl_s, reason)
 
     def quarantine(self, key: ObjectKey, reason: str) -> None:
@@ -128,17 +139,45 @@ class DefaultChunkManager(ChunkManager):
         # Fast-fail BEFORE the ranged GET: a request whose end-to-end
         # deadline already expired must not spend a storage round trip.
         check_deadline(f"chunk fetch of {objects_key}")
+        start = time.monotonic()
         index = manifest.chunk_index
         chunks = [index._chunk_at(cid) for cid in chunk_ids]
         contiguous = all(
             chunks[i + 1].id == chunks[i].id + 1 for i in range(len(chunks) - 1)
         )
-        stored = self._fetch_stored(objects_key, chunks, contiguous)
+        with self.tracer.span(
+            "storage.fetch_chunks", key=objects_key.value, chunks=len(chunks),
+        ) as fetch_span:
+            stored = self._fetch_stored(objects_key, chunks, contiguous)
+            stored_bytes = sum(len(b) for b in stored)
+            if fetch_span is not None:
+                fetch_span.attributes["bytes"] = stored_bytes
+        # Flight-record the backend serve: this window's chunks came from
+        # remote storage (every tier above missed), with the deadline budget
+        # left after the ranged GET.
+        flight.note("tier.backend", len(chunk_ids))
+        flight.stage(f"backend.fetched:{objects_key.value.rsplit('/', 1)[-1]}")
         opts = DetransformOptions.from_manifest(manifest)
         if self.on_detransform is not None:
             self.on_detransform(opts)
+        # GCM window accounting for the record: the CUDA backend exposes its
+        # per-thread launch/round-trip counters (host backends don't —
+        # duck-typed).
+        thread_counters = getattr(self._backend, "thread_dispatch_counters", None)
+        counters_before = thread_counters() if thread_counters is not None else None
+        # Batch evidence: with the window batcher on, this request's launches
+        # ride the flusher thread — the per-thread counters above stay 0 by
+        # design, and the batcher's own evidence (coalesced windows,
+        # occupancy, shared batch id) shows which launch the request shared.
+        batch_seam = getattr(self._backend, "thread_batch_evidence", None)
+        batch_before = batch_seam() if batch_seam is not None else None
         try:
-            return self._backend.detransform(stored, opts)
+            with self.tracer.span(
+                "chunk.detransform", chunks=len(stored), bytes_in=stored_bytes,
+            ) as span:
+                out = self._backend.detransform(stored, opts)
+                if span is not None:
+                    span.attributes["bytes_out"] = sum(len(b) for b in out)
         except Exception as e:
             # Any detransform failure (AuthenticationError on a GCM tag
             # mismatch, frame errors from the codec) means the stored bytes
@@ -148,6 +187,39 @@ class DefaultChunkManager(ChunkManager):
             raise CorruptChunkException(
                 f"Detransform failed for chunks {list(chunk_ids)} of {objects_key}"
             ) from e
+        if counters_before is not None:
+            dispatches, roundtrips = (
+                a - b for a, b in zip(thread_counters(), counters_before)
+            )
+            flight.note("gcm.windows")
+            flight.note("gcm.dispatches", dispatches)
+            flight.note("gcm.hbm_roundtrips", roundtrips)
+            # Which work class this request's GCM windows submitted under
+            # (transform/scheduler.py); unscoped fetch threads default to
+            # latency.
+            from tieredstorage_tpu_torch.transform.scheduler import (
+                LATENCY,
+                current_work_class,
+            )
+
+            flight.stage(f"gcm.class:{current_work_class() or LATENCY}")
+        if batch_before is not None:
+            windows, occupancy_sum, last_batch_id = batch_seam()
+            batched = windows - batch_before[0]
+            if batched:
+                flight.note("gcm.batched_windows", batched)
+                flight.note(
+                    "gcm.batch_occupancy", occupancy_sum - batch_before[1]
+                )
+                # The shared-launch marker: records carrying the same
+                # gcm.batch:<id> stage rode the SAME device launch.
+                flight.stage(f"gcm.batch:{last_batch_id}")
+        flight.stage("backend.detransformed")
+        if self.on_fetch is not None:
+            self.on_fetch(
+                (time.monotonic() - start) * 1000.0, sum(len(b) for b in out)
+            )
+        return out
 
     def _fetch_stored(
         self, objects_key: ObjectKey, chunks, contiguous: bool

@@ -63,6 +63,14 @@ class MemorySegmentIndexesCache(SegmentIndexesCache):
     def stats(self):
         return self._cache.stats
 
+    @property
+    def size(self) -> int:
+        return len(self._cache)
+
+    @property
+    def total_weight(self) -> int:
+        return self._cache.total_weight
+
     def get(
         self, key: ObjectKey, index_type: IndexType, loader: Callable[[], bytes]
     ) -> bytes:

@@ -70,6 +70,10 @@ class MemorySegmentManifestCache(SegmentManifestCache):
     def stats(self):
         return self._cache.stats
 
+    @property
+    def size(self) -> int:
+        return len(self._cache)
+
     def get(
         self, key: ObjectKey, loader: Callable[[], SegmentManifestV1]
     ) -> SegmentManifestV1:

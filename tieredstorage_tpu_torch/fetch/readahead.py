@@ -1,8 +1,9 @@
 """Predictive sequential readahead: speculate FUTURE windows, pre-admit them.
 
-Counterpart of tieredstorage_tpu/fetch/readahead.py, without the flight
-recorder (not ported). Speculative windows carry the background work class
-and the speculative tag: with `transform.batch.enabled` the window batcher
+Counterpart of tieredstorage_tpu/fetch/readahead.py. Speculative launches
+carry synthetic flight records (``readahead.window``) stamped with the
+originating stream's trace id, the background work class and the
+speculative tag: with `transform.batch.enabled` the window batcher
 (transform/batcher.py) admits them as background-class work; without it
 they launch on the card as they come.
 
@@ -80,6 +81,7 @@ from tieredstorage_tpu_torch.manifest.segment_manifest import SegmentManifestV1
 from tieredstorage_tpu_torch.storage.core import ObjectKey
 from tieredstorage_tpu_torch.transform.scheduler import BACKGROUND, work_class_scope
 from tieredstorage_tpu_torch.transform.scheduler import speculative_scope
+from tieredstorage_tpu_torch.utils import flightrecorder as flight
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 log = logging.getLogger(__name__)
@@ -187,8 +189,12 @@ class _Stream:
 class ReadaheadManager(ChunkManager):
     """Outermost fetch tier: detect sequential streams, speculate ahead."""
 
-    #: Span recorder (the tracing plane is not ported: a no-op).
+    #: Span recorder; the RSM swaps in its configured tracer.
     tracer = NOOP_TRACER
+    #: Synthetic-record source for speculative launches; the RSM wires its
+    #: configured FlightRecorder so readahead windows are attributable to
+    #: their stream.
+    flight_recorder = flight.NOOP_RECORDER
     #: Cross-segment continuation seam (see NextSegmentResolver).
     next_segment_resolver: Optional[NextSegmentResolver] = None
 
@@ -264,6 +270,27 @@ class ReadaheadManager(ChunkManager):
         with self._lock:
             return len(self._speculated)
 
+    @property
+    def hit_rate(self) -> float:
+        """Speculated chunks later consumed by a foreground read."""
+        with self._lock:
+            if self.chunks_speculated == 0:
+                return 0.0
+            return self.used_chunks / self.chunks_speculated
+
+    @property
+    def misprediction_ratio(self) -> float:
+        """Wasted speculative decrypt bytes / all speculated bytes."""
+        with self._lock:
+            return self._misprediction_ratio_locked()
+
+    @property
+    def mean_pre_admit_age_ms(self) -> float:
+        with self._lock:
+            if self.pre_admit_age_samples == 0:
+                return 0.0
+            return self.pre_admit_age_ms_sum / self.pre_admit_age_samples
+
     def _misprediction_ratio_locked(self) -> float:
         if self.bytes_speculated == 0:
             return 0.0
@@ -300,6 +327,7 @@ class ReadaheadManager(ChunkManager):
         and device work OUTSIDE it."""
         first, last = chunk_ids[0], chunk_ids[-1]
         stream_key = ChunkKey.of(objects_key, first).segment_file_name
+        trace_id = flight.current_trace_id() or ""
         with self._lock:
             stream = self._streams.get(stream_key)
             if stream is None:
@@ -314,7 +342,9 @@ class ReadaheadManager(ChunkManager):
             self._consume_locked(stream, objects_key, chunk_ids)
             if stream.state != READAHEAD:
                 return []
-            return self._plan_locked(stream, objects_key, manifest, last)
+            flight.note("readahead.stream_hits" if stream.outstanding else
+                        "readahead.stream", 1)
+            return self._plan_locked(stream, objects_key, manifest, last, trace_id)
 
     def _advance_locked(self, stream: _Stream, first: int, last: int) -> None:
         if first == stream.expected_next:
@@ -400,11 +430,13 @@ class ReadaheadManager(ChunkManager):
                 self.wasted_bytes += entry.n_bytes
             else:
                 entry.doomed = True
+        if used:
+            flight.note("tier.readahead", used)
 
     # -------------------------------------------------------------- planning
     def _plan_locked(
         self, stream: _Stream, objects_key: ObjectKey,
-        manifest: SegmentManifestV1, last: int,
+        manifest: SegmentManifestV1, last: int, trace_id: str,
     ) -> list[tuple]:
         launches: list[tuple] = []
         if self.budget_bytes <= 0:
@@ -416,6 +448,7 @@ class ReadaheadManager(ChunkManager):
             self.ratio_throttles += 1
             return launches
         index = manifest.chunk_index
+        stream_key = ChunkKey.of(objects_key, last).segment_file_name
         start = max(stream.frontier, last + 1)
         if start < index.chunk_count:
             ids = list(range(start, min(start + self.window_chunks,
@@ -423,7 +456,9 @@ class ReadaheadManager(ChunkManager):
             planned = self._admit_locked(stream, objects_key, index, ids)
             if planned:
                 stream.frontier = ids[-1] + 1
-                launches.append((objects_key, manifest, ids, planned))
+                launches.append(
+                    (objects_key, manifest, ids, planned, trace_id, stream_key)
+                )
         if (
             stream.frontier >= index.chunk_count
             and not stream.continued
@@ -433,7 +468,7 @@ class ReadaheadManager(ChunkManager):
             # segment (resolved + planned on the pool — the resolver may
             # fetch a manifest and must not run under this lock).
             stream.continued = True
-            launches.append((objects_key, None, None, None))
+            launches.append((objects_key, None, None, None, trace_id, stream_key))
         return launches
 
     def _admit_locked(
@@ -468,6 +503,7 @@ class ReadaheadManager(ChunkManager):
     # ------------------------------------------------------------ speculation
     def _speculate(
         self, objects_key: ObjectKey, manifest, ids, n_bytes,
+        trace_id: str, stream_key: str,
     ) -> None:
         """Pool entry point for one speculative launch. ``manifest is
         None`` marks a cross-segment continuation: resolve the next
@@ -477,8 +513,9 @@ class ReadaheadManager(ChunkManager):
                 resolved = self._continue_next_segment(objects_key)
                 if resolved is None:
                     return
-                objects_key, manifest, ids, n_bytes = resolved
-            self._load_window(objects_key, manifest, ids, n_bytes)
+                objects_key, manifest, ids, n_bytes, stream_key = resolved
+            self._load_window(objects_key, manifest, ids, n_bytes, trace_id,
+                              stream_key)
         except Exception:
             # Isolation boundary: speculation must never propagate into (or
             # wedge) anything — it is a bet, and a failed bet just means
@@ -513,24 +550,33 @@ class ReadaheadManager(ChunkManager):
                 return None
             stream.frontier = ids[-1] + 1
             self.cross_segment_continuations += 1
-        return next_key, manifest, ids, planned
+        return next_key, manifest, ids, planned, next_stream_key
 
     def _load_window(
         self, objects_key: ObjectKey, manifest: SegmentManifestV1,
-        ids: list[int], n_bytes: int,
+        ids: list[int], n_bytes: int, trace_id: str, stream_key: str,
     ) -> None:
-        """Load one speculative window through the delegate chain under the
-        background work class. The delegate IS the chunk cache, so the
-        verified plaintext lands in the cache (and offers itself to the hot
-        tier) exactly like a foreground load — and any concurrent
-        foreground read single-flight-joins it."""
+        """Load one speculative window through the delegate chain under a
+        synthetic flight record + background work class. The delegate IS
+        the chunk cache, so the verified plaintext lands in the cache (and
+        offers itself to the hot tier) exactly like a foreground load —
+        and any concurrent foreground read single-flight-joins it."""
         keys = [ChunkKey.of(objects_key, cid) for cid in ids]
         try:
-            with work_class_scope(BACKGROUND), speculative_scope():
-                with self.tracer.span(
-                    "readahead.window", key=objects_key.value, chunks=len(ids),
-                ):
-                    self._delegate.get_chunks(objects_key, manifest, ids)
+            # Pool workers carry no ambient record, so this opens a REAL
+            # synthetic record (request() is reentrant) attributed to the
+            # originating stream's trace id — readahead flows are visible
+            # work, not anonymous background load.
+            with self.flight_recorder.request("readahead.window",
+                                              trace_id=trace_id):
+                flight.note("readahead.chunks", len(ids))
+                flight.stage(f"readahead.segment:{stream_key}")
+                with work_class_scope(BACKGROUND), speculative_scope():
+                    with self.tracer.span(
+                        "readahead.window", key=objects_key.value,
+                        chunks=len(ids),
+                    ):
+                        self._delegate.get_chunks(objects_key, manifest, ids)
         except Exception:
             self._resolve_failed(keys, n_bytes)
             raise

@@ -3,11 +3,21 @@
 Counterpart of tieredstorage_tpu/rsm.py (its `configure`,
 `copy_log_segment_data`, `fetch_segment_manifest`, `fetch_log_segment`,
 `fetch_index`, `delete_log_segment_data`, `set_segment_successor`, the
-scrub, lifecycle and anti-entropy accessors and `close`), without the planes
-this package has not ported yet: metrics, tracing spans, the flight
-recorder, the default deadline, the breaker and retry budget, hedging and
-fleet mode. Where the JAX package registers a metrics group, this RSM
-leaves a None hook.
+scrub, lifecycle and anti-entropy accessors, the observability payloads and
+`close`), without the planes this package has not ported yet: the default
+deadline, the breaker and retry budget, hedging, admission, the SLO engine
+and fleet mode.
+
+Observability, as in the JAX package: `configure` always creates the
+operation metrics (`Metrics`, metrics/rsm_metrics.py) and the tracer, flight
+recorder and scheduler timeline of `tracing.*`, `flight.*` and `timeline.*`
+(each zero-work when disabled). The four KIP-405 operations run under a
+span and a flight record (`_traced`); copies, fetches and deletes record
+their metric families; the fetch tiers, the batcher, the scrubber, the
+lifecycle plane, the replicated store and the cloud backends publish their
+groups into the one registry `metrics.registry` (or, for the backends'
+request metrics, their own). `metrics/prometheus.PrometheusExporter` serves
+them; `close()` writes `tracing.export.path`.
 
 Fault injection, as in the JAX package: `fault.injection.enabled` wraps the
 store in a `FaultInjectingBackend` running `fault.schedule`, and
@@ -49,8 +59,10 @@ so a segment written by either package reads back through the other.
 
 from __future__ import annotations
 
+import functools
 import io
 import logging
+import time
 from pathlib import Path
 from typing import BinaryIO, Mapping, Optional
 
@@ -65,6 +77,7 @@ from tieredstorage_tpu_torch.errors import (
     RemoteResourceNotFoundException,
     RemoteStorageException,
 )
+from tieredstorage_tpu_torch.fetch.cache.chunk_cache import ChunkCache
 from tieredstorage_tpu_torch.fetch.cache.device_hot import DeviceHotCache
 from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager, DefaultChunkManager
 from tieredstorage_tpu_torch.fetch.enumeration import FetchChunkEnumeration
@@ -87,6 +100,18 @@ from tieredstorage_tpu_torch.manifest.segment_manifest import (
     manifest_to_json,
 )
 from tieredstorage_tpu_torch.metadata import LogSegmentData, RemoteLogSegmentMetadata
+from tieredstorage_tpu_torch.metrics.cache_metrics import (
+    DiskCacheMetrics,
+    register_cache_metrics,
+    register_thread_pool_metrics,
+)
+from tieredstorage_tpu_torch.metrics.core import MetricConfig
+from tieredstorage_tpu_torch.metrics.rsm_metrics import (
+    Metrics,
+    register_resilience_metrics,
+    register_tracer_metrics,
+)
+from tieredstorage_tpu_torch.metrics.timeline import NOOP_TIMELINE, TimelineRecorder
 from tieredstorage_tpu_torch.object_key import ObjectKeyFactory, Suffix
 from tieredstorage_tpu_torch.security.aes import AesEncryptionProvider, DataKeyAndAAD
 from tieredstorage_tpu_torch.security.rsa import RsaEncryptionProvider
@@ -105,11 +130,40 @@ from tieredstorage_tpu_torch.transform.api import (
     checksum_device,
 )
 from tieredstorage_tpu_torch.transform.pipeline import SegmentTransformation
-from tieredstorage_tpu_torch.utils import faults
+from tieredstorage_tpu_torch.utils import deadline as deadline_util
+from tieredstorage_tpu_torch.utils import faults, flightrecorder as flight
+from tieredstorage_tpu_torch.utils.flightrecorder import NOOP_RECORDER, FlightRecorder
 from tieredstorage_tpu_torch.utils.ratelimit import RateLimitedStream, TokenBucket
 from tieredstorage_tpu_torch.utils.streams import ClosableStreamHolder
+from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER, Tracer
 
 log = logging.getLogger(__name__)
+
+
+def _traced(name: str):
+    """Span around an RSM operation, tagged with topic/partition; the spans
+    also open torch.profiler ranges when `tracing.jax.profiler.enabled`.
+
+    The flight recorder opens its per-request record here too, keyed by the
+    span's trace id — reentrant, so an outer layer that already opened one
+    for the whole request keeps one record. (The JAX package's `_traced`
+    also installs the `deadline.default.ms` budget; that key is not ported
+    yet.)"""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, metadata, *args, **kwargs):
+            tp = metadata.remote_log_segment_id.topic_id_partition.topic_partition
+            with self.tracer.span(
+                name, topic=tp.topic, partition=tp.partition
+            ) as span, self.flight_recorder.request(
+                name, trace_id=span.trace_id if span else None
+            ):
+                return fn(self, metadata, *args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 class RemoteStorageManager:
@@ -137,17 +191,45 @@ class RemoteStorageManager:
         self._lifecycle_journal = None
         self._sweeper = None
         self._sweep_scheduler = None
+        self._metrics: Optional[Metrics] = None
+        self.tracer = NOOP_TRACER
+        #: Per-request flight recorder (`flight.enabled`); the RSM entries
+        #: open records, the fetch tiers enrich them.
+        self.flight_recorder: FlightRecorder = NOOP_RECORDER
+        #: Device-scheduler timeline ring (`timeline.enabled`): merged-launch
+        #: attribution served by `timeline_status` (metrics/timeline.py).
+        self.timeline: TimelineRecorder = NOOP_TIMELINE
 
     # ------------------------------------------------------------------ setup
     def configure(self, configs: Mapping[str, object]) -> None:
         config = RemoteStorageManagerConfig(configs)
+        self._metrics = Metrics(MetricConfig(
+            num_samples=config.metrics_num_samples,
+            sample_window_ms=config.metrics_sample_window_ms,
+            recording_level=config.metrics_recording_level,
+        ))
+        self.tracer = Tracer(
+            enabled=config.tracing_enabled,
+            use_jax_profiler=config.tracing_jax_profiler_enabled,
+            max_spans=config.tracing_max_spans,
+        )
+        self.flight_recorder = FlightRecorder(
+            enabled=config.flight_enabled,
+            ring_size=config.flight_ring_size,
+        )
         storage = config.storage_backend_class()
         storage.configure(config.storage_configs())
         storage = self._wrap_storage_faults(config, storage)
         backend = config.transform_backend_class()
         backend.configure(config.transform_configs())
+        backend.tracer = self.tracer
+        self.timeline = TimelineRecorder(
+            enabled=config.timeline_enabled,
+            ring_size=config.timeline_ring_size,
+        )
         batcher = getattr(backend, "batcher", None)
         if batcher is not None:
+            batcher.timeline = self.timeline
             batcher.set_launch_retry(
                 config.retry_launch_attempts, config.retry_launch_backoff_ms / 1000.0
             )
@@ -164,11 +246,15 @@ class RemoteStorageManager:
         if config.upload_rate_limit is not None:
             self._rate_bucket = TokenBucket(config.upload_rate_limit)
         self._chunk_manager = self._build_chunk_manager(backend)
+        self._wire_fetch_observability()
         self._manifest_cache = MemorySegmentManifestCache()
         self._manifest_cache.configure(config.fetch_manifest_cache_configs())
         self._manifest_lookahead = ManifestLookahead(self._manifest_cache)
         self._indexes_cache = MemorySegmentIndexesCache()
         self._indexes_cache.configure(config.fetch_indexes_cache_configs())
+        self._register_cache_metrics()
+        self._register_resilience_metrics()
+        register_tracer_metrics(self._metrics.registry, self.tracer)
         self._wire_replication(config)
         self._wire_scrubber(config)
         self._wire_lifecycle(config)
@@ -214,38 +300,54 @@ class RemoteStorageManager:
         return storage
 
     def _wire_replication(self, config: RemoteStorageManagerConfig) -> None:
-        """When the storage backend is (or wraps) a ReplicatedStorageBackend,
-        start the anti-entropy repair daemon (`replication.antientropy.*`).
-        The replication gauges (JAX `register_replication_metrics`) wait
-        for the metrics groups: `replication_metrics` stays None."""
+        """When the storage backend is (or wraps) a ReplicatedStorageBackend:
+        hand it the tracer and the failover-time histogram hook, export the
+        replication-metrics gauges, and start the anti-entropy repair daemon
+        (`replication.antientropy.*`)."""
         self._replicated = self._find_replicated(self._storage)
-        if self._replicated is None or not config.replication_antientropy_enabled:
+        if self._replicated is None:
             return
-        from tieredstorage_tpu_torch.scrub.antientropy import (
-            AntiEntropyRepairer,
-            AntiEntropyScheduler,
+        from tieredstorage_tpu_torch.metrics.rsm_metrics import (
+            register_replication_metrics,
         )
 
-        rate = config.replication_antientropy_rate_bytes
-        self._antientropy = AntiEntropyRepairer(
-            self._replicated,
-            prefix=config.key_prefix,
-            rate_bucket=TokenBucket(rate) if rate is not None else None,
-            device=self._checksum_device(),
-        )
-        self._antientropy_scheduler = AntiEntropyScheduler(
-            self._antientropy,
-            interval_ms=config.replication_antientropy_interval_ms,
-        ).start()
-        log.info(
-            "Anti-entropy repair enabled: interval=%dms rate=%s",
-            config.replication_antientropy_interval_ms, rate,
-        )
+        self._replicated.tracer = self.tracer
+        record_failover = self._metrics.record_replica_failover
 
-    #: The metrics groups are not ported: where the JAX RSM registers the
-    #: replication and lifecycle gauges, these hooks stay None.
-    replication_metrics = None
-    lifecycle_metrics = None
+        def on_failover(ms: float) -> None:
+            # Histogram + the ambient flight record (one failover hop of
+            # THIS request) — the recorder helper is a no-op without one.
+            record_failover(ms)
+            flight.note("replica.failover_hops")
+
+        self._replicated.on_failover = on_failover
+        if config.replication_antientropy_enabled:
+            from tieredstorage_tpu_torch.scrub.antientropy import (
+                AntiEntropyRepairer,
+                AntiEntropyScheduler,
+            )
+
+            rate = config.replication_antientropy_rate_bytes
+            self._antientropy = AntiEntropyRepairer(
+                self._replicated,
+                prefix=config.key_prefix,
+                rate_bucket=TokenBucket(rate) if rate is not None else None,
+                tracer=self.tracer,
+                device=self._checksum_device(),
+            )
+            self._antientropy_scheduler = AntiEntropyScheduler(
+                self._antientropy,
+                interval_ms=config.replication_antientropy_interval_ms,
+            ).start()
+            log.info(
+                "Anti-entropy repair enabled: interval=%dms rate=%s",
+                config.replication_antientropy_interval_ms, rate,
+            )
+        register_replication_metrics(
+            self._metrics.registry,
+            replicated=self._replicated,
+            antientropy=self._antientropy,
+        )
 
     @staticmethod
     def _find_replicated(storage) -> Optional[ReplicatedStorageBackend]:
@@ -280,6 +382,9 @@ class RemoteStorageManager:
         if not config.lifecycle_enabled:
             return
         from tieredstorage_tpu_torch.config.configdef import ConfigException
+        from tieredstorage_tpu_torch.metrics.lifecycle_metrics import (
+            register_lifecycle_metrics,
+        )
         from tieredstorage_tpu_torch.scrub.sweeper import RecoverySweeper, SweepScheduler
         from tieredstorage_tpu_torch.storage.lifecycle import UploadIntentJournal
 
@@ -312,6 +417,7 @@ class RemoteStorageManager:
             prefix=config.key_prefix,
             grace_s=config.lifecycle_grace_ms / 1000.0,
             manifest_loader=load_manifest,
+            tracer=self.tracer,
         )
         if config.lifecycle_sweep_on_start:
             try:
@@ -328,6 +434,10 @@ class RemoteStorageManager:
         self._sweep_scheduler = SweepScheduler(
             self._sweeper, interval_ms=config.lifecycle_sweep_interval_ms
         ).start()
+        register_lifecycle_metrics(
+            self._metrics.registry, self._lifecycle_journal, self._sweeper,
+            self._sweep_scheduler,
+        )
         log.info(
             "Lifecycle plane enabled: journal=%s sweep_interval=%dms "
             "grace=%dms",
@@ -366,7 +476,8 @@ class RemoteStorageManager:
         `work_class_scope(BACKGROUND)`)."""
         if not config.scrub_enabled:
             return
-        from tieredstorage_tpu_torch.scrub import ScrubScheduler, Scrubber
+        from tieredstorage_tpu_torch.scrub import ScrubMetrics, ScrubScheduler, Scrubber
+        from tieredstorage_tpu_torch.scrub.metrics import register_scrub_metrics
 
         rate = config.scrub_rate_bytes
         if rate is not None:
@@ -384,11 +495,17 @@ class RemoteStorageManager:
             rate_bucket=TokenBucket(rate) if rate is not None else None,
             repair_enabled=config.scrub_repair_enabled,
             quarantine=inner.quarantine if inner is not None else None,
+            tracer=self.tracer,
+            metrics=ScrubMetrics(self._metrics.registry),
             device=self._checksum_device(),
         )
         self._scrub_scheduler = ScrubScheduler(
             self._scrubber, interval_ms=config.scrub_interval_ms
-        ).start()
+        )
+        register_scrub_metrics(
+            self._metrics.registry, self._scrubber, self._scrub_scheduler
+        )
+        self._scrub_scheduler.start()
         log.info(
             "Integrity scrubber enabled: interval=%dms rate=%s repair=%s",
             config.scrub_interval_ms, rate, config.scrub_repair_enabled,
@@ -411,6 +528,139 @@ class RemoteStorageManager:
         self._device_hot = factory.device_hot_cache
         self._readahead = factory.readahead_manager
         return manager
+
+    @staticmethod
+    def _chunk_cache_tier(cm) -> Optional[ChunkCache]:
+        """The ChunkCache tier of the fetch chain, seen through the optional
+        readahead wrapper (which sits OUTERMOST so its detector observes
+        cache hits too)."""
+        if isinstance(cm, ReadaheadManager):
+            cm = cm._delegate
+        return cm if isinstance(cm, ChunkCache) else None
+
+    def _wire_fetch_observability(self) -> None:
+        """Hand the configured tracer + latency hooks to the fetch tier so
+        chunk-fetch/detransform/cache-get land in traces and histograms."""
+        cm = self._chunk_manager
+        inner = self._innermost_chunk_manager(cm)
+        if inner is not None:
+            inner.tracer = self.tracer
+            inner.on_fetch = self._metrics.record_chunk_fetch
+        cache = self._chunk_cache_tier(cm)
+        if cache is not None:
+            cache.tracer = self.tracer
+            cache.on_get = self._metrics.record_cache_get
+            # Pool-side prefetch loads open synthetic flight records.
+            cache.flight_recorder = self.flight_recorder
+        if self._device_hot is not None:
+            self._device_hot.tracer = self.tracer
+        if self._readahead is not None:
+            self._readahead.tracer = self.tracer
+            self._readahead.flight_recorder = self.flight_recorder
+
+    def _register_resilience_metrics(self) -> None:
+        """The resilience-metrics gauges of what this package wires: the
+        fault schedule, the chunk cache's degradations, the chunk manager's
+        corruptions and quarantine, and the process deadline counter. The
+        breaker, hedger, retry budget and admission controller are not
+        ported yet: they stay None, as the JAX RSM passes them when those
+        planes are off."""
+        register_resilience_metrics(
+            self._metrics.registry,
+            fault_schedule=self._fault_schedule,
+            chunk_cache=self._chunk_cache_tier(self._chunk_manager),
+            chunk_manager=self._innermost_chunk_manager(self._chunk_manager),
+            deadline_exceeded_supplier=deadline_util.exceeded_total,
+        )
+
+    def _register_cache_metrics(self) -> None:
+        registry = self._metrics.registry
+        register_cache_metrics(
+            registry, "segment-manifest-cache", self._manifest_cache.stats,
+            size_supplier=lambda: self._manifest_cache.size,
+        )
+        register_cache_metrics(
+            registry, "segment-indexes-cache", self._indexes_cache.stats,
+            size_supplier=lambda: self._indexes_cache.size,
+            weight_supplier=lambda: self._indexes_cache.total_weight,
+        )
+        chunk_cache = self._chunk_cache_tier(self._chunk_manager)
+        if chunk_cache is not None and hasattr(chunk_cache, "stats"):
+            register_cache_metrics(
+                registry, "chunk-cache", chunk_cache.stats,
+                size_supplier=lambda: chunk_cache.size,
+                weight_supplier=lambda: chunk_cache.total_weight,
+            )
+            register_thread_pool_metrics(
+                registry, "chunk-cache-pool", chunk_cache.executor
+            )
+            from tieredstorage_tpu_torch.fetch.cache.disk import DiskChunkCache
+
+            if isinstance(chunk_cache, DiskChunkCache):
+                chunk_cache.set_metrics_recorder(DiskCacheMetrics(registry))
+        if self._device_hot is not None:
+            from tieredstorage_tpu_torch.metrics.cache_metrics import (
+                register_hot_cache_metrics,
+            )
+
+            register_hot_cache_metrics(registry, self._device_hot)
+        if self._readahead is not None:
+            from tieredstorage_tpu_torch.metrics.cache_metrics import (
+                register_readahead_metrics,
+            )
+
+            register_readahead_metrics(registry, self._readahead)
+        if self._manifest_lookahead is not None:
+            from tieredstorage_tpu_torch.metrics.cache_metrics import (
+                register_manifest_lookahead_metrics,
+            )
+
+            register_manifest_lookahead_metrics(
+                registry, self._manifest_lookahead
+            )
+        batcher = getattr(self._transform_backend, "batcher", None)
+        if batcher is not None:
+            from tieredstorage_tpu_torch.metrics.batch_metrics import (
+                register_batch_metrics,
+            )
+
+            register_batch_metrics(registry, batcher)
+        from tieredstorage_tpu_torch.metrics.timeline import (
+            register_timeline_metrics,
+        )
+
+        register_timeline_metrics(registry, self.timeline)
+
+    @property
+    def metrics(self) -> Metrics:
+        return self._metrics
+
+    def flight_status(
+        self,
+        *,
+        limit: Optional[int] = None,
+        trace: Optional[str] = None,
+        slowest: Optional[int] = None,
+    ) -> dict:
+        """Slowest-first retained flight records plus the failure ring.
+        ``trace`` filters to one trace id's records and raises not-found
+        when nothing retained carries it; ``slowest`` returns just the N
+        slowest completed records."""
+        if not self.flight_recorder.enabled:
+            raise RemoteStorageException("flight recorder is not enabled")
+        if trace is not None and not self.flight_recorder.find_all(trace):
+            raise RemoteResourceNotFoundException(
+                f"no retained flight record for trace {trace!r}"
+            )
+        return self.flight_recorder.dump(
+            limit=limit, trace=trace, slowest=slowest
+        )
+
+    def timeline_status(self) -> dict:
+        """The scheduler ring's counters, epoch pin, and retained events."""
+        if not self.timeline.enabled:
+            raise RemoteStorageException("timeline recorder is not enabled")
+        return self.timeline.status()
 
     @property
     def transform_backend(self):
@@ -484,12 +734,14 @@ class RemoteStorageManager:
         return self._config
 
     # ----------------------------------------------------------------- upload
+    @_traced("rsm.copy_log_segment_data")
     def copy_log_segment_data(
         self, metadata: RemoteLogSegmentMetadata, segment_data: LogSegmentData
     ) -> Optional[bytes]:
         """Uploads `.log`, `.indexes`, `.rsm-manifest`; returns custom metadata
         bytes (or None if no fields configured)."""
         config = self._require_configured()
+        start = time.monotonic()
         log.debug("Copying log segment data: %s", metadata)
 
         requires_compression = self._requires_compression(segment_data)
@@ -531,12 +783,24 @@ class RemoteStorageManager:
             # Orphan cleanup: a failed copy must not leave partial objects;
             # the broker retries the whole copy.
             if uploaded_keys:
+                topic, partition = self._topic_partition(metadata)
+                self._metrics.record_upload_rollback(topic, partition)
+                self.tracer.event(
+                    "rsm.upload_rollback", topic=topic, partition=partition,
+                    keys=len(uploaded_keys),
+                )
                 try:
                     self._delete_keys(uploaded_keys)
                     self._journal_rollback(txn)
                 except Exception:
-                    # The journal entry stays PENDING, so the recovery
-                    # sweeper converges the stranded objects on its next pass.
+                    # Cleanup failure is visible, not just logged: counted
+                    # per scope, noted on the ambient flight record, and the
+                    # journal entry stays PENDING so the recovery sweeper
+                    # converges the stranded objects on its next pass.
+                    self._metrics.record_upload_rollback_cleanup_failure(
+                        topic, partition
+                    )
+                    flight.note("upload.rollback_cleanup_failures")
                     log.warning(
                         "Failed to clean up partial upload for %s", metadata, exc_info=True
                     )
@@ -551,9 +815,22 @@ class RemoteStorageManager:
             # recovery sweeper may converge whatever it left behind.
             self._journal_release(txn)
 
+        elapsed = time.monotonic() - start
+        topic, partition = self._topic_partition(metadata)
+        self._metrics.record_segment_copy_time(topic, partition, elapsed * 1000.0)
+        log.debug("Copied %s in %.3fs", metadata, elapsed)
         if not include:
             return None
         return serialize_custom_metadata(custom_builder.build())
+
+    @staticmethod
+    def _topic_partition(metadata: RemoteLogSegmentMetadata) -> tuple[str, int]:
+        tp = metadata.remote_log_segment_id.topic_id_partition.topic_partition
+        return tp.topic, tp.partition
+
+    def _record_upload(self, metadata, suffix: Suffix, n_bytes: int) -> None:
+        topic, partition = self._topic_partition(metadata)
+        self._metrics.record_object_upload(topic, partition, suffix.value, n_bytes)
 
     # ------------------------------------------------- lifecycle journal hooks
     def _journal_begin_upload(self, metadata) -> Optional[int]:
@@ -632,7 +909,9 @@ class RemoteStorageManager:
     ):
         key = self._object_key_factory.key(metadata, Suffix.LOG)
         file_size = Path(segment_data.log_segment).stat().st_size
-        with open(segment_data.log_segment, "rb") as source:
+        with self.tracer.span(
+            "rsm.upload.segment", bytes=file_size, key=key.value,
+        ) as span, open(segment_data.log_segment, "rb") as source:
             transformation = SegmentTransformation(
                 source, file_size, self._config.chunk_size,
                 self._transform_backend,
@@ -645,7 +924,10 @@ class RemoteStorageManager:
                 stream = RateLimitedStream(stream, self._rate_bucket)
             uploaded_keys.append(key)
             uploaded = self._storage_upload(stream, key)
+            if span is not None:
+                span.attributes["bytes_uploaded"] = uploaded
         custom_builder.add_upload_result(Suffix.LOG, uploaded)
+        self._record_upload(metadata, Suffix.LOG, uploaded)
         log.debug("Uploaded segment log for %s, size: %d", metadata, uploaded)
         return transformation.chunk_index, transformation.chunk_checksums
 
@@ -655,6 +937,14 @@ class RemoteStorageManager:
         """Each index is transformed as a single chunk (encrypt-only), then all
         are concatenated into one `.indexes` object (empty indexes record
         size 0 and upload no bytes)."""
+        with self.tracer.span("rsm.upload.indexes"):
+            return self._upload_indexes_traced(
+                metadata, segment_data, data_key, custom_builder, uploaded_keys
+            )
+
+    def _upload_indexes_traced(
+        self, metadata, segment_data: LogSegmentData, data_key, custom_builder, uploaded_keys
+    ):
         builder = SegmentIndexesV1Builder()
         parts: list[bytes] = []
 
@@ -697,6 +987,7 @@ class RemoteStorageManager:
         uploaded_keys.append(key)
         uploaded = self._storage_upload(io.BytesIO(b"".join(parts)), key)
         custom_builder.add_upload_result(Suffix.INDEXES, uploaded)
+        self._record_upload(metadata, Suffix.INDEXES, uploaded)
         log.debug("Uploaded indexes file for %s, size: %d", metadata, uploaded)
         return builder.build()
 
@@ -721,8 +1012,10 @@ class RemoteStorageManager:
         text = manifest_to_json(manifest, data_key_encoder=encoder)
         key = self._object_key_factory.key(metadata, Suffix.MANIFEST)
         uploaded_keys.append(key)
-        uploaded = self._storage_upload(io.BytesIO(text.encode("utf-8")), key)
+        with self.tracer.span("rsm.upload.manifest", bytes=len(text)):
+            uploaded = self._storage_upload(io.BytesIO(text.encode("utf-8")), key)
         custom_builder.add_upload_result(Suffix.MANIFEST, uploaded)
+        self._record_upload(metadata, Suffix.MANIFEST, uploaded)
         log.debug("Uploaded segment manifest for %s, size: %d", metadata, uploaded)
 
     # ------------------------------------------------------------------ fetch
@@ -737,15 +1030,19 @@ class RemoteStorageManager:
     def fetch_segment_manifest(self, metadata: RemoteLogSegmentMetadata) -> SegmentManifestV1:
         self._require_configured()
         key = self._object_key(metadata, Suffix.MANIFEST)
-        # Quarantine gate BEFORE the cache: a manifest cached while healthy
-        # stops being served the moment the sweeper flags it.
-        self._check_not_quarantined(key)
-        # Through the lookahead: a boundary crossing whose manifest a
-        # readahead continuation already started resolving JOINS that
-        # flight instead of stalling on a second fetch+parse.
-        return self._manifest_lookahead.get(
-            key, lambda: self._fetch_manifest_by_key(key)
-        )
+        # Request-thread span: covers the cache hit or the wait on the
+        # cache's loader pool (the storage GET itself runs on that pool and
+        # records its own storage.fetch_manifest root span).
+        with self.tracer.span("rsm.fetch_manifest", key=key.value):
+            # Quarantine gate BEFORE the cache: a manifest cached while
+            # healthy stops being served the moment the sweeper flags it.
+            self._check_not_quarantined(key)
+            # Through the lookahead: a boundary crossing whose manifest a
+            # readahead continuation already started resolving JOINS that
+            # flight instead of stalling on a second fetch+parse.
+            return self._manifest_lookahead.get(
+                key, lambda: self._fetch_manifest_by_key(key)
+            )
 
     def _fetch_manifest_by_key(self, key: ObjectKey) -> SegmentManifestV1:
         self._check_not_quarantined(key)
@@ -756,7 +1053,8 @@ class RemoteStorageManager:
         sweeper's loader: quarantine is recomputed from readability every
         sweep, so a healed manifest must be loadable to un-quarantine."""
         try:
-            with self._storage.fetch(key) as stream:
+            with self.tracer.span("storage.fetch_manifest", key=key.value), \
+                    self._storage.fetch(key) as stream:
                 text = stream.read()
         except KeyNotFoundException as e:
             raise RemoteResourceNotFoundException(str(e)) from e
@@ -774,6 +1072,7 @@ class RemoteStorageManager:
                 "serve it"
             )
 
+    @_traced("rsm.fetch_log_segment")
     def fetch_log_segment(
         self,
         metadata: RemoteLogSegmentMetadata,
@@ -790,6 +1089,7 @@ class RemoteStorageManager:
             raise ValueError(
                 f"endPosition {end_position} must be >= startPosition {start_position}"
             )
+        start = time.monotonic()
         try:
             manifest = self.fetch_segment_manifest(metadata)
             file_size = manifest.chunk_index.original_file_size
@@ -801,10 +1101,21 @@ class RemoteStorageManager:
                 end_position if end_position is not None else file_size - 1,
                 file_size - 1,
             )
+            byte_range = BytesRange.of(start_position, effective_end)
+            topic, partition = self._topic_partition(metadata)
+            self._metrics.record_segment_fetch_requested_bytes(
+                topic, partition, byte_range.size
+            )
             key = self._object_key(metadata, Suffix.LOG)
-            return FetchChunkEnumeration(
-                self._chunk_manager, key, manifest, BytesRange.of(start_position, effective_end)
+            stream = FetchChunkEnumeration(
+                self._chunk_manager, key, manifest, byte_range
             ).to_stream()
+            # Latency of the synchronous request path (manifest + range
+            # mapping); the lazy chunk transfer lands in chunk-fetch-time.
+            self._metrics.record_segment_fetch_time(
+                topic, partition, (time.monotonic() - start) * 1000.0
+            )
+            return stream
         except RemoteStorageException:
             raise
         except KeyNotFoundException as e:
@@ -812,6 +1123,7 @@ class RemoteStorageManager:
         except StorageBackendException as e:
             raise RemoteStorageException(str(e)) from e
 
+    @_traced("rsm.fetch_index")
     def fetch_index(self, metadata: RemoteLogSegmentMetadata, index_type: IndexType) -> BinaryIO:
         self._require_configured()
         try:
@@ -858,11 +1170,17 @@ class RemoteStorageManager:
         return self._transform_backend.detransform([blob], opts)[0]
 
     # ----------------------------------------------------------------- delete
+    @_traced("rsm.delete_log_segment_data")
     def delete_log_segment_data(self, metadata: RemoteLogSegmentMetadata) -> None:
         """Delete the segment's objects, manifest first: every interruption
         past it leaves only objects no manifest reaches."""
         self._require_configured()
         log.debug("Deleting log segment data for %s", metadata)
+        topic, partition = self._topic_partition(metadata)
+        self._metrics.record_segment_delete(
+            topic, partition, metadata.segment_size_in_bytes
+        )
+        start = time.monotonic()
         txn: Optional[int] = None
         try:
             keys = [self._object_key(metadata, s) for s in Suffix]
@@ -875,12 +1193,19 @@ class RemoteStorageManager:
             self._delete_keys(manifest_keys, total=len(keys))
             self._delete_keys(data_keys, total=len(keys))
             self._journal_commit_delete(txn)
+        except RemoteStorageException:
+            self._metrics.record_segment_delete_error(topic, partition)
+            raise
         except StorageBackendException as e:
+            self._metrics.record_segment_delete_error(topic, partition)
             raise RemoteStorageException(f"Failed to delete {metadata}") from e
         finally:
             # The delete is no longer in flight; a tombstone left pending
             # by a partial failure is now the sweeper's to finish.
             self._journal_release(txn)
+        self._metrics.record_segment_delete_time(
+            topic, partition, (time.monotonic() - start) * 1000.0
+        )
 
     def _journal_begin_delete(self, metadata, keys: list[ObjectKey]) -> Optional[int]:
         """Record delete intent; a failed tombstone append fails the delete
@@ -911,7 +1236,10 @@ class RemoteStorageManager:
         collected into ONE RemoteStorageException after the sweep."""
         if self._storage is None or not keys:
             return
-        total = len(keys) if total is None else total
+        with self.tracer.span("storage.delete_keys", keys=len(keys)):
+            self._delete_keys_traced(keys, len(keys) if total is None else total)
+
+    def _delete_keys_traced(self, keys: list[ObjectKey], total: int) -> None:
         try:
             self._storage.delete_all(keys)
             return
@@ -935,7 +1263,8 @@ class RemoteStorageManager:
         # As in the JAX package: the anti-entropy scheduler, the scrub
         # scheduler and the sweep scheduler (their passes read through the
         # store and the transform backend), then the journal, then the
-        # replicated store's prober and write pool; then the chunk chain:
+        # replicated store's prober and write pool; then the Chrome trace
+        # export (`tracing.export.path`); then the chunk chain:
         # its close drains the readahead and cache pools, whose loads reach
         # the transform backend closed last.
         if self._antientropy_scheduler is not None:
@@ -948,6 +1277,14 @@ class RemoteStorageManager:
             self._lifecycle_journal.close()
         if self._replicated is not None:
             self._replicated.close()
+        if self._config is not None and self._config.tracing_export_path:
+            try:
+                self.tracer.write_chrome_trace(self._config.tracing_export_path)
+            except OSError:
+                log.warning(
+                    "Failed to export Chrome trace to %s",
+                    self._config.tracing_export_path, exc_info=True,
+                )
         if self._chunk_manager is not None and hasattr(self._chunk_manager, "close"):
             self._chunk_manager.close()
         for cache in (self._manifest_lookahead, self._manifest_cache, self._indexes_cache):

@@ -3,8 +3,7 @@
 Counterpart of tieredstorage_tpu/scrub/, as far as this package has ported
 it: the scrubber (enumerate, CRC32C and detransform verification,
 quarantine, repair) and its scheduler, the recovery sweeper of the segment
-lifecycle, and anti-entropy repair across replicas. The scrub-metrics group
-is not yet ported.
+lifecycle, anti-entropy repair across replicas, and the scrub-metrics group.
 """
 
 from tieredstorage_tpu_torch.scrub.antientropy import (
@@ -12,6 +11,7 @@ from tieredstorage_tpu_torch.scrub.antientropy import (
     AntiEntropyReport,
     AntiEntropyScheduler,
 )
+from tieredstorage_tpu_torch.scrub.metrics import SCRUB_METRIC_GROUP, ScrubMetrics
 from tieredstorage_tpu_torch.scrub.scheduler import ScrubScheduler
 from tieredstorage_tpu_torch.scrub.scrubber import (
     INDEXES_SUFFIX,
@@ -32,11 +32,13 @@ __all__ = [
     "INDEXES_SUFFIX",
     "LOG_SUFFIX",
     "MANIFEST_SUFFIX",
+    "SCRUB_METRIC_GROUP",
     "AntiEntropyRepairer",
     "AntiEntropyReport",
     "AntiEntropyScheduler",
     "RecoverySweeper",
     "ScrubFinding",
+    "ScrubMetrics",
     "ScrubReport",
     "ScrubScheduler",
     "Scrubber",

@@ -1,8 +1,7 @@
 """Scrubber engine: one incremental integrity pass over the object store.
 
-Counterpart of tieredstorage_tpu/scrub/scrubber.py, without the
-scrub-metrics hook (the metrics groups are not ported); the tracer is the
-no-op one (utils/tracing.py) unless a caller passes another.
+Counterpart of tieredstorage_tpu/scrub/scrubber.py. The RSM hands it its
+tracer and a `ScrubMetrics` (scrub/metrics.py) that records every pass.
 
 A pass has three stages:
 
@@ -29,8 +28,8 @@ A pass has three stages:
    deleted, and every corrupt object is pushed through the chunk-manager
    quarantine hook so broker fetch storms can't hammer it meanwhile.
 
-Everything observed lands in a `ScrubReport` findings ledger and the
-scrubber's cumulative `*_total` counters.
+Everything observed lands in a `ScrubReport` findings ledger, `scrub.*`
+spans, and `scrub-metrics` sensors.
 """
 
 from __future__ import annotations
@@ -126,7 +125,8 @@ class ScrubReport:
 
 
 class Scrubber:
-    """Stateless per-pass engine; counters accumulate across passes."""
+    """Stateless per-pass engine; counters accumulate across passes for the
+    `scrub-metrics` gauges."""
 
     def __init__(
         self,
@@ -142,6 +142,7 @@ class Scrubber:
         quarantine: Optional[Callable[[ObjectKey, str], None]] = None,
         verify_transforms: bool = True,
         tracer=NOOP_TRACER,
+        metrics=None,
         device=DEFAULT_DEVICE,
     ) -> None:
         if batch_chunks < 1:
@@ -159,7 +160,8 @@ class Scrubber:
         self._quarantine = quarantine
         self._verify_transforms = verify_transforms
         self.tracer = tracer
-        #: Cumulative counters across passes.
+        self.metrics = metrics
+        #: Cumulative counters, exported as scrub-metrics gauges.
         self.passes = 0
         self.findings_total = 0
         self.corrupt_chunks_total = 0
@@ -214,6 +216,8 @@ class Scrubber:
             elif f.kind == MISSING_OBJECT:
                 self.missing_objects_total += 1
         self.last_report = report
+        if self.metrics is not None:
+            self.metrics.record_pass(report)
         if report.findings:
             log.warning(
                 "Scrub pass found %d finding(s): %s (%d repaired)",

@@ -1,7 +1,8 @@
 """Azure Blob StorageBackend over the Blob REST API.
 
-Counterpart of tieredstorage_tpu/storage/azure/storage.py without its request
-metrics (`metrics` is None until the metrics groups are ported). Reference: storage/azure/.../AzureBlobStorage.java:48-170 — auth from
+Counterpart of tieredstorage_tpu/storage/azure/storage.py: its request
+metrics collector (`metrics`, storage/azure/metrics.py) observes every HTTP
+attempt. Reference: storage/azure/.../AzureBlobStorage.java:48-170 — auth from
 connection string / SharedKey / SAS / default credential; upload through a
 block-blob output stream with `azure.upload.block.size` blocks (small bodies
 use single PutBlob — the reference sets maxSingleUploadSize=blockSize so the
@@ -44,14 +45,19 @@ class AzureBlobStorage(StorageBackend):
         self.block_size = 0
         self._auth: Optional[SharedKeyAuth] = None
         self._sas_params: list[tuple[str, str]] = []
+        self._metric_collector = None
 
     def configure(self, configs: Mapping[str, object]) -> None:
         config = AzureBlobStorageConfig(configs)
         proxy = ProxyConfig.from_configs(configs)
         endpoint, account, key, sas = config.resolve()
+        from tieredstorage_tpu_torch.storage.azure.metrics import AzureMetricCollector
+
+        self._metric_collector = AzureMetricCollector()
         self.http = HttpClient(
             endpoint,
             socket_factory=socks5_socket_factory(proxy),
+            observer=self._metric_collector.observe,
         )
         self.container = config.container_name
         self.block_size = config.upload_block_size
@@ -224,9 +230,9 @@ class AzureBlobStorage(StorageBackend):
 
     @property
     def metrics(self):
-        """The request metrics collector: None until the metrics groups are
-        ported."""
-        return None
+        """The request metrics collector (storage/azure/metrics.py): its
+        ``observe`` is the HTTP client's observer, so every attempt counts."""
+        return self._metric_collector
 
     def close(self) -> None:
         if self.http is not None:

@@ -1,7 +1,8 @@
 """GCS StorageBackend over the JSON API.
 
-Counterpart of tieredstorage_tpu/storage/gcs/storage.py without its request
-metrics (`metrics` is None until the metrics groups are ported). Reference: storage/gcs/.../GcsStorage.java:41-160 — resumable upload with a
+Counterpart of tieredstorage_tpu/storage/gcs/storage.py: its request metrics
+collector (`metrics`, storage/gcs/metrics.py) observes every HTTP attempt.
+Reference: storage/gcs/.../GcsStorage.java:41-160 — resumable upload with a
 configurable chunk size (`storage.createFrom(blobInfo, stream, chunkSize)`),
 fetch via blob metadata + ReadChannel seek/limit (here: a metadata GET for
 the size check, then a ranged media download), 404 → KeyNotFoundException,
@@ -53,14 +54,19 @@ class GcsStorage(StorageBackend):
         self.bucket = ""
         self.chunk_size = 0
         self._token_provider: Optional[ServiceAccountTokenProvider] = None
+        self._metric_collector = None
 
     def configure(self, configs: Mapping[str, object]) -> None:
         config = GcsStorageConfig(configs)
         proxy = ProxyConfig.from_configs(configs)
         endpoint = config.endpoint_url or "https://storage.googleapis.com"
+        from tieredstorage_tpu_torch.storage.gcs.metrics import GcsMetricCollector
+
+        self._metric_collector = GcsMetricCollector()
         self.http = HttpClient(
             endpoint,
             socket_factory=socks5_socket_factory(proxy),
+            observer=self._metric_collector.observe,
         )
         self.bucket = config.bucket_name
         self.chunk_size = config.resumable_upload_chunk_size
@@ -295,9 +301,9 @@ class GcsStorage(StorageBackend):
 
     @property
     def metrics(self):
-        """The request metrics collector: None until the metrics groups are
-        ported."""
-        return None
+        """The request metrics collector (storage/gcs/metrics.py): its
+        ``observe`` is the HTTP client's observer, so every attempt counts."""
+        return self._metric_collector
 
     def close(self) -> None:
         if self.http is not None:

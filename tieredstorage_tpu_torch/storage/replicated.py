@@ -1,9 +1,10 @@
 """Replicated multi-backend storage: quorum writes, health-probed failover.
 
-Counterpart of tieredstorage_tpu/storage/replicated.py, with plain locks and
-the no-op tracer (utils/tracing.py). The breaker lookup finds nothing until
-the circuit breakers are ported; the health score works without one, as in
-the JAX package.
+Counterpart of tieredstorage_tpu/storage/replicated.py, with plain locks; the
+RSM hands it its tracer and the failover-time hook (`on_failover`), and
+publishes its counters as the replication-metrics gauges. The breaker
+lookup finds nothing until the circuit breakers are ported; the health
+score works without one, as in the JAX package.
 
 `ReplicatedStorageBackend` composes N child backends (any mix of
 memory/filesystem/S3/GCS/Azure) behind the ordinary `StorageBackend`

@@ -1,8 +1,8 @@
 """S3 StorageBackend implementation.
 
-Counterpart of tieredstorage_tpu/storage/s3/storage.py without its request
-metrics: `metrics` is None and the client has no observer until the metrics
-groups are ported. Reference: storage/s3/.../S3Storage.java:40-151 — upload streams through the
+Counterpart of tieredstorage_tpu/storage/s3/storage.py: its request metrics
+collector (`metrics`, storage/s3/metrics.py) observes every HTTP attempt.
+Reference: storage/s3/.../S3Storage.java:40-151 — upload streams through the
 multipart output stream, ranged GET via the Range header, native multi-object
 delete, 404 → KeyNotFoundException and 416 → InvalidRangeException mapping.
 """
@@ -32,10 +32,14 @@ class S3Storage(StorageBackend):
     def __init__(self) -> None:
         self.client: Optional[S3Client] = None
         self.part_size = 0
+        self._metric_collector = None
 
     def configure(self, configs: Mapping[str, object]) -> None:
         config = S3StorageConfig(configs)
         proxy = ProxyConfig.from_configs(configs)
+        from tieredstorage_tpu_torch.storage.s3.metrics import S3MetricCollector
+
+        self._metric_collector = S3MetricCollector()
         # Reference semantics (S3StorageConfig.java:65-68 / AWS SDK): the
         # call timeout covers the whole call INCLUDING retries, the attempt
         # timeout covers one attempt. Map the former onto the retry policy's
@@ -64,6 +68,7 @@ class S3Storage(StorageBackend):
             verify_tls=config.certificate_check_enabled,
             checksum_check=config.checksum_check_enabled,
             socket_factory=socks5_socket_factory(proxy),
+            observer=self._metric_collector.observe,
             retry=retry,
         )
 
@@ -154,9 +159,9 @@ class S3Storage(StorageBackend):
 
     @property
     def metrics(self):
-        """The request metrics collector: None until the metrics groups are
-        ported."""
-        return None
+        """The request metrics collector (storage/s3/metrics.py): its
+        ``observe`` is the HTTP client's observer, so every attempt counts."""
+        return self._metric_collector
 
     def close(self) -> None:
         if self.client is not None:

@@ -1,10 +1,13 @@
 """Work-class-aware device scheduler: ONE GCM queue for fetch, encrypt, scrub.
 
-Counterpart of tieredstorage_tpu/transform/batcher.py, whole, without the
-planes this package has not ported (the flight recorder, `utils/locks`
-witnesses, the metrics groups): `on_flush` and `timeline` stay as hook
-attributes, None unless a caller sets them. `_launch_once` is the fault
-plane's `device.launch` seam (utils/faults.py), keyed by work class.
+Counterpart of tieredstorage_tpu/transform/batcher.py, whole, with plain
+`threading` locks (the `utils/locks` witnesses are not wired here yet). The
+RSM points `on_flush` at the batch-metrics group (metrics/batch_metrics.py)
+and `timeline` at its scheduler timeline (metrics/timeline.py); each entry
+carries its submitting request's flight-recorder trace id, captured at
+enqueue on the request thread (the flusher has no ambient record).
+`_launch_once` is the fault plane's `device.launch` seam (utils/faults.py),
+keyed by work class.
 
 A window of the fetch path is one packed launch per request; under many
 concurrent consumers that is many small launches, each paying the per-launch
@@ -77,7 +80,7 @@ from tieredstorage_tpu_torch.transform.scheduler import (
     is_speculative,
     validate_work_class,
 )
-from tieredstorage_tpu_torch.utils import faults
+from tieredstorage_tpu_torch.utils import faults, flightrecorder
 from tieredstorage_tpu_torch.utils.retry import RetryPolicy, call_with_retry
 
 
@@ -115,8 +118,9 @@ class _PendingWindow:
     batch_id: int = 0
     occupancy: int = 0
     added_wait_ms: float = 0.0
-    #: Trace id of the submitting request (None: the flight recorder is
-    #: not ported); passed to `on_flush` beside the occupancy.
+    #: Flight-recorder trace id of the submitting request, captured at
+    #: enqueue (the flusher has no ambient record) — the timeline ring and
+    #: the batch-metrics exemplars carry it; None without a record.
     trace_id: Optional[str] = None
 
 
@@ -163,8 +167,9 @@ class WindowBatcher:
     #: Optional flush hook ``(occupancy, added_wait_ms_list, work_class,
     #: batch_id, trace_ids)``.
     on_flush: Optional[Callable] = None
-    #: Optional scheduler timeline (``record_flush`` / ``record_expired``);
-    #: the timeline plane is not ported, so nothing sets it here.
+    #: Optional device-scheduler timeline ring (metrics/timeline.py,
+    #: ``timeline.enabled``): every merged flush and expiry drop records
+    #: there.
     timeline = None
 
     def __init__(
@@ -420,6 +425,7 @@ class WindowBatcher:
             deadline_at=None if remaining is None else now + remaining,
             work_class=work_class,
             decrypt=decrypt,
+            trace_id=flightrecorder.current_trace_id(),
         )
         key = (
             work_class,

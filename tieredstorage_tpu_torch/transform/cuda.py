@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import hmac
 import os
 import threading
@@ -74,6 +75,7 @@ from tieredstorage_tpu_torch.transform.api import (
     TransformOptions,
     resolve_device,
 )
+from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 
 @dataclasses.dataclass
@@ -143,6 +145,38 @@ class _StagingPool:
                 free.append(buf)
 
 
+def _spanned(name: str, count=len, n_bytes=None):
+    """Trace a backend stage (the JAX backend's `_spanned`): `count` maps the
+    first positional arg to the span's chunks attribute; `n_bytes` maps it to
+    bytes_in (default: summed chunk lengths when the arg is a chunk list),
+    and a chunk-list result is summed into bytes_out."""
+
+    def chunk_bytes(value):
+        if isinstance(value, (list, tuple)) and value and isinstance(
+            value[0], (bytes, bytearray, memoryview)
+        ):
+            return sum(len(c) for c in value)
+        return None
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, arg, *args, **kwargs):
+            with self.tracer.span(name, chunks=count(arg)) as span:
+                out = fn(self, arg, *args, **kwargs)
+                if span is not None:
+                    bytes_in = (n_bytes or chunk_bytes)(arg)
+                    if bytes_in is not None:
+                        span.attributes["bytes_in"] = bytes_in
+                    bytes_out = chunk_bytes(out)
+                    if bytes_out is not None:
+                        span.attributes["bytes_out"] = bytes_out
+                return out
+
+        return wrapper
+
+    return deco
+
+
 @dataclasses.dataclass
 class _StagedWindow:
     ivs: np.ndarray
@@ -172,6 +206,9 @@ class CudaTransformBackend(TransformBackend):
     preferred_batch_bytes = 64 << 20
     #: Staged windows kept in flight before waiting on the oldest.
     pipeline_depth = 3
+    #: Stage spans (compress, encrypt dispatch/finish, decrypt); the RSM
+    #: hands in its configured tracer.
+    tracer = NOOP_TRACER
 
     def __init__(self, device=None):
         self._device_spec = DEFAULT_DEVICE if device is None else str(device)
@@ -338,6 +375,7 @@ class CudaTransformBackend(TransformBackend):
             return staged.wait()
         return self._encrypt_finish(staged)
 
+    @_spanned("transform.compress")
     def _compress_batch(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
         if opts.compression_codec == THUFF:
             from tieredstorage_tpu_torch.transform import thuff
@@ -474,12 +512,15 @@ class CudaTransformBackend(TransformBackend):
             self.dispatch_stats.d2h_fetches += 1
         return staged.host.numpy()
 
+    @_spanned("transform.encrypt_dispatch")
     def _encrypt_dispatch(self, chunks: list[bytes], opts: TransformOptions) -> _StagedWindow:
         """Stage and launch an encrypt window; returns before the device is done."""
         sizes = [len(c) for c in chunks]
         ivs = self._make_ivs(len(chunks), opts)
         return self._run_window(opts.encryption, chunks, sizes, ivs, decrypt=False)
 
+    @_spanned("transform.encrypt_finish", count=lambda staged: len(staged.sizes),
+              n_bytes=lambda staged: sum(staged.sizes))
     def _encrypt_finish(self, staged: _StagedWindow) -> list[bytes]:
         """Wait on a staged window and materialize the wire format
         (IV || ct || tag per chunk)."""
@@ -536,6 +577,7 @@ class CudaTransformBackend(TransformBackend):
                 )
         return out
 
+    @_spanned("transform.decrypt")
     def _decrypt_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:
         """Fetch-direction window through the same single-program path as
         encrypt: plaintext + EXPECTED tags on the device, tags verified on

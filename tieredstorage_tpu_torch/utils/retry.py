@@ -5,9 +5,10 @@ Counterpart of tieredstorage_tpu/utils/retry.py, policy half: `Outcome`,
 classification), the process `RetryLedger` and `call_with_retry`. The
 circuit breakers (`CircuitBreaker`, `BreakerBoard`) belong to the
 failure-policy plane, which is not yet ported; `call_with_retry` keeps its
-`breaker` / `retry_gate` parameters, and callers pass None. The flight
-recorder and the retry-metrics observer are not ported either, so attempts
-land in the ledger only.
+`breaker` / `retry_gate` parameters, and callers pass None. Attempts and
+backoffs land in the ledger and, as in the JAX package, on the ambient
+flight record (`retry.attempts`, `retry.backoff_ms`); the retry-metrics
+group comes with the breakers.
 
 Classification: *healthy* errors are contract answers from a live target
 (never retried); `DeadlineExceededException` is caller impatience (never
@@ -26,6 +27,7 @@ import time
 from typing import Callable, Dict, Optional, Tuple, Type, TypeVar
 
 from tieredstorage_tpu_torch.storage.core import StorageBackendException
+from tieredstorage_tpu_torch.utils import flightrecorder as flight
 from tieredstorage_tpu_torch.utils.deadline import DeadlineExceededException, remaining_s
 
 _T = TypeVar("_T")
@@ -190,7 +192,8 @@ def call_with_retry(
     the original error is re-raised instead of sleeping into certain doom.
     ``breaker`` is any object with ``acquire`` / ``on_success`` /
     ``on_neutral`` / ``on_failure`` (None here until the breakers are
-    ported). Attempts and backoffs land in the ledger, keyed by site.
+    ported). Attempts and backoffs land in the ledger (site-keyed) and on
+    the ambient flight record.
     """
     led = ledger if ledger is not None else _LEDGER
     jitter = rng if rng is not None else _RNG
@@ -201,6 +204,7 @@ def call_with_retry(
         if breaker is not None:
             breaker.acquire()
         led.note_attempt(site)
+        flight.note("retry.attempts")
         try:
             result = fn()
         except BaseException as exc:
@@ -227,6 +231,7 @@ def call_with_retry(
                 led.note_giveup(site)
                 raise  # the deadline can't fit the backoff + another attempt
             led.note_retry(site, delay)
+            flight.note("retry.backoff_ms", delay * 1000.0)
             if on_retry is not None:
                 on_retry(attempt, delay, exc)
             sleep(delay)
