@@ -133,6 +133,34 @@ Phases, in order, each printing its seconds:
              `tracing.jax.profiler.enabled`: the `rsm.fetch_log_segment`
              range is there, and the AES and GHASH-tree launches fall inside
              the read's span and its `chunk.detransform` range.
+11. failure policy — the main path's keys on 256 MiB segments (cut from
+             1 GiB for time), the launch counts zeroed before each leg and
+             read after it: (a) over the S3 emulator with `breaker.enabled`
+             (threshold 3, cooldown 1.5 s): copy and whole read, then a
+             restarted broker's RSM whose `fault.schedule` fails fetches 2-4
+             below the breaker: three failed reads, a fourth refused with
+             CircuitOpenException with no request counted by the S3 backend
+             and no GCM launch, the half-open probe after the cooldown, a
+             whole read, the transitions (tracer events) and a scrape with
+             `breaker-opens-total` 1 in both groups; (b) `retry.budget.*`
+             over a store failing every 8th fetch: a whole read, retries =
+             injections <= 10 % of primaries + capacity, the amplification;
+             (c) a quorum-2 S3 + filesystem store with chunk reads stalled
+             300 ms every 8th call (`faults.spec`): 64 seeded ranged 1 MiB
+             reads on a fresh RSM per arm, in turns with `hedge.enabled` (20
+             ms, 10 % budget) and without (hedged, unhedged, unhedged,
+             hedged), p50/p99 both ways, hedges on a distinct replica, and
+             GCM windows equal to windows fetched; (d) `deadline.default.ms` above the
+             copy's wall, a fetch under an expired deadline (no store call,
+             no launch, `deadline-exceeded-total` + 1), and the batcher at
+             phase 6's settings: a background window flushed before its class
+             bound by a 45 ms deadline, and a reader whose 100 ms deadline
+             runs out in the queue while a held launch keeps the flusher busy
+             (`device.launch:latency=400@1~background`): it fails alone, its
+             two batch-mates ride one launch (the timeline's flush records);
+             (e) 8 readers at once through `admission.*` (2 running, 2
+             queued, 200 ms) as a service boundary acquires it, and
+             `slo_status()`'s latency, error and shed objectives.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -144,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import json
 import os
@@ -1394,11 +1423,11 @@ def _backend_configs(kind: str, endpoint: str, gcs_credentials: str | None = Non
             "azure.container.name": "smoke", "azure.endpoint.url": endpoint}
 
 
-def _store_rsm(storage: dict, pub: Path, priv: Path, device: str):
-    """The port's RSM with the main path's keys over `storage`."""
+def _store_rsm(storage: dict, pub: Path, priv: Path, device: str, extra=None):
+    """The port's RSM with the main path's keys (and `extra`) over `storage`."""
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
 
-    configs = {k: v for k, v in _rsm_configs(Path(), pub, priv, device).items()
+    configs = {k: v for k, v in _rsm_configs(Path(), pub, priv, device, extra).items()
                if not k.startswith("storage.")}
     configs.update({f"storage.{k}": v for k, v in storage.items()})
     rsm = RemoteStorageManager()
@@ -2291,6 +2320,476 @@ def _profiled_read(rsm, md, expected: bytes, off: int, device, work: Path) -> di
     return rec
 
 
+FAILURE_CUT_BYTES = 256 * MIB
+
+
+def _read_range(rsm, md, start: int, end=None) -> bytes:
+    with rsm.fetch_log_segment(md, start, end) as stream:
+        return stream.read()
+
+
+def _request_totals(storage) -> float:
+    """Requests the cloud backend under the resilience and fault decorators
+    sent, summed over its request-metrics operations."""
+    while not hasattr(storage, "metrics"):
+        storage = storage.delegate
+    snap = storage.metrics.registry.snapshot()
+    return sum(v for k, v in snap.items() if k.endswith("-requests-total"))
+
+
+def _events_since(timeline, seen: int) -> list:
+    """The timeline's events recorded after it had recorded `seen`."""
+    new = timeline.events_recorded - seen
+    return timeline.events()[-new:] if new else []
+
+
+def _fetch_ledger() -> dict:
+    from tieredstorage_tpu_torch.utils import retry
+
+    return {k: retry.ledger().value("storage.fetch", k) for k in ("attempts", "retries", "giveups")}
+
+
+def _breaker_leg(endpoint: str, md, sd, source: bytes, pub, priv, device) -> dict:
+    """Phase 11 (a): the storage breaker over the S3 emulator. A restarted
+    broker's RSM whose store fails fetches 2-4 (fetch 1 is the manifest):
+    three reads fail below the breaker, the fourth is refused without a
+    request or a launch, and after the cooldown the half-open probe closes
+    it again."""
+    from tieredstorage_tpu_torch.faults import FaultInjectedException
+    from tieredstorage_tpu_torch.metrics.prometheus import PrometheusExporter
+    from tieredstorage_tpu_torch.ops import _cuda, gcm
+    from tieredstorage_tpu_torch.storage.resilient import CircuitOpenException
+
+    storage = _backend_configs("s3", endpoint)
+    breaker = {"breaker.enabled": True, "breaker.failure.threshold": 3,
+               "breaker.cooldown.ms": 1500}
+    writer = _store_rsm(storage, pub, priv, device, breaker)
+    rec = _copy_fetch(writer, md, sd, source, "failure policy breaker")
+    writer.close()
+    reader = _store_rsm(storage, pub, priv, device, {
+        **breaker, "tracing.enabled": True, "fault.injection.enabled": True,
+        "fault.schedule": ["fetch:raise@2", "fetch:raise@3", "fetch:raise@4"],
+    })
+    state = reader._breaker
+    failures = []
+    for i in range(3):
+        off = (2 * i + 1) * CHUNK
+        try:
+            _read_range(reader, md, off, off + MIB - 1)
+        except FaultInjectedException as e:
+            failures.append(type(e).__name__)
+    check(len(failures) == 3, f"failure policy breaker: {failures} of the three failing reads failed")
+    check(state.state.name == "OPEN",
+          f"failure policy breaker: {state.state.name} after the threshold's failures")
+    requests, windows, launches = (_request_totals(reader._storage), gcm.device_dispatches(),
+                                   _cuda.launch_counts())
+    t = time.perf_counter()
+    try:
+        _read_range(reader, md, 9 * CHUNK, 9 * CHUNK + MIB - 1)
+        raise SmokeFailure("failure policy breaker: an OPEN breaker let a read through")
+    except CircuitOpenException:
+        refused_ms = (time.perf_counter() - t) * 1e3
+    refused_requests = _request_totals(reader._storage) - requests
+    check(refused_requests == 0,
+          f"failure policy breaker: the refused read sent {refused_requests} requests")
+    check(gcm.device_dispatches() == windows and _cuda.launch_counts() == launches,
+          "failure policy breaker: the refused read made a GCM launch")
+    time.sleep(1.6)  # past breaker.cooldown.ms; the store serves again from fetch 5
+    off = 11 * CHUNK
+    check(_read_range(reader, md, off, off + MIB - 1) == source[off : off + MIB],
+          "failure policy breaker: the half-open probe's read differs")
+    check(state.state.name == "CLOSED",
+          f"failure policy breaker: {state.state.name} after the half-open probe")
+    t = time.perf_counter()
+    check(_read_range(reader, md, 0) == source,
+          "failure policy breaker: the whole read after recovery differs")
+    rec["fetch_after_recovery_s"] = time.perf_counter() - t
+    transitions = [(s.attributes["from_state"], s.attributes["to_state"])
+                   for s in reader.tracer.spans("storage.breaker.transition")]
+    check(transitions == [("CLOSED", "OPEN"), ("OPEN", "HALF_OPEN"), ("HALF_OPEN", "CLOSED")],
+          f"failure policy breaker: transitions {transitions}")
+    exporter = PrometheusExporter([reader.metrics.registry], host="127.0.0.1", port=0).start()
+    try:
+        body, scrape_ms = _scrape(exporter.port, "/metrics")
+    finally:
+        exporter.stop()
+    samples = _exposition_samples(body.decode())
+    scraped = {k: v for k, v in samples.items() if "breaker" in k}
+    check(samples.get("retry_metrics_breaker_storage_opens_total") == 1.0
+          and samples.get("resilience_metrics_breaker_opens_total") == 1.0,
+          f"failure policy breaker: the scrape's breaker series: {scraped}")
+    rec.update({"failures": failures, "refused_read_ms": refused_ms,
+                "requests_of_refused_read": refused_requests, "transitions": transitions,
+                "opens": state.opens, "half_opens": state.half_opens, "closes": state.closes,
+                "fast_fails": state.fast_fails, "scrape_ms": scrape_ms, "scraped": scraped})
+    reader.close()
+    return rec
+
+
+def _budget_leg(md, sd, source: bytes, pub, priv, device, work: Path) -> dict:
+    """Phase 11 (b): budgeted retries of a store that fails every 8th fetch;
+    the whole read survives and the retries stay within the budget."""
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.utils import retry
+
+    store = work / "store-budget"
+    store.mkdir()
+    writer = RemoteStorageManager()
+    writer.configure(_rsm_configs(store, pub, priv, device))
+    writer.copy_log_segment_data(md, sd)
+    writer.close()
+    percent, capacity, every = 10, 10, 8
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "retry.budget.enabled": True, "retry.budget.percent": percent,
+        "retry.budget.capacity": capacity, "fault.injection.enabled": True,
+        "fault.schedule": [f"fetch:raise@every={every}"],
+    }))
+    before = _fetch_ledger()
+    t = time.perf_counter()
+    check(_read_range(rsm, md, 0) == source, "failure policy budget: the whole read differs")
+    fetch_s = time.perf_counter() - t
+    after = _fetch_ledger()
+    attempts = after["attempts"] - before["attempts"]
+    retries = after["retries"] - before["retries"]
+    primaries = attempts - retries
+    budget = rsm.retry_budget
+    injected = len(rsm._fault_schedule.injections)
+    bound = percent / 100.0 * primaries + capacity
+    check(injected >= 1 and retries == budget.spent == injected,
+          f"failure policy budget: {injected} injected, {retries} retries, {budget.spent} spent")
+    check(retries <= bound, f"failure policy budget: {retries} retries over the bound {bound}")
+    rec = {"segment_bytes": len(source), "fetch_s": fetch_s, "every": every,
+           "primaries": primaries, "attempts": attempts, "retries": retries,
+           "injected": injected, "bound": bound, "denied": budget.denied,
+           "balance": budget.balance, "amplification": attempts / primaries,
+           "ledger_amplification": retry.ledger().amplification("storage.fetch"),
+           "giveups": after["giveups"] - before["giveups"]}
+    rsm.close()
+    return rec
+
+
+def _hedge_leg(endpoint: str, md, sd, source: bytes, pub, priv, device, work: Path,
+               seed: int) -> dict:
+    """Phase 11 (c): hedged ranged reads over a quorum-2 S3 + filesystem
+    store whose chunk reads stall 300 ms every 8th call, against the same
+    reads without hedging; a hedge never decrypts twice."""
+    from tieredstorage_tpu_torch.ops import gcm
+    from tieredstorage_tpu_torch.utils import faults
+
+    fs_root = work / "replica-hedge"
+    fs_root.mkdir()
+    storage = {
+        "backend.class": "tieredstorage_tpu_torch.storage.replicated.ReplicatedStorageBackend",
+        "replication.replicas": "s3,fs",
+        **{f"replication.replica.s3.{k}": v for k, v in _backend_configs("s3", endpoint).items()},
+        "replication.replica.fs.backend.class":
+            "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "replication.replica.fs.root": str(fs_root),
+        "replication.write.quorum": 2,
+        "replication.probe.interval.ms": 600_000,
+    }
+    prefix = {"key.prefix": "hedge/"}
+    writer = _store_rsm(storage, pub, priv, device, prefix)
+    t = time.perf_counter()
+    writer.copy_log_segment_data(md, sd)
+    out: dict = {"segment_bytes": len(source), "copy_s": time.perf_counter() - t}
+    writer.close()
+    rng = np.random.default_rng(seed + 11)
+    offsets = [int(o) for o in rng.integers(0, len(source) - MIB, 64)]
+    stalls = {"faults.spec": ["storage.read:latency=300@every=8"], "tracing.enabled": True}
+    # The static delay holds through the 64 reads (the p95 of a histogram
+    # that holds the stalls would be a stall).
+    hedge = {"hedge.enabled": True, "hedge.delay.ms": 20, "hedge.budget.percent": 10,
+             "hedge.delay.min.samples": 100_000}
+    latencies: dict = {"hedged": [], "unhedged": []}
+    arms: list = []
+    try:
+        # In turns, each arm a fresh RSM: hedged, unhedged, unhedged, hedged.
+        for mode in ("hedged", "unhedged", "unhedged", "hedged"):
+            extra = {**prefix, **stalls, **(hedge if mode == "hedged" else {})}
+            rsm = _store_rsm(storage, pub, priv, device, extra)
+            windows_before = gcm.device_dispatches()
+            arm = []
+            for off in offsets:
+                t = time.perf_counter()
+                part = _read_range(rsm, md, off, off + MIB - 1)
+                arm.append((time.perf_counter() - t) * 1e3)
+                check(part == source[off : off + MIB],
+                      f"failure policy hedge ({mode}): ranged read at {off} differs")
+            latencies[mode] += arm
+            windows = rsm.metrics.histogram_count("chunk-fetch-time")
+            decrypted = gcm.device_dispatches() - windows_before
+            check(decrypted == windows,
+                  f"failure policy hedge ({mode}): {decrypted} GCM windows for {windows} fetched")
+            rec = {"mode": mode, "p50_ms": float(np.percentile(arm, 50)),
+                   "p99_ms": float(np.percentile(arm, 99)), "max_ms": max(arm),
+                   "windows_fetched": windows, "gcm_windows": decrypted,
+                   "stalls_injected": faults.plane().snapshot()["injections"]}
+            if mode == "hedged":
+                hedger = rsm.hedger
+                distinct = sum(1 for s in rsm.tracer.spans("fetch.hedged")
+                               if s.attributes.get("distinct_replica"))
+                rec.update({"primaries": hedger.primaries, "launched": hedger.launched,
+                            "wins": hedger.wins, "suppressed": hedger.suppressed,
+                            "distinct_replica_hedges": distinct})
+                check(hedger.launched >= 1 and hedger.wins >= 1,
+                      f"failure policy hedge: launched {hedger.launched}, won {hedger.wins}")
+                check(distinct == hedger.launched,
+                      f"failure policy hedge: {distinct} of {hedger.launched} hedges on a distinct replica")
+            rsm.close()
+            arms.append(rec)
+    finally:
+        faults.install(None)
+    for mode, lat in latencies.items():
+        out[mode] = {"reads": len(lat), "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99))}
+    out["arms"] = arms
+    return out
+
+
+def _deadline_leg(md, sd, source: bytes, pub, priv, device, store: Path) -> dict:
+    """Phase 11 (d): `deadline.default.ms` above the copy's wall; a fetch
+    under an expired deadline that touches neither the store nor the card;
+    and the batcher's two deadline halves: a bucket flushed before its class
+    bound by a waiter's deadline, and a waiter that expired in the queue
+    failing alone while its batch-mates ride one launch."""
+    from tieredstorage_tpu_torch.ops import _cuda, gcm
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.transform.scheduler import BACKGROUND, work_class_scope
+    from tieredstorage_tpu_torch.utils import deadline, faults
+
+    default_ms = 120_000
+    counting = _counting_storage()
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "storage.backend.class": counting, "deadline.default.ms": default_ms}))
+    rec = _copy_fetch(rsm, md, sd, source, "failure policy deadline")
+    check(rec["copy_s"] * 1000.0 < default_ms, "failure policy deadline: the copy outlasted its default")
+    fetches, windows, launches = dict(counting.fetches), gcm.device_dispatches(), _cuda.launch_counts()
+    exceeded = deadline.exceeded_total()
+    with deadline.deadline_scope(deadline.Deadline.after(-0.001)):
+        try:
+            _read_range(rsm, md, 0, MIB - 1)
+            raise SmokeFailure("failure policy deadline: a fetch under an expired deadline ran")
+        except deadline.DeadlineExceededException:
+            pass
+    store_fetches = sum(counting.fetches.values()) - sum(fetches.values())
+    gcm_windows = gcm.device_dispatches() - windows
+    check(store_fetches == 0, f"failure policy deadline: the expired fetch made {store_fetches} "
+          "store fetches")
+    check(gcm_windows == 0 and _cuda.launch_counts() == launches,
+          "failure policy deadline: the expired fetch made a GCM launch")
+    gauge = rsm.metrics.snapshot()["resilience-metrics:deadline-exceeded-total"]
+    check(deadline.exceeded_total() == exceeded + 1 and gauge == exceeded + 1,
+          f"failure policy deadline: deadline-exceeded-total {gauge}, expected {exceeded + 1}")
+    rec["expired_fetch"] = {"store_fetches": store_fetches, "gcm_windows": gcm_windows,
+                            "deadline_exceeded_total": gauge}
+    rsm.close()
+
+    # The batcher at phase 6's settings, with the timeline and flight records.
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "transform.batch.enabled": True, "transform.batch.wait.ms": 2,
+        "transform.batch.windows": 16, "transform.batch.bytes": 64 * MIB,
+        "deadline.default.ms": default_ms, "timeline.enabled": True, "flight.enabled": True,
+    }))
+    batcher, timeline = rsm.transform_backend.batcher, rsm.timeline
+    bound_ms = batcher.background_max_age_ms
+    check(_read_range(rsm, md, 0, 99) == source[:100], "failure policy deadline: warm read differs")
+
+    span = min(MIB, CHUNK)  # each read one window of one chunk
+
+    def read(name, off, budget_s=None, background=False):
+        scope = work_class_scope(BACKGROUND) if background else contextlib.nullcontext()
+        with rsm.flight_recorder.request(name, trace_id=name), scope, deadline.deadline_scope(
+                None if budget_s is None else deadline.Deadline.after(budget_s)):
+            return _read_range(rsm, md, off, off + span - 1)
+
+    # Half 1: background windows never take the fast path; one waits its
+    # class bound, one with 45 ms of budget is flushed early for it.
+    ages = {}
+    for name, off, budget in (("no-deadline", 2 * CHUNK, None), ("deadline-45ms", 3 * CHUNK, 0.045)):
+        seen = timeline.events_recorded
+        check(read(name, off, budget, background=True) == source[off : off + span],
+              f"failure policy deadline: background read {name} differs")
+        flushes = [e for e in _events_since(timeline, seen)
+                   if e["kind"] == "flush" and name in e["trace_ids"]]
+        check(len(flushes) == 1, f"failure policy deadline: {len(flushes)} flushes carry {name}")
+        ages[name] = flushes[0]["queued_age_ms"]
+    check(ages["no-deadline"] >= bound_ms - 0.5,
+          f"failure policy deadline: the undeadlined bucket flushed at {ages['no-deadline']} ms")
+    check(ages["deadline-45ms"] < bound_ms - 5.0,
+          f"failure policy deadline: the deadlined bucket waited {ages['deadline-45ms']} ms")
+    rec["early_flush"] = {"class_bound_ms": bound_ms, "queued_age_ms": ages}
+
+    # Half 2: a background launch held 400 ms by the fault plane keeps the
+    # flusher busy while three latency reads queue, one with 100 ms of budget.
+    plane = faults.FaultPlane.parse(["device.launch:latency=400@1~background"])
+    faults.install(plane)
+    results: dict = {}
+    counts = _batcher_counts(batcher)
+    seen = timeline.events_recorded
+
+    def run(name, off, budget_s=None, background=False):
+        try:
+            results[name] = read(name, off, budget_s, background)
+        except Exception as e:  # noqa: BLE001 - each reader's outcome is checked below
+            results[name] = e
+
+    try:
+        blocker = threading.Thread(target=run, args=("blocker", 4 * CHUNK, None, True))
+        blocker.start()
+        t = time.perf_counter()
+        while plane.snapshot()["injections"] < 1 and time.perf_counter() - t < 30:
+            time.sleep(0.001)
+        readers = [threading.Thread(target=run, args=args) for args in (
+            ("mate-1", 5 * CHUNK), ("late", 6 * CHUNK, 0.1), ("mate-2", 7 * CHUNK))]
+        for th in readers:
+            th.start()
+        queued = False
+        while time.perf_counter() - t < 30 and not queued:
+            queued = batcher.class_queued()["latency"] == 3
+            time.sleep(0.001)
+        held_ms = (time.perf_counter() - t) * 1e3
+        for th in [blocker, *readers]:
+            th.join(timeout=120)
+    finally:
+        faults.install(None)
+    check(queued, "failure policy deadline: the three readers never queued together")
+    # As in the JAX package, the chunk manager wraps any detransform failure,
+    # this expiry included, as a corrupt chunk (and quarantines the key in
+    # this RSM's chunk manager): the expiry is the cause.
+    late = results.get("late")
+    cause = getattr(late, "__cause__", None)
+    check(isinstance(cause, deadline.DeadlineExceededException)
+          and "expired while queued" in str(cause),
+          f"failure policy deadline: the late waiter got {late!r} from {cause!r}")
+    for name, off in (("blocker", 4 * CHUNK), ("mate-1", 5 * CHUNK), ("mate-2", 7 * CHUNK)):
+        check(results.get(name) == source[off : off + span],
+              f"failure policy deadline: {name}'s bytes differ: {type(results.get(name))}")
+    events = _events_since(timeline, seen)
+    flushes = [e for e in events if e["kind"] == "flush"]
+    expired = [e for e in events if e["kind"] == "expired"]
+    mates = [e for e in flushes if "mate-1" in e["trace_ids"]]
+    check(len(mates) == 1 and sorted(mates[0]["trace_ids"]) == ["mate-1", "mate-2"]
+          and mates[0]["rows"] == 2, f"failure policy deadline: the mates' flush {mates}")
+    check(all("late" not in e["trace_ids"] for e in flushes),
+          "failure policy deadline: the expired window joined a launch")
+    check(sum(e["count"] for e in expired) == 1, f"failure policy deadline: expiry records {expired}")
+    delta = _counts_delta(counts, _batcher_counts(batcher))
+    check((delta["expired_windows"], delta["launches"], delta["batched_windows"]) == (1, 2, 3),
+          f"failure policy deadline: batcher counts {delta}")
+    rec["expired_waiter"] = {
+        "queued_within_ms": held_ms, "late": f"{type(late).__name__} from {cause!r}",
+        "flushes": [{k: e[k] for k in ("work_class", "rows", "queued_age_ms", "trace_ids")}
+                    for e in flushes],
+        "expired_records": len(expired), "batcher": {k: delta[k] for k in (
+            "expired_windows", "launches", "batched_windows")}}
+    rsm.close()
+    return rec
+
+
+def _admission_leg(md, source: bytes, store: Path, pub, priv, device, seed: int) -> dict:
+    """Phase 11 (e): eight readers at once through an admission gate of 2
+    running and 2 queued, as a service boundary acquires it; the SLO engine
+    reads the latency, error and shed objectives over the same traffic."""
+    import math
+
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.utils.admission import AdmissionRejectedException
+
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "admission.enabled": True, "admission.max.concurrent": 2, "admission.max.queue": 2,
+        "admission.queue.timeout.ms": 200, "deadline.default.ms": 120_000,
+        "slo.enabled": True, "slo.window.short.ms": 500, "slo.window.long.ms": 1000,
+    }))
+    admission, engine = rsm.admission, rsm.slo_engine
+    check(_read_range(rsm, md, 0, 99) == source[:100], "failure policy admission: warm read differs")
+    engine.tick()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    outcomes: list = []
+
+    def one(off: int) -> None:
+        try:
+            admission.acquire("smoke.read")
+        except AdmissionRejectedException as e:
+            outcomes.append(("shed", e.retry_after_s))
+            return
+        try:
+            outcomes.append(("admitted", _read_range(rsm, md, off, off + MIB - 1) == source[off : off + MIB]))
+        finally:
+            admission.release()
+
+    errors = _run_threads([lambda off=int(off): one(off)
+                           for off in rng.integers(0, len(source) - MIB, 8)])
+    check(not errors, f"failure policy admission: readers failed: {errors!r}")
+    admitted = [ok for kind, ok in outcomes if kind == "admitted"]
+    shed = [after for kind, after in outcomes if kind == "shed"]
+    check(len(admitted) + len(shed) == 8 and len(shed) >= 1 and all(admitted),
+          f"failure policy admission: outcomes {outcomes}")
+    check(all(after == 1.0 for after in shed), f"failure policy admission: retry_after_s {shed}")
+    check((admission.admitted_total, admission.shed_total) == (len(admitted), len(shed)),
+          "failure policy admission: the controller's totals disagree with the readers")
+    time.sleep(max(0.0, 0.6 - (time.perf_counter() - t0)))  # both windows hold a base
+    status = rsm.slo_status()
+    specs = status["specs"]
+    check(sorted(specs) == ["fetch-errors", "fetch-latency", "shed-rate"],
+          f"failure policy admission: SLO specs {sorted(specs)}")
+    shed_spec = specs["shed-rate"]
+    check(shed_spec["samples"] == 8 and shed_spec["samples"] - shed_spec["good"] == len(shed),
+          f"failure policy admission: shed-rate counts {shed_spec}")
+    for name, spec in specs.items():
+        for key in ("burn_rate_short", "burn_rate_long"):
+            check(spec[key] is not None and math.isfinite(spec[key]),
+                  f"failure policy admission: {name} {key} = {spec[key]}")
+    rec = {"admitted": len(admitted), "shed": len(shed), "retry_after_s": shed[0],
+           "slo": {name: {k: spec[k] for k in ("objective", "samples", "good", "compliance",
+                                               "error_budget_remaining", "burn_rate_short",
+                                               "burn_rate_long", "burning", "ok")}
+                   for name, spec in specs.items()}}
+    rsm.close()
+    return rec
+
+
+def failure_policy_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 11: the failure policy on the main path's keys, legs (a)-(e);
+    the launch counts are zeroed before each leg and read after it."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="policy")
+    seg = work / "segment"
+    seg.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 21, segment_bytes)
+    source = files["log"].read_bytes()
+    out: dict = {"segment_bytes": segment_bytes}
+    launches: dict = {}
+
+    def leg(name, fn):
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        rec = fn()
+        rec["leg_s"] = time.perf_counter() - t
+        rec["launches"] = _cuda.launch_counts()
+        for kernel, n in rec["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        out[name] = rec
+
+    with EmulatorProcess("s3") as emu:
+        leg("breaker", lambda: _breaker_leg(emu.endpoint, md, sd, source, pub, priv, device))
+        leg("budget", lambda: _budget_leg(md, sd, source, pub, priv, device, work))
+        leg("hedge", lambda: _hedge_leg(emu.endpoint, md, sd, source, pub, priv, device, work, seed))
+    store = work / "store-deadline"  # (d) copies into it, (e) reads it
+    store.mkdir()
+    leg("deadline", lambda: _deadline_leg(md, sd, source, pub, priv, device, store))
+    leg("admission", lambda: _admission_leg(md, source, store, pub, priv, device, seed))
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -2431,7 +2930,22 @@ def main(argv=None) -> int:
     for part in ("cost", "ranged", "flight", "scrape", "timeline", "profile"):
         print(f"observability {part}: " + json.dumps({"card": card, **obs[part]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_policy_"))
+    try:
+        t = time.perf_counter()
+        policy = failure_policy_phase(
+            args.seed, min(args.segment_mib * MIB, FAILURE_CUT_BYTES), work)
+        record["failure_policy_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase failure policy: {record['failure_policy_s']:.1f} s (segments cut to "
+          f"{FAILURE_CUT_BYTES} bytes from 1 GiB for time)")
+    record["failure_policy"] = policy
+    for part in ("breaker", "budget", "hedge", "deadline", "admission"):
+        print(f"failure policy {part}: " + json.dumps({"card": card, **policy[part]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+    _gcm_launched(policy["launches"], "failure policy phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(life["launches"], "lifecycle phase")
     _gcm_launched(obs["launches"], "observability phase", ("aes_ctr_keystream", "ghash_tree"))
     launches = main_rec["launches"]
@@ -2459,6 +2973,7 @@ def main(argv=None) -> int:
         entry["launches_storage"] = store["launches"][name]
         entry["launches_lifecycle"] = life["launches"][name]
         entry["launches_observability"] = obs["launches"][name]
+        entry["launches_failure_policy"] = policy["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -811,3 +811,118 @@ def test_scrape_does_not_wait_for_an_in_flight_launch(device, tmp_path):
     assert results == [log[i * chunk : i * chunk + 100] for i in range(4)]
     assert "hot_cache_metrics_hot_cache_device_bytes_resident" in body
     assert f"batch_metrics_batch_windows_submitted_total {submitted}.0" in body
+
+
+def test_open_breaker_fetch_makes_no_gcm_launch(device, tmp_path):
+    """The failure policy below the decrypt: once the store has failed the
+    breaker's threshold of reads in a row, the next read fails fast with
+    CircuitOpenException — no storage call, no GCM window, no launch."""
+    from tieredstorage_tpu_torch.faults import FaultInjectedException
+    from tieredstorage_tpu_torch.storage.resilient import BreakerState, CircuitOpenException
+
+    rsm, md, log, chunk = _observed_rsm(tmp_path, device, {
+        "breaker.enabled": True, "breaker.failure.threshold": 2,
+        "breaker.cooldown.ms": 600_000, "fault.injection.enabled": True,
+        "fault.schedule": ["fetch:raise@from=3"],
+    })
+    try:
+        schedule = rsm._fault_schedule
+        assert _read(rsm, md, 0, 99) == log[:100]  # the manifest, then chunk 0
+        for cid in (1, 2):
+            with pytest.raises(FaultInjectedException):
+                _read(rsm, md, cid * chunk, cid * chunk + 99)
+        assert rsm._breaker.state is BreakerState.OPEN
+        before = (gcm.device_dispatches(), _cuda.launch_counts(), schedule.calls("fetch"))
+        with pytest.raises(CircuitOpenException):
+            _read(rsm, md, 3 * chunk, 3 * chunk + 99)
+        assert (gcm.device_dispatches(), _cuda.launch_counts(), schedule.calls("fetch")) == before
+        assert rsm._breaker.fast_fails == 1
+    finally:
+        rsm.close()
+
+
+def test_hedged_window_makes_one_decrypt_launch(device, tmp_path):
+    """The hedger races the stored bytes only: a window whose primary GET
+    straggles is fetched twice and decrypted once, and the loser's late
+    bytes launch nothing."""
+    rsm, md, log, chunk = _observed_rsm(tmp_path, device, {
+        "hedge.enabled": True, "hedge.delay.ms": 20, "hedge.budget.percent": 100,
+        "fault.injection.enabled": True, "fault.schedule": ["fetch:delay=400@2"],
+    })
+    try:
+        before_windows, before = gcm.device_dispatches(), _cuda.launch_counts()
+        assert _read(rsm, md, chunk, chunk + 99) == log[chunk : chunk + 100]
+        time.sleep(0.6)  # the straggling primary finishes and is discarded
+        assert (rsm.hedger.launched, rsm.hedger.wins) == (1, 1)
+        assert rsm._fault_schedule.calls("fetch") == 3  # manifest, primary, hedge
+        assert gcm.device_dispatches() - before_windows == 1
+        after = _cuda.launch_counts()
+        assert after["aes_ctr_keystream"] - before.get("aes_ctr_keystream", 0) == 1
+        assert after["ghash_tree"] - before.get("ghash_tree", 0) == 1
+    finally:
+        rsm.close()
+
+
+def test_expired_waiter_leaves_its_batch_mates_launch_intact(device):
+    """Three decrypt windows queue for one merged launch; one was enqueued
+    under a deadline that runs out in the queue. It fails alone with the
+    deadline error and joins no launch; the other two ride one launch and
+    equal their unbatched decrypts."""
+    import threading
+
+    from tieredstorage_tpu_torch.metrics.timeline import TimelineRecorder
+    from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+    from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
+    from tieredstorage_tpu_torch.transform.batcher import WindowBatcher
+    from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+    from tieredstorage_tpu_torch.utils.deadline import (
+        Deadline,
+        DeadlineExceededException,
+        deadline_scope,
+    )
+
+    rng = np.random.default_rng(67)
+    enc = DataKeyAndAAD(rng.bytes(32), rng.bytes(32))
+    windows = [[rng.bytes(1 << 20)] for _ in range(3)]
+    plain = CudaTransformBackend()
+    plain.configure({})
+    wires = [plain.transform(w, TransformOptions(encryption=enc)) for w in windows]
+    unbatched = [plain.detransform(w, DetransformOptions(encryption=enc)) for w in wires]
+
+    backend = CudaTransformBackend()
+    backend.configure({})
+    batcher = WindowBatcher(backend, wait_ms=50)
+    batcher.timeline = TimelineRecorder(enabled=True, ring_size=64)
+    batcher._inflight += 1  # park the fast path: every submit queues
+    backend.batcher = batcher
+    results: list = [None] * 3
+
+    def run(i):
+        try:
+            with deadline_scope(Deadline.after(0.05) if i == 1 else None):
+                results[i] = backend.detransform(wires[i], DetransformOptions(encryption=enc))
+        except Exception as e:  # noqa: BLE001 — the waiter's outcome is the datum
+            results[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    with batcher._cond:
+        assert batcher._cond.wait_for(
+            lambda: sum(len(v) for v in batcher._buckets.values()) == 3, timeout=60)
+    time.sleep(0.1)  # window 1's deadline runs out in the queue
+    launches_before = _cuda.launch_counts()
+    assert batcher.flush_now() == 1
+    for t in threads:
+        t.join(timeout=60)
+    assert isinstance(results[1], DeadlineExceededException)
+    assert "expired while queued" in str(results[1])
+    assert [results[0], results[2]] == [unbatched[0], unbatched[2]]
+    assert (batcher.launches, batcher.batched_windows, batcher.expired_windows) == (1, 2, 1)
+    assert _cuda.launch_counts()["aes_ctr_keystream"] - launches_before["aes_ctr_keystream"] == 1
+    kinds = [e["kind"] for e in batcher.timeline.events()]
+    assert kinds.count("expired") == 1 and kinds.count("flush") == 1
+    flush = next(e for e in batcher.timeline.events() if e["kind"] == "flush")
+    assert flush["rows"] == 2
+    plain.close()
+    backend.close()

@@ -564,9 +564,14 @@ def test_expired_deadline_fails_before_the_storage_read(tmp_path, keys):
     md, sd, _, _ = _segment(tmp_path, metadata)
     try:
         rsm.copy_log_segment_data(md, sd)
+        # At the RSM entry, which checks the ambient deadline first.
         with deadline_scope(Deadline.after(-1.0)):
-            with pytest.raises(DeadlineExceededException, match="cache window read"):
-                with rsm.fetch_log_segment(md, 0, 99) as stream:
+            with pytest.raises(DeadlineExceededException, match="before rsm.fetch_log_segment"):
+                rsm.fetch_log_segment(md, 0, 99)
+        # Past the entry, in the lazy drain: the chunk cache's window read.
+        with rsm.fetch_log_segment(md, 0, 99) as stream:
+            with deadline_scope(Deadline.after(-1.0)):
+                with pytest.raises(DeadlineExceededException, match="cache window read"):
                     stream.read()
     finally:
         rsm.close()

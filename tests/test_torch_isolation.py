@@ -84,6 +84,19 @@ _STORAGE = (
 )
 
 
+#: Modules of the failure policy: the breakers, the retry budget, hedging,
+#: admission, the SLO engine and the retry-metrics group.
+_FAILURE_POLICY = (
+    "tieredstorage_tpu_torch.utils.retry",
+    "tieredstorage_tpu_torch.utils.deadline",
+    "tieredstorage_tpu_torch.utils.admission",
+    "tieredstorage_tpu_torch.storage.resilient",
+    "tieredstorage_tpu_torch.fetch.hedge",
+    "tieredstorage_tpu_torch.metrics.slo",
+    "tieredstorage_tpu_torch.metrics.retry_metrics",
+)
+
+
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
         [sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True, text=True,
@@ -95,6 +108,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert set(_SCHEDULER_AND_SCRUB) <= set(names.split())
     assert set(_COMPRESSION) <= set(names.split())
     assert set(_STORAGE) <= set(names.split())
+    assert set(_FAILURE_POLICY) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

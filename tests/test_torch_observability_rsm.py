@@ -3,9 +3,10 @@
 The port runs with transform.device=cpu; the JAX RSM with its TPU backend
 (JAX on the CPU), the counterpart of the port's CUDA backend, so both
 record the backend's stage spans and GCM window notes. Copy, whole fetch,
-ranged read, fetch_index and delete give the same metric names (the JAX
-package's `retry-metrics` group comes with the failure-policy plane), the
-same deterministic counters, the same exposition series, the same span
+ranged read, fetch_index and delete give the same metric names (the
+`retry-metrics` group included), the same deterministic counters (that
+group's gauges read the process-wide retry ledger and fault plane, so they
+are left out of the values), the same exposition series, the same span
 names per operation and the same flight note keys; over the S3 emulator
 the backends' request metrics count the same requests per operation. The
 11 configuration keys of the plane have JAX's types, defaults and
@@ -36,8 +37,9 @@ from tieredstorage_tpu_torch.rsm import RemoteStorageManager
 from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
 from tieredstorage_tpu_torch.utils import deadline as port_deadline
 
-#: The JAX group that arrives with the breakers (failure-policy plane).
-NOT_YET_PORTED_GROUPS = ("retry-metrics",)
+#: Groups whose gauges read process-wide state (the retry ledger, the fault
+#: plane): other tests in the same process move them.
+PROCESS_WIDE_GROUPS = ("retry-metrics",)
 OBSERVED = {"tracing.enabled": True, "flight.enabled": True, "timeline.enabled": True}
 OPERATIONS = ("copy", "fetch", "ranged", "index", "delete")
 
@@ -109,15 +111,12 @@ def driven(tmp_path_factory, keys):
         rsm.close()
 
 
-def _ported(names):
-    return sorted(n for n in names if not n.startswith(NOT_YET_PORTED_GROUPS))
-
-
 def test_metric_names_equal_jax(driven):
-    names = {k: _ported(str(m) for m in rsm.metrics.registry.metric_names)
+    names = {k: sorted(str(m) for m in rsm.metrics.registry.metric_names)
              for k, (rsm, _) in driven.items()}
     assert names["port"] == names["jax"]
     assert "remote-storage-manager-metrics:segment-copy-time-ms" in names["port"]
+    assert "retry-metrics:retry-storage-fetch-attempts-total" in names["port"]
 
 
 #: Snapshot families whose values do not depend on timing.
@@ -136,7 +135,7 @@ def test_deterministic_counters_equal_jax(driven):
         snap = rsm.metrics.snapshot()
         values[k] = {
             n: v for n, v in snap.items()
-            if _DETERMINISTIC.search(n) and not n.startswith(NOT_YET_PORTED_GROUPS)
+            if _DETERMINISTIC.search(n) and not n.startswith(PROCESS_WIDE_GROUPS)
             and not (_TIMED.search(n) and not n.endswith("-time-ms")) and n != _PROCESS_WIDE
         }
         assert snap[_PROCESS_WIDE] == float(
@@ -157,9 +156,7 @@ def _series(text):
     for line in text.splitlines():
         if line.startswith("#"):
             continue
-        name = re.match(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})?", line).group(0)
-        if not name.startswith("retry_metrics_"):
-            out.add(name)
+        out.add(re.match(r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})?", line).group(0))
     return out
 
 
@@ -319,4 +316,8 @@ def test_not_yet_ported_lists_only_the_failure_policy_and_fleet_keys():
     assert not set(PLANE_KEYS) & NOT_YET_PORTED
     assert NOT_YET_PORTED <= set(jax_base_def().keys)
     assert not NOT_YET_PORTED & set(_base_def().keys)
-    assert {"deadline.default.ms", "slo.enabled", "breaker.enabled"} <= NOT_YET_PORTED
+    # The failure policy of the RSM is ported; the fleet's breaker and retry
+    # keys and the sidecar's stay for their slices.
+    assert not {"deadline.default.ms", "slo.enabled", "breaker.enabled"} & NOT_YET_PORTED
+    assert {"fleet.enabled", "sidecar.grpc.max.workers", "breaker.peer.failure.threshold",
+            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts"} <= NOT_YET_PORTED

@@ -185,8 +185,9 @@ def test_segments_cross_read_between_packages(tmp_path, keys, writer):
 
 
 @pytest.mark.parametrize(
-    "key", ["slo.enabled", "deadline.default.ms", "hedge.enabled",
-            "breaker.enabled", "fleet.enabled"],
+    "key", ["fleet.enabled", "breaker.peer.failure.threshold",
+            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts",
+            "sidecar.grpc.max.workers"],
 )
 def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
     configs = _configs(

@@ -6,7 +6,9 @@ Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
 with the two-phase `encryption.key.pairs.<id>.*` define),
 `custom.metadata.fields.include`, `upload.rate.limit.bytes.per.second`,
 `retry.launch.*` (the window batcher's launch retry), `tracing.*`,
-`flight.*`, `timeline.*` and `metrics.*` (the observability plane), `scrub.*` (the
+`flight.*`, `timeline.*` and `metrics.*` (the observability plane),
+`breaker.*`, `retry.budget.*`, `deadline.default.ms`, `hedge.*`,
+`admission.*` and `slo.*` (the failure policy), `scrub.*` (the
 scrubber, its scheduler and the upload checksums), `fault.*` and `faults.*`
 (the fault-injecting backend and the fault plane), `lifecycle.*` (the
 intent journal and the recovery sweeper), `replication.antientropy.*`
@@ -45,24 +47,14 @@ FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 
 #: Keys of the JAX package's configuration that this package has not ported.
 NOT_YET_PORTED = frozenset({
-    "breaker.enabled", "breaker.failure.threshold", "breaker.cooldown.ms",
-    "deadline.default.ms", "hedge.enabled", "hedge.delay.ms",
-    "hedge.delay.min.samples", "hedge.budget.percent", "retry.budget.enabled",
-    "retry.budget.percent", "retry.budget.capacity", "retry.budget.max.attempts",
-    "retry.budget.backoff.ms", "breaker.peer.failure.threshold",
-    "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts",
-    "admission.enabled", "admission.max.concurrent",
-    "admission.max.queue", "admission.queue.timeout.ms",
-    "admission.retry.after.ms", "sidecar.grpc.max.workers",
+    "breaker.peer.failure.threshold", "breaker.gossip.failure.threshold",
+    "retry.gossip.probe.attempts", "sidecar.grpc.max.workers",
     "sidecar.http.max.workers", "fleet.enabled", "fleet.instance.id",
     "fleet.instances", "fleet.vnodes", "fleet.forward.timeout.ms",
     "fleet.peer.down.cooldown.ms", "fleet.replication.factor",
     "fleet.gossip.enabled", "fleet.gossip.interval.ms",
     "fleet.gossip.probe.timeout.ms", "fleet.gossip.suspect.periods",
-    "fleet.gossip.dead.periods", "slo.enabled",
-    "slo.window.short.ms", "slo.window.long.ms", "slo.fetch.latency.threshold.ms",
-    "slo.fetch.latency.objective.percent", "slo.error.rate.objective.percent",
-    "slo.shed.rate.max.percent", "slo.cache.hit.floor.percent",
+    "fleet.gossip.dead.periods",
 })
 
 def _codec_id(name: str, value) -> None:
@@ -361,6 +353,192 @@ def _base_def() -> ConfigDef:
             "proves no commit happened.",
     ))
     d.define(ConfigKey(
+        "breaker.enabled", "bool", default=False, importance="medium",
+        doc="Wrap the storage backend in a circuit breaker: after "
+            "breaker.failure.threshold consecutive backend failures, calls "
+            "fail fast until a half-open probe succeeds after "
+            "breaker.cooldown.ms.",
+    ))
+    d.define(ConfigKey(
+        "breaker.failure.threshold", "int", default=5,
+        validator=in_range(1, None), importance="medium",
+        doc="Consecutive storage failures that open the circuit breaker.",
+    ))
+    d.define(ConfigKey(
+        "breaker.cooldown.ms", "long", default=30_000,
+        validator=in_range(1, None), importance="medium",
+        doc="How long the breaker stays open before allowing a half-open "
+            "probe request through.",
+    ))
+    d.define(ConfigKey(
+        "deadline.default.ms", "long", default=None,
+        validator=null_or(in_range(1, None)), importance="medium",
+        doc="Default end-to-end deadline installed at the RSM/gateway entry "
+            "when the caller did not propagate one (x-deadline-ms header / "
+            "gRPC metadata). Every layer clamps its waiting to the remaining "
+            "budget and expired requests fail fast with "
+            "DeadlineExceededException before touching the network; null "
+            "means unconstrained.",
+    ))
+    d.define(ConfigKey(
+        "hedge.enabled", "bool", default=False, importance="medium",
+        doc="Hedge straggling chunk fetches: after hedge.delay (the observed "
+            "chunk-fetch p95, or hedge.delay.ms until enough samples exist) "
+            "issue a second identical ranged GET and take the first success; "
+            "the loser is cancelled/discarded. Extra load is capped by "
+            "hedge.budget.percent.",
+    ))
+    d.define(ConfigKey(
+        "hedge.delay.ms", "long", default=50,
+        validator=in_range(1, None), importance="medium",
+        doc="Static hedge delay fallback (ms) used until the chunk-fetch "
+            "latency histogram holds hedge.delay.min.samples observations, "
+            "after which the observed p95 drives the delay.",
+    ))
+    d.define(ConfigKey(
+        "hedge.delay.min.samples", "int", default=50,
+        validator=in_range(1, None), importance="low",
+        doc="Chunk-fetch histogram observations required before the hedge "
+            "delay switches from the static hedge.delay.ms to the observed "
+            "p95.",
+    ))
+    d.define(ConfigKey(
+        "hedge.budget.percent", "int", default=10,
+        validator=in_range(1, 100), importance="medium",
+        doc="Hedge token bucket: earn percent/100 tokens per primary chunk "
+            "fetch, spend one per hedge — hedged requests never exceed this "
+            "percentage of primary traffic, so hedging self-limits under a "
+            "systemic slowdown instead of doubling the load.",
+    ))
+    d.define(ConfigKey(
+        "retry.budget.enabled", "bool", default=False, importance="medium",
+        doc="Budget storage-layer retries with a per-backend token bucket "
+            "(earn on success, spend on retry) so an outage cannot amplify "
+            "into a retry storm; composes with the circuit breaker (each "
+            "retry re-takes the breaker gate).",
+    ))
+    d.define(ConfigKey(
+        "retry.budget.percent", "int", default=10,
+        validator=in_range(1, 100), importance="medium",
+        doc="Tokens earned per successful storage call, as a percentage: "
+            "long-run retries are capped at percent/100 of successes (+ the "
+            "fixed retry.budget.capacity allowance), bounding the "
+            "cluster-wide retry amplification factor at 1 + percent/100.",
+    ))
+    d.define(ConfigKey(
+        "retry.budget.capacity", "int", default=10,
+        validator=in_range(1, None), importance="low",
+        doc="Retry token bucket capacity (and initial balance): the fixed "
+            "allowance that lets cold starts and short blips retry before "
+            "any successes have been banked.",
+    ))
+    d.define(ConfigKey(
+        "retry.budget.max.attempts", "int", default=3,
+        validator=in_range(1, None), importance="low",
+        doc="Per-call attempt ceiling for budgeted storage retries "
+            "(including the first attempt).",
+    ))
+    d.define(ConfigKey(
+        "retry.budget.backoff.ms", "long", default=10,
+        validator=in_range(1, None), importance="low",
+        doc="Base backoff (ms) between budgeted storage retries; the actual "
+            "sleep is full-jitter exponential and always fits the remaining "
+            "end-to-end deadline, or the retry is abandoned.",
+    ))
+    d.define(ConfigKey(
+        "admission.enabled", "bool", default=False, importance="medium",
+        doc="Gate the sidecar boundaries (HTTP gateway + gRPC service) with "
+            "an admission controller: at most admission.max.concurrent "
+            "requests execute, admission.max.queue more wait, and the rest "
+            "are shed at entry with 429 + Retry-After / RESOURCE_EXHAUSTED "
+            "before the request body is read.",
+    ))
+    d.define(ConfigKey(
+        "admission.max.concurrent", "int", default=64,
+        validator=in_range(1, None), importance="medium",
+        doc="Concurrent requests executing past the admission gate.",
+    ))
+    d.define(ConfigKey(
+        "admission.max.queue", "int", default=128,
+        validator=in_range(0, None), importance="medium",
+        doc="Bounded admission queue depth; a request arriving with the "
+            "queue full is shed immediately (0 disables queuing entirely).",
+    ))
+    d.define(ConfigKey(
+        "admission.queue.timeout.ms", "long", default=1_000,
+        validator=in_range(1, None), importance="low",
+        doc="Longest a request waits in the admission queue before being "
+            "shed (queuing longer than the caller's patience just wastes "
+            "both ends' resources).",
+    ))
+    d.define(ConfigKey(
+        "admission.retry.after.ms", "long", default=1_000,
+        validator=in_range(1, None), importance="low",
+        doc="Backoff hint returned with shed requests (HTTP Retry-After "
+            "header, gRPC retry-after trailer), rounded up to whole "
+            "seconds on the HTTP side.",
+    ))
+    d.define(ConfigKey(
+        "slo.enabled", "bool", default=False, importance="medium",
+        doc="Run the SLO engine (metrics/slo.py): declarative objectives "
+            "over the existing latency histograms and counters (fetch "
+            "latency vs the deadline budget, fetch error rate, admission "
+            "shed rate, chunk-cache hit floor) with SRE-workbook two-window "
+            "burn-rate computation, error-budget gauges in the slo-metrics "
+            "group, and verdicts on the gateway's GET /slo route.",
+    ))
+    d.define(ConfigKey(
+        "slo.window.short.ms", "long", default=60_000,
+        validator=in_range(1, None), importance="low",
+        doc="Short burn-rate window: the fast-to-clear half of the "
+            "multiwindow alert (an incident that stops burning stops "
+            "alerting within this window).",
+    ))
+    d.define(ConfigKey(
+        "slo.window.long.ms", "long", default=600_000,
+        validator=in_range(1, None), importance="low",
+        doc="Long burn-rate window: the significance half of the "
+            "multiwindow alert. Must be greater than slo.window.short.ms.",
+    ))
+    d.define(ConfigKey(
+        "slo.fetch.latency.threshold.ms", "long", default=None,
+        validator=null_or(in_range(1, None)), importance="medium",
+        doc="Latency an individual chunk fetch must beat to count as a "
+            "good event for the fetch-latency SLO. Null derives it from "
+            "deadline.default.ms (the budget the caller actually "
+            "experiences); if both are null the fetch-latency spec is "
+            "skipped.",
+    ))
+    d.define(ConfigKey(
+        "slo.fetch.latency.objective.percent", "int", default=99,
+        validator=in_range(1, 99), importance="medium",
+        doc="Fraction of chunk fetches (percent) that must beat the "
+            "latency threshold: 99 gates the p99 against the budget. "
+            "Capped at 99 because a 100% objective leaves a zero error "
+            "budget no finite burn rate can be computed against.",
+    ))
+    d.define(ConfigKey(
+        "slo.error.rate.objective.percent", "int", default=99,
+        validator=in_range(1, 99), importance="medium",
+        doc="Fraction of chunk fetches (percent) that must complete "
+            "without a request-visible failure (detransform corruption or "
+            "deadline expiry).",
+    ))
+    d.define(ConfigKey(
+        "slo.shed.rate.max.percent", "int", default=5,
+        validator=in_range(1, 99), importance="low",
+        doc="Admission sheds tolerated as a percentage of gated requests "
+            "(the shed-rate SLO objective is 100 minus this). Only wired "
+            "when admission.enabled is.",
+    ))
+    d.define(ConfigKey(
+        "slo.cache.hit.floor.percent", "int", default=0,
+        validator=in_range(0, 99), importance="low",
+        doc="Minimum chunk-cache hit rate (percent) the cache-tier SLO "
+            "enforces; 0 disables the spec (cold stores legitimately run "
+            "at 0% for a while).",
+    ))
+    d.define(ConfigKey(
         "tracing.enabled", "bool", default=False, importance="low",
         doc="Record spans around RSM operations and the fetch, storage, "
             "scrub and lifecycle stages below them (utils/tracing.py); "
@@ -460,6 +638,11 @@ class RemoteStorageManagerConfig:
         if self.compression_heuristic_enabled and not self.compression_enabled:
             raise ConfigException(
                 "compression.enabled must be enabled if compression.heuristic.enabled is"
+            )
+        if self._values["slo.window.short.ms"] >= self._values["slo.window.long.ms"]:
+            raise ConfigException(
+                "slo.window.short.ms must be less than slo.window.long.ms "
+                "(the multiwindow burn-rate alert needs distinct windows)"
             )
         if self.encryption_enabled:
             if not self._values["encryption.key.pair.id"]:
@@ -639,6 +822,110 @@ class RemoteStorageManagerConfig:
     @property
     def lifecycle_grace_ms(self) -> int:
         return self._values["lifecycle.grace.ms"]
+
+    @property
+    def breaker_enabled(self) -> bool:
+        return self._values["breaker.enabled"]
+
+    @property
+    def breaker_failure_threshold(self) -> int:
+        return self._values["breaker.failure.threshold"]
+
+    @property
+    def breaker_cooldown_ms(self) -> int:
+        return self._values["breaker.cooldown.ms"]
+
+    @property
+    def deadline_default_ms(self) -> Optional[int]:
+        return self._values["deadline.default.ms"]
+
+    @property
+    def hedge_enabled(self) -> bool:
+        return self._values["hedge.enabled"]
+
+    @property
+    def hedge_delay_ms(self) -> int:
+        return self._values["hedge.delay.ms"]
+
+    @property
+    def hedge_delay_min_samples(self) -> int:
+        return self._values["hedge.delay.min.samples"]
+
+    @property
+    def hedge_budget_percent(self) -> int:
+        return self._values["hedge.budget.percent"]
+
+    @property
+    def retry_budget_enabled(self) -> bool:
+        return self._values["retry.budget.enabled"]
+
+    @property
+    def retry_budget_percent(self) -> int:
+        return self._values["retry.budget.percent"]
+
+    @property
+    def retry_budget_capacity(self) -> int:
+        return self._values["retry.budget.capacity"]
+
+    @property
+    def retry_budget_max_attempts(self) -> int:
+        return self._values["retry.budget.max.attempts"]
+
+    @property
+    def retry_budget_backoff_ms(self) -> int:
+        return self._values["retry.budget.backoff.ms"]
+
+    @property
+    def admission_enabled(self) -> bool:
+        return self._values["admission.enabled"]
+
+    @property
+    def admission_max_concurrent(self) -> int:
+        return self._values["admission.max.concurrent"]
+
+    @property
+    def admission_max_queue(self) -> int:
+        return self._values["admission.max.queue"]
+
+    @property
+    def admission_queue_timeout_ms(self) -> int:
+        return self._values["admission.queue.timeout.ms"]
+
+    @property
+    def admission_retry_after_ms(self) -> int:
+        return self._values["admission.retry.after.ms"]
+
+    @property
+    def slo_enabled(self) -> bool:
+        return self._values["slo.enabled"]
+
+    @property
+    def slo_window_short_ms(self) -> int:
+        return self._values["slo.window.short.ms"]
+
+    @property
+    def slo_window_long_ms(self) -> int:
+        return self._values["slo.window.long.ms"]
+
+    @property
+    def slo_fetch_latency_threshold_ms(self) -> Optional[int]:
+        return self._values["slo.fetch.latency.threshold.ms"]
+
+    @property
+    def slo_fetch_latency_objective_percent(self) -> int:
+        return self._values["slo.fetch.latency.objective.percent"]
+
+    @property
+    def slo_error_rate_objective_percent(self) -> int:
+        return self._values["slo.error.rate.objective.percent"]
+
+    @property
+    def slo_shed_rate_max_percent(self) -> int:
+        return self._values["slo.shed.rate.max.percent"]
+
+    @property
+    def slo_cache_hit_floor_percent(self) -> int:
+        return self._values["slo.cache.hit.floor.percent"]
 
     @property
     def tracing_enabled(self) -> bool:

@@ -1,14 +1,16 @@
 """Chunk managers: resolve (object key, manifest, chunk id) -> plaintext chunk.
 
-Counterpart of tieredstorage_tpu/fetch/chunk_manager.py without hedging
-(the failure-policy plane is not ported yet). Spans, the `on_fetch` latency
-hook and the flight notes (tier, GCM window accounting, the merged launch a
-window rode) are the JAX package's. `_fetch_stored` is the fault plane's
-`storage.read` seam
-(utils/faults.py). The quarantine has the JAX package's external hook
-(`quarantine`), through which the scrubber gates objects it found corrupt.
-`get_chunks` fetches a window of chunks with ONE ranged request (chunks are
-contiguous on the stored side) and detransforms them in ONE backend call.
+Counterpart of tieredstorage_tpu/fetch/chunk_manager.py. Spans, the
+`on_fetch` latency hook and the flight notes (tier, GCM window accounting,
+the merged launch a window rode) are the JAX package's. `_fetch_stored` is
+the fault plane's `storage.read` seam (utils/faults.py). The quarantine has
+the JAX package's external hook (`quarantine`), through which the scrubber
+gates objects it found corrupt. `get_chunks` fetches a window of chunks with
+ONE ranged request (chunks are contiguous on the stored side) and
+detransforms them in ONE backend call. With a `hedger` (fetch/hedge.py,
+`hedge.enabled`) the ranged GET is raced against a delayed second attempt,
+against a distinct replica when the fetcher is a replicated store; the
+detransform runs once, on the winner's bytes.
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ class DefaultChunkManager(ChunkManager):
     #: Optional latency hook `(elapsed_ms, plaintext_bytes)` per batch; the
     #: RSM wires it to Metrics.record_chunk_fetch.
     on_fetch: Optional[Callable[[float, int], None]] = None
+    #: Optional tail-tolerance hedger (fetch/hedge.py); when set, the ranged
+    #: storage GET of a chunk window is raced against a delayed second
+    #: attempt and the first success wins (`hedge.enabled`).
+    hedger = None
     #: Optional pre-detransform hook `(opts)` — the device hot-window tier
     #: (fetch/cache/device_hot.py `note_detransform`) records the window's
     #: DetransformOptions so admission can tell whether the decrypt output
@@ -148,7 +154,14 @@ class DefaultChunkManager(ChunkManager):
         with self.tracer.span(
             "storage.fetch_chunks", key=objects_key.value, chunks=len(chunks),
         ) as fetch_span:
-            stored = self._fetch_stored(objects_key, chunks, contiguous)
+            if self.hedger is not None:
+                stored = self.hedger.call(
+                    lambda: self._fetch_stored(objects_key, chunks, contiguous),
+                    what=objects_key.value,
+                    hedge_fn=self._hedge_attempt(objects_key, chunks, contiguous),
+                )
+            else:
+                stored = self._fetch_stored(objects_key, chunks, contiguous)
             stored_bytes = sum(len(b) for b in stored)
             if fetch_span is not None:
                 fetch_span.attributes["bytes"] = stored_bytes
@@ -221,14 +234,40 @@ class DefaultChunkManager(ChunkManager):
             )
         return out
 
+    def _hedge_attempt(self, objects_key: ObjectKey, chunks, contiguous: bool):
+        """Replica-aware hedge: when the fetcher is replicated
+        (ReplicatedStorageBackend.read_fetchers), the hedge reads the same
+        window from the second-healthiest replica DIRECTLY, so a straggling
+        primary replica is raced by a distinct one instead of being hit
+        twice. Single-store fetchers (a resilience or fault decorator
+        included) return None: the hedge replays the primary."""
+        read_fetchers = getattr(self._fetcher, "read_fetchers", None)
+        if read_fetchers is None:
+            return None
+        ordered = read_fetchers()
+        if len(ordered) < 2:
+            return None
+        alternate = ordered[1]
+        return lambda: self._fetch_stored(
+            objects_key, chunks, contiguous, fetcher=alternate
+        )
+
     def _fetch_stored(
-        self, objects_key: ObjectKey, chunks, contiguous: bool
+        self, objects_key: ObjectKey, chunks, contiguous: bool, *, fetcher=None
     ) -> list[bytes]:
         """Read the stored (transformed) bytes of a chunk window.
 
-        The fault plane's `storage.read` seam: an `error` fault propagates
-        as a backend failure; `partial` tears the fetched bytes, so the GCM
-        tag check of the detransform must refuse them."""
+        Self-contained and replay-safe — opens, fully reads, and closes its
+        own stream(s) — which is the contract the hedger needs: a discarded
+        losing attempt cannot tear the winner's bytes. `fetcher` overrides
+        the configured fetcher for replica-aware hedge attempts.
+
+        The fault plane's `storage.read` seam, per *attempt* (hedge attempts
+        each count): an `error` fault propagates as a backend failure;
+        `partial` tears the fetched bytes, so the GCM tag check of the
+        detransform must refuse them."""
+        if fetcher is None:
+            fetcher = self._fetcher
         torn = faults.fire("storage.read", str(objects_key))
         if contiguous:
             # One ranged GET covering the window on the transformed side.
@@ -236,12 +275,12 @@ class DefaultChunkManager(ChunkManager):
                 chunks[0].transformed_position,
                 chunks[-1].transformed_position + chunks[-1].transformed_size - 1,
             )
-            with self._fetcher.fetch(objects_key, whole) as stream:
+            with fetcher.fetch(objects_key, whole) as stream:
                 stored = [read_exactly(stream, c.transformed_size) for c in chunks]
         else:
             stored = []
             for c in chunks:
-                with self._fetcher.fetch(objects_key, c.range()) as stream:
+                with fetcher.fetch(objects_key, c.range()) as stream:
                     stored.append(read_exactly(stream, c.transformed_size))
         if torn:
             stored = [faults.mutate(b, torn) for b in stored]

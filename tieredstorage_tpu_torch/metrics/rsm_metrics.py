@@ -249,8 +249,7 @@ def register_resilience_metrics(
     + RetryBudget, faults/schedule.py FaultSchedule, fetch/cache ChunkCache,
     fetch/chunk_manager.py DefaultChunkManager, fetch/hedge.py Hedger,
     utils/admission.py AdmissionController); the RSM registers whichever are
-    wired after configure() (this package wires no breaker, hedger, retry
-    budget or admission controller yet: those arguments stay None).
+    wired after configure(), and passes None for a plane that is off.
     """
 
     def gauge(name: str, supplier, description: str = "") -> None:

@@ -4,9 +4,21 @@ Counterpart of tieredstorage_tpu/rsm.py (its `configure`,
 `copy_log_segment_data`, `fetch_segment_manifest`, `fetch_log_segment`,
 `fetch_index`, `delete_log_segment_data`, `set_segment_successor`, the
 scrub, lifecycle and anti-entropy accessors, the observability payloads and
-`close`), without the planes this package has not ported yet: the default
-deadline, the breaker and retry budget, hedging, admission, the SLO engine
-and fleet mode.
+`close`), the failure policy and the SLO engine, without the plane this
+package has not ported yet: fleet mode.
+
+Failure policy, as in the JAX package: each KIP-405 operation runs under an
+end-to-end deadline (`_traced`: the caller's ambient one, else
+`deadline.default.ms`), and an expired one fails before any storage call.
+`breaker.enabled` and `retry.budget.enabled` wrap the store in a
+`ResilientStorageBackend` (storage/resilient.py) above the fault-injecting
+backend: a circuit breaker that fails fast once the store has failed
+`breaker.failure.threshold` times in a row, and budgeted retries.
+`hedge.enabled` races a straggling chunk-window GET against a second one
+(fetch/hedge.py), below the decrypt; `admission.enabled` builds the entry
+gate (utils/admission.py) that a service boundary acquires around each
+request; `slo.enabled` runs the SLO engine (metrics/slo.py) over the
+operation metrics, served by `slo_status`.
 
 Observability, as in the JAX package: `configure` always creates the
 operation metrics (`Metrics`, metrics/rsm_metrics.py) and the tracer, flight
@@ -82,6 +94,7 @@ from tieredstorage_tpu_torch.fetch.cache.device_hot import DeviceHotCache
 from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager, DefaultChunkManager
 from tieredstorage_tpu_torch.fetch.enumeration import FetchChunkEnumeration
 from tieredstorage_tpu_torch.fetch.factory import ChunkManagerFactory
+from tieredstorage_tpu_torch.fetch.hedge import HedgeBudget, Hedger
 from tieredstorage_tpu_torch.fetch.index_cache import MemorySegmentIndexesCache
 from tieredstorage_tpu_torch.fetch.manifest_cache import (
     ManifestLookahead,
@@ -123,6 +136,11 @@ from tieredstorage_tpu_torch.storage.core import (
     StorageBackendException,
 )
 from tieredstorage_tpu_torch.storage.replicated import ReplicatedStorageBackend
+from tieredstorage_tpu_torch.storage.resilient import (
+    CircuitBreaker,
+    ResilientStorageBackend,
+    RetryBudget,
+)
 from tieredstorage_tpu_torch.transform.api import (
     DEFAULT_DEVICE,
     DetransformOptions,
@@ -132,6 +150,8 @@ from tieredstorage_tpu_torch.transform.api import (
 from tieredstorage_tpu_torch.transform.pipeline import SegmentTransformation
 from tieredstorage_tpu_torch.utils import deadline as deadline_util
 from tieredstorage_tpu_torch.utils import faults, flightrecorder as flight
+from tieredstorage_tpu_torch.utils.admission import AdmissionController
+from tieredstorage_tpu_torch.utils.deadline import check_deadline, ensure_deadline
 from tieredstorage_tpu_torch.utils.flightrecorder import NOOP_RECORDER, FlightRecorder
 from tieredstorage_tpu_torch.utils.ratelimit import RateLimitedStream, TokenBucket
 from tieredstorage_tpu_torch.utils.streams import ClosableStreamHolder
@@ -144,21 +164,27 @@ def _traced(name: str):
     """Span around an RSM operation, tagged with topic/partition; the spans
     also open torch.profiler ranges when `tracing.jax.profiler.enabled`.
 
+    Also the deadline entry point: the operation adopts the caller's
+    ambient end-to-end Deadline or starts one from `deadline.default.ms`,
+    and an already-expired budget fails fast here — before any storage
+    work.
+
     The flight recorder opens its per-request record here too, keyed by the
     span's trace id — reentrant, so an outer layer that already opened one
-    for the whole request keeps one record. (The JAX package's `_traced`
-    also installs the `deadline.default.ms` budget; that key is not ported
-    yet.)"""
+    for the whole request keeps one record."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, metadata, *args, **kwargs):
             tp = metadata.remote_log_segment_id.topic_id_partition.topic_partition
-            with self.tracer.span(
-                name, topic=tp.topic, partition=tp.partition
-            ) as span, self.flight_recorder.request(
-                name, trace_id=span.trace_id if span else None
-            ):
+            with ensure_deadline(self.default_deadline_s), \
+                    self.tracer.span(
+                        name, topic=tp.topic, partition=tp.partition
+                    ) as span, \
+                    self.flight_recorder.request(
+                        name, trace_id=span.trace_id if span else None
+                    ):
+                check_deadline(name)
                 return fn(self, metadata, *args, **kwargs)
 
         return wrapper
@@ -192,6 +218,14 @@ class RemoteStorageManager:
         self._sweeper = None
         self._sweep_scheduler = None
         self._metrics: Optional[Metrics] = None
+        self._breaker: Optional[CircuitBreaker] = None
+        self._retry_budget: Optional[RetryBudget] = None
+        self._hedger: Optional[Hedger] = None
+        #: SLO engine (`slo.enabled`): burn rates and verdicts (`slo_status`).
+        self._slo = None
+        #: Entry-gate admission controller (`admission.enabled`); a service
+        #: boundary acquires and releases it around each request.
+        self.admission: Optional[AdmissionController] = None
         self.tracer = NOOP_TRACER
         #: Per-request flight recorder (`flight.enabled`); the RSM entries
         #: open records, the fetch tiers enrich them.
@@ -219,7 +253,7 @@ class RemoteStorageManager:
         )
         storage = config.storage_backend_class()
         storage.configure(config.storage_configs())
-        storage = self._wrap_storage_faults(config, storage)
+        storage = self._wrap_storage_resilience(config, storage)
         backend = config.transform_backend_class()
         backend.configure(config.transform_configs())
         backend.tracer = self.tracer
@@ -247,6 +281,7 @@ class RemoteStorageManager:
             self._rate_bucket = TokenBucket(config.upload_rate_limit)
         self._chunk_manager = self._build_chunk_manager(backend)
         self._wire_fetch_observability()
+        self._wire_tail_tolerance(config)
         self._manifest_cache = MemorySegmentManifestCache()
         self._manifest_cache.configure(config.fetch_manifest_cache_configs())
         self._manifest_lookahead = ManifestLookahead(self._manifest_cache)
@@ -258,6 +293,7 @@ class RemoteStorageManager:
         self._wire_replication(config)
         self._wire_scrubber(config)
         self._wire_lifecycle(config)
+        self._wire_slo(config)
 
     def _transform_device(self):
         """The configured `transform.device` (`cuda:0` by default)."""
@@ -268,14 +304,16 @@ class RemoteStorageManager:
         `transform.device` for a host backend (api.checksum_device)."""
         return checksum_device(self._transform_backend, self._transform_device())
 
-    def _wrap_storage_faults(
+    def _wrap_storage_resilience(
         self, config: RemoteStorageManagerConfig, storage: StorageBackend
     ) -> StorageBackend:
-        """The fault half of the JAX package's `_wrap_storage_resilience`:
-        `fault.injection.enabled` wraps the backend in a
-        FaultInjectingBackend executing `fault.schedule`, and `faults.spec`
+        """Layering (innermost first): backend → fault injection
+        (`fault.injection.enabled` runs `fault.schedule`) → circuit breaker
+        + retry budget, so injected faults exercise the breaker and the
+        budgeted retries the same way real outages do. `faults.spec`
         installs the process-wide fault plane (utils/faults.py) across the
-        I/O seams. The breaker and the retry budget are not ported."""
+        I/O seams; its `storage.read` seam fires in the chunk manager,
+        above this stack, so its errors never reach the breaker."""
         if config.fault_injection_enabled:
             from tieredstorage_tpu_torch.faults import FaultInjectingBackend, FaultSchedule
 
@@ -296,6 +334,28 @@ class RemoteStorageManager:
                 "Fault plane ENABLED with %d rule(s) across the I/O seams; "
                 "calls will be deliberately failed/torn/slowed",
                 len(plane.rules),
+            )
+        if config.breaker_enabled:
+            self._breaker = CircuitBreaker(
+                failure_threshold=config.breaker_failure_threshold,
+                cooldown_s=config.breaker_cooldown_ms / 1000.0,
+                on_transition=lambda old, new: self.tracer.event(
+                    "storage.breaker.transition", from_state=old.name, to_state=new.name
+                ),
+            )
+        if config.retry_budget_enabled:
+            self._retry_budget = RetryBudget(
+                config.retry_budget_percent,
+                capacity=float(config.retry_budget_capacity),
+            )
+        if self._breaker is not None or self._retry_budget is not None:
+            storage = ResilientStorageBackend(
+                storage,
+                self._breaker,
+                retry_budget=self._retry_budget,
+                max_attempts=config.retry_budget_max_attempts,
+                backoff_s=config.retry_budget_backoff_ms / 1000.0,
+                tracer=self.tracer,
             )
         return storage
 
@@ -351,8 +411,8 @@ class RemoteStorageManager:
 
     @staticmethod
     def _find_replicated(storage) -> Optional[ReplicatedStorageBackend]:
-        """Unwrap the fault decorator (it exposes `delegate`) down to a
-        ReplicatedStorageBackend, if one is in the stack."""
+        """Unwrap the resilience/fault decorators (each exposes `delegate`)
+        down to a ReplicatedStorageBackend, if one is in the stack."""
         seen = 0
         while storage is not None and seen < 8:
             if isinstance(storage, ReplicatedStorageBackend):
@@ -466,6 +526,135 @@ class RemoteStorageManager:
             out["sweeper"] = self._sweep_scheduler.status()
         return out
 
+    def _wire_slo(self, config: RemoteStorageManagerConfig) -> None:
+        """SLO engine (`slo.*`): declarative objectives over the histograms
+        and counters the earlier wiring just built — fetch latency against
+        the deadline budget, request-visible error rate, the admission shed
+        rate, (opt-in) a chunk-cache hit floor and the readahead
+        misprediction bound. Gauges land in the slo-metrics group;
+        `slo_status` serves the verdicts."""
+        if not config.slo_enabled:
+            return
+        from tieredstorage_tpu_torch.metrics.slo import (
+            HistogramLatencySource,
+            RatioSource,
+            SloEngine,
+            SloSpec,
+        )
+
+        metrics = self._metrics
+        specs: list = []
+        threshold_ms = config.slo_fetch_latency_threshold_ms
+        if threshold_ms is None:
+            threshold_ms = config.deadline_default_ms
+        if threshold_ms is not None:
+            objective = config.slo_fetch_latency_objective_percent / 100.0
+            specs.append(SloSpec(
+                name="fetch-latency",
+                description=(
+                    f"p{config.slo_fetch_latency_objective_percent} chunk "
+                    f"fetch within {threshold_ms} ms (the deadline budget)"
+                ),
+                objective=objective,
+                source=HistogramLatencySource(
+                    metrics, "chunk-fetch-time", float(threshold_ms)
+                ),
+            ))
+        inner = self._innermost_chunk_manager(self._chunk_manager)
+
+        def fetch_errors() -> float:
+            bad = float(deadline_util.exceeded_total())
+            if inner is not None:
+                bad += float(inner.corruptions)
+            return bad
+
+        def fetch_events() -> float:
+            return float(
+                metrics.histogram_count("chunk-fetch-time")
+            ) + fetch_errors()
+
+        specs.append(SloSpec(
+            name="fetch-errors",
+            description=(
+                "chunk fetches without a request-visible failure "
+                "(detransform corruption, deadline expiry)"
+            ),
+            objective=config.slo_error_rate_objective_percent / 100.0,
+            source=RatioSource(
+                good=lambda: fetch_events() - fetch_errors(),
+                total=fetch_events,
+            ),
+        ))
+        if self.admission is not None:
+            admission = self.admission
+            specs.append(SloSpec(
+                name="shed-rate",
+                description=(
+                    f"requests admitted past the entry gate (sheds bounded "
+                    f"at {config.slo_shed_rate_max_percent}%)"
+                ),
+                objective=1.0 - config.slo_shed_rate_max_percent / 100.0,
+                source=RatioSource(
+                    good=lambda: float(admission.admitted_total),
+                    total=lambda: float(
+                        admission.admitted_total + admission.shed_total
+                    ),
+                ),
+            ))
+        floor = config.slo_cache_hit_floor_percent
+        chunk_cache = self._chunk_cache_tier(self._chunk_manager)
+        if floor > 0 and chunk_cache is not None:
+            stats = chunk_cache.stats
+            specs.append(SloSpec(
+                name="cache-hit",
+                description=f"chunk-cache hit rate floor ({floor}%)",
+                objective=floor / 100.0,
+                source=RatioSource(
+                    good=lambda: float(stats.hits),
+                    total=lambda: float(stats.hits + stats.misses),
+                ),
+            ))
+        if self._readahead is not None:
+            readahead = self._readahead
+            bound = readahead.misprediction_max_ratio
+            specs.append(SloSpec(
+                name="readahead-misprediction",
+                description=(
+                    "speculated decrypt bytes later consumed by the stream "
+                    f"(wasted bytes bounded at {bound:.0%} — "
+                    "readahead.misprediction.max.ratio)"
+                ),
+                objective=1.0 - bound,
+                source=RatioSource(
+                    good=lambda: float(
+                        readahead.bytes_speculated - readahead.wasted_bytes
+                    ),
+                    total=lambda: float(readahead.bytes_speculated),
+                ),
+            ))
+        self._slo = SloEngine(
+            specs,
+            short_window_s=config.slo_window_short_ms / 1000.0,
+            long_window_s=config.slo_window_long_ms / 1000.0,
+        )
+        self._slo.register_gauges(self._metrics.registry)
+        log.info(
+            "SLO engine enabled: specs=%s windows=%d/%dms",
+            [s.name for s in specs], config.slo_window_short_ms,
+            config.slo_window_long_ms,
+        )
+
+    @property
+    def slo_engine(self):
+        return self._slo
+
+    def slo_status(self) -> dict:
+        """Verdict payload (evaluates: every read is also a burn-rate window
+        tick, the Prometheus model)."""
+        if self._slo is None:
+            raise RemoteStorageException("SLO engine is not enabled")
+        return {"enabled": True, **self._slo.evaluate()}
+
     def _wire_scrubber(self, config: RemoteStorageManagerConfig) -> None:
         """Background integrity scrubbing (scrub/): enumerate + verify +
         quarantine/repair on a jittered period. `scrub.rate.bytes` paces
@@ -558,19 +747,79 @@ class RemoteStorageManager:
             self._readahead.tracer = self.tracer
             self._readahead.flight_recorder = self.flight_recorder
 
+    def _wire_tail_tolerance(self, config: RemoteStorageManagerConfig) -> None:
+        """Hedged chunk fetches (`hedge.*`) and entry admission control
+        (`admission.*`) — the tail-at-scale pair: hedge the stragglers,
+        shed the overload (Dean & Barroso 2013; DAGOR, SOSP 2018)."""
+        if config.hedge_enabled:
+            static_s = config.hedge_delay_ms / 1000.0
+            min_samples = config.hedge_delay_min_samples
+            metrics = self._metrics
+
+            def hedge_delay_s() -> float:
+                # Observed p95 of the chunk-fetch histogram once it holds
+                # enough samples; the static config value until then.
+                if metrics.histogram_count("chunk-fetch-time") >= min_samples:
+                    p95_ms = metrics.latency_quantile("chunk-fetch-time", 0.95)
+                    if p95_ms is not None:
+                        return p95_ms / 1000.0
+                return static_s
+
+            self._hedger = Hedger(
+                hedge_delay_s,
+                HedgeBudget(config.hedge_budget_percent),
+                tracer=self.tracer,
+                on_win=self._metrics.record_hedge_win,
+            )
+            inner = self._innermost_chunk_manager(self._chunk_manager)
+            if inner is not None:
+                inner.hedger = self._hedger
+        if config.admission_enabled:
+            self.admission = AdmissionController(
+                config.admission_max_concurrent,
+                config.admission_max_queue,
+                queue_timeout_s=config.admission_queue_timeout_ms / 1000.0,
+                retry_after_s=config.admission_retry_after_ms / 1000.0,
+                on_wait=self._metrics.record_admission_wait,
+            )
+
+    @property
+    def default_deadline_s(self) -> Optional[float]:
+        """`deadline.default.ms` in seconds; `_traced` installs it when the
+        caller brought no deadline."""
+        if self._config is None or self._config.deadline_default_ms is None:
+            return None
+        return self._config.deadline_default_ms / 1000.0
+
+    @property
+    def hedger(self) -> Optional[Hedger]:
+        return self._hedger
+
+    @property
+    def retry_budget(self) -> Optional[RetryBudget]:
+        return self._retry_budget
+
     def _register_resilience_metrics(self) -> None:
-        """The resilience-metrics gauges of what this package wires: the
-        fault schedule, the chunk cache's degradations, the chunk manager's
-        corruptions and quarantine, and the process deadline counter. The
-        breaker, hedger, retry budget and admission controller are not
-        ported yet: they stay None, as the JAX RSM passes them when those
-        planes are off."""
+        """The resilience-metrics gauges of every wired component (None for
+        a plane that is off), then the retry-metrics group with the storage
+        breaker. The fleet's breaker boards come with the fleet."""
         register_resilience_metrics(
             self._metrics.registry,
+            breaker=self._breaker,
             fault_schedule=self._fault_schedule,
             chunk_cache=self._chunk_cache_tier(self._chunk_manager),
             chunk_manager=self._innermost_chunk_manager(self._chunk_manager),
+            hedger=self._hedger,
+            retry_budget=self._retry_budget,
+            admission=self.admission,
             deadline_exceeded_supplier=deadline_util.exceeded_total,
+        )
+        from tieredstorage_tpu_torch.metrics.retry_metrics import register_retry_metrics
+
+        register_retry_metrics(
+            self._metrics.registry,
+            breakers={"storage": self._breaker} if self._breaker is not None else None,
+            boards={},
         )
 
     def _register_cache_metrics(self) -> None:
@@ -1263,10 +1512,10 @@ class RemoteStorageManager:
         # As in the JAX package: the anti-entropy scheduler, the scrub
         # scheduler and the sweep scheduler (their passes read through the
         # store and the transform backend), then the journal, then the
-        # replicated store's prober and write pool; then the Chrome trace
-        # export (`tracing.export.path`); then the chunk chain:
-        # its close drains the readahead and cache pools, whose loads reach
-        # the transform backend closed last.
+        # replicated store's prober and write pool, the hedger's pool; then
+        # the Chrome trace export (`tracing.export.path`); then the chunk
+        # chain: its close drains the readahead and cache pools, whose loads
+        # reach the transform backend closed last.
         if self._antientropy_scheduler is not None:
             self._antientropy_scheduler.stop()
         if self._scrub_scheduler is not None:
@@ -1277,6 +1526,8 @@ class RemoteStorageManager:
             self._lifecycle_journal.close()
         if self._replicated is not None:
             self._replicated.close()
+        if self._hedger is not None:
+            self._hedger.close()
         if self._config is not None and self._config.tracing_export_path:
             try:
                 self.tracer.write_chrome_trace(self._config.tracing_export_path)

@@ -2,9 +2,11 @@
 
 Counterpart of tieredstorage_tpu/storage/replicated.py, with plain locks; the
 RSM hands it its tracer and the failover-time hook (`on_failover`), and
-publishes its counters as the replication-metrics gauges. The breaker
-lookup finds nothing until the circuit breakers are ported; the health
-score works without one, as in the JAX package.
+publishes its counters as the replication-metrics gauges. A replica whose
+backend chain holds an OPEN circuit breaker (a child wrapped in
+storage/resilient.py's `ResilientStorageBackend`) scores 0 and is read
+last, as in the JAX package; without a breaker the score is latency and
+error rate alone.
 
 `ReplicatedStorageBackend` composes N child backends (any mix of
 memory/filesystem/S3/GCS/Azure) behind the ordinary `StorageBackend`
@@ -30,9 +32,9 @@ replicating across object stores):
   children so `fetch/hedge.py` can race a straggling primary against a
   *distinct* replica instead of doubling load on the same one.
 
-Anti-entropy repair (diffing replicas by prefix and copying
-missing/divergent objects back toward quorum) reuses this backend's replica
-states; it is not ported yet.
+Anti-entropy repair (scrub/antientropy.py: diffing replicas by prefix and
+copying missing/divergent objects back toward quorum) reuses this backend's
+replica states.
 
 Configured reflectively as ``storage.backend.class`` with::
 
