@@ -162,6 +162,39 @@ Phases, in order, each printing its seconds:
              queued, 200 ms) as a service boundary acquires it, and
              `slo_status()`'s latency, error and shed objectives.
 
+12. sidecar — the main path's keys behind this package's sidecar, the
+             launch counts zeroed before (a) and read after (c): (a) the
+             1 GiB segment through the shim-wire gateway over loopback as
+             the broker's shim calls it (`POST /v1/copy` with chunked
+             transfer, a whole streamed `/v1/fetch`, 64 seeded 1 MiB ranges,
+             every index through `/v1/fetch-index`, `/v1/delete`, then a
+             404) and the same calls in process, in turns (gateway, plain,
+             plain, gateway): every byte equal, AES, the tree and L1
+             launched through the gateway, the gateway-over-plain ratios;
+             (b) 8 keep-alive connections read their own 64 MiB slices in
+             1 MiB fetches through one gateway over the batcher at phase 6's
+             settings: wall, p50/p99, merged launches, one worker for each
+             connection within `sidecar.http.max.workers`; (c) admission 2 + 2 with both slots
+             held: 8 requests that send only their headers answer 429 with
+             Retry-After; `x-deadline-ms: 0` answers 504 with no store call
+             and no GCM window (`1` is recorded); a `traceparent` fetch
+             whose gateway span holds the RSM's and whose record
+             `/debug/requests?trace=` returns; `/slo`, `/scrub`,
+             `/debug/timeline`, `/debug/requests` with their planes on and
+             off; `/chunk` 404 "fleet mode disabled"; (d) `python -m
+             tieredstorage_tpu_torch.sidecar --http-port 0 --metrics-port 0`
+             over a config of this package's classes (the default
+             `transform.device`): a 256 MiB segment (cut for time) over the
+             shim wire and over gRPC, GCM windows in the child's scrape,
+             the card memory the child holds and gives back, SIGTERM and
+             exit 0; (e) (a)'s ranges and (b)'s fan-in at 256 MiB over the
+             batcher and a memory chunk cache, after an untimed warm-up, in
+             four children in turns with `TSTPU_LOCK_WITNESS` 0, 1, 1, 0:
+             no lock-order violation, the
+             batcher's condition, the dispatch lock and the chunk cache's
+             in-flight lock seen, the batcher's and the backend's mutation
+             sites recorded, and the read's wall time both ways.
+
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
 failed check exits non-zero before those lines. Without CUDA the script exits
@@ -174,10 +207,12 @@ import argparse
 import base64
 import contextlib
 import dataclasses
+import http.client
 import json
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2790,6 +2825,657 @@ def failure_policy_phase(seed: int, segment_bytes: int, work: Path, device: str 
     return out
 
 
+SIDECAR_CUT_BYTES = 256 * MIB
+#: Phase 6's batcher settings, which (b) and (e) read through.
+SIDECAR_BATCH = {"transform.batch.enabled": True, "transform.batch.wait.ms": 2,
+                 "transform.batch.windows": 16, "transform.batch.bytes": 64 * MIB}
+
+
+def _shim_post(port: int, path: str, body: bytes = b"", headers=None, chunks=None,
+               conn=None) -> tuple[int, dict, bytes]:
+    """One POST of the shim wire. `chunks` (an iterable of bytes) sends the
+    body with chunked transfer, as java.net.http streams a body of unknown
+    length; `conn` reuses a keep-alive connection."""
+    own = conn is None
+    if own:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        if chunks is None:
+            conn.request("POST", path, body=body, headers=headers or {})
+        else:
+            conn.putrequest("POST", path)
+            conn.putheader("Transfer-Encoding", "chunked")
+            for name, value in (headers or {}).items():
+                conn.putheader(name, value)
+            conn.endheaders()
+            for block in chunks:
+                conn.send(b"%x\r\n" % len(block) + block + b"\r\n")
+            conn.send(b"0\r\n\r\n")
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        if own:
+            conn.close()
+
+
+def _shim_get(port: int, path: str) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _copy_body(md_frame: bytes, sections: dict, block: int = 64 << 10):
+    """The /v1/copy body in the shim's order, each section (a file path, or
+    None when absent) streamed from disk in 64 KiB blocks."""
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    yield md_frame
+    for name in shimwire.COPY_SECTIONS:
+        path = sections.get(name)
+        if path is None:
+            yield b"\x00"
+            continue
+        yield struct.pack(">BQ", 1, Path(path).stat().st_size)
+        with open(path, "rb") as f:
+            while data := f.read(block):
+                yield data
+
+
+def _gateway_fetch(port: int, md_frame: bytes, start: int, end=None, headers=None,
+                   conn=None) -> bytes:
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    status, _, body = _shim_post(port, "/v1/fetch", md_frame + shimwire.encode_fetch_tail(start, end),
+                                 headers=headers, conn=conn)
+    check(status == 200, f"sidecar: fetch {start}-{end} answered {status}: {body[:200]!r}")
+    return body
+
+
+def _shim_client(plan: dict) -> dict:
+    """The gateway's client, in a process of its own as the broker's shim
+    is (a client in the gateway's interpreter would share its lock). Modes:
+    "turn" copies, reads whole, reads `offsets` in 1 MiB ranges, fetches
+    every index, deletes and gets the 404; "ranged" reads the ranges;
+    "fan_in" reads `consumers` slices at once, each on one keep-alive
+    connection. Every byte is compared with the files of the plan."""
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    port, md_frame = plan["port"], bytes.fromhex(plan["md"])
+    source = Path(plan["sections"]["log_segment"]).read_bytes()
+    out: dict = {}
+
+    def ranged(conn=None) -> list:
+        latencies = []
+        for off in plan["offsets"]:
+            t = time.perf_counter()
+            part = _gateway_fetch(port, md_frame, off, off + MIB - 1, conn=conn)
+            latencies.append((time.perf_counter() - t) * 1e3)
+            check(part == source[off:off + MIB], f"sidecar client: range at {off} differs")
+        return latencies
+
+    if plan["mode"] == "turn":
+        t = time.perf_counter()
+        status, _, body = _shim_post(port, "/v1/copy", chunks=_copy_body(md_frame, plan["sections"]))
+        out["copy_s"] = time.perf_counter() - t
+        check(status == 204, f"sidecar client: copy answered {status}: {body[:200]!r}")
+        t = time.perf_counter()
+        whole = _gateway_fetch(port, md_frame, 0)
+        out["fetch_s"] = time.perf_counter() - t
+        check(whole == source, "sidecar client: the whole fetch differs from the source")
+        del whole
+        out["latencies_ms"] = ranged()
+        for name, path in plan["indexes"].items():
+            status, _, got = _shim_post(port, "/v1/fetch-index",
+                                        md_frame + shimwire.encode_index_type(name))
+            check((status, got) == (200, Path(path).read_bytes()),
+                  f"sidecar client: the {name} index answered {status} or differs")
+        check(_shim_post(port, "/v1/delete", md_frame)[0] == 204, "sidecar client: delete")
+        status = _shim_post(port, "/v1/fetch", md_frame + shimwire.encode_fetch_tail(0, None))[0]
+        check(status == 404, f"sidecar client: a fetch after the delete answered {status}")
+    elif plan["mode"] == "ranged":
+        t = time.perf_counter()
+        out["latencies_ms"] = ranged()
+        out["wall_s"] = time.perf_counter() - t
+    else:
+        latencies: list = []
+        slice_bytes = plan["slice_bytes"]
+
+        def consumer(i: int) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            try:
+                for off in range(i * slice_bytes, (i + 1) * slice_bytes, MIB):
+                    t = time.perf_counter()
+                    part = _gateway_fetch(port, md_frame, off, off + MIB - 1, conn=conn)
+                    latencies.append((time.perf_counter() - t) * 1e3)
+                    check(part == source[off:off + MIB], f"sidecar fan-in: range at {off} differs")
+            finally:
+                conn.close()
+
+        t = time.perf_counter()
+        errors = _run_threads([lambda i=i: consumer(i) for i in range(plan["consumers"])])
+        out["wall_s"] = time.perf_counter() - t
+        check(not errors, f"sidecar fan-in: {errors[:1]!r}")
+        out["latencies_ms"] = latencies
+    return out
+
+
+def _run_client(plan: dict) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print('CLIENT ' + json.dumps("
+         "chip_smoke._shim_client(json.loads(sys.argv[1]))))", json.dumps(plan)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=900)
+    check(res.returncode == 0, f"sidecar: the client failed:\n{res.stdout[-3000:]}")
+    return json.loads(next(x for x in res.stdout.splitlines() if x.startswith("CLIENT "))[7:])
+
+
+def _sections(sd) -> dict:
+    """The copy sections of `sd` as file paths (the leader-epoch checkpoint
+    written beside the log)."""
+    epoch = Path(sd.log_segment).with_suffix(".leader-epoch")
+    epoch.write_bytes(sd.leader_epoch_index)
+    sections = {"log_segment": sd.log_segment, "offset_index": sd.offset_index,
+                "time_index": sd.time_index, "producer_snapshot": sd.producer_snapshot_index,
+                "transaction_index": sd.transaction_index, "leader_epoch_index": epoch}
+    return {k: None if v is None else str(v) for k, v in sections.items()}
+
+
+def _client_plan(mode: str, port: int, md, sd, **extra) -> dict:
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    return {"mode": mode, "port": port, "md": shimwire.encode_metadata(md).hex(),
+            "sections": _sections(sd), **extra}
+
+
+def _sidecar_turns(rsm, gw, md, sd, files, leader_epoch: bytes, seed: int) -> dict:
+    """(a): the segment copied, read whole, read in 64 seeded 1 MiB ranges
+    with every index, deleted and refused, through the gateway (its client
+    in a child process) and in process, in turns (gateway, plain, plain,
+    gateway)."""
+    from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.metadata import KafkaUuid, RemoteLogSegmentId
+    from tieredstorage_tpu_torch.ops import _cuda
+
+    source = files["log"].read_bytes()
+    size = len(source)
+    rng = np.random.default_rng(seed + 31)
+    offsets = [int(o) for o in rng.integers(0, size - MIB, 64)]
+    indexes = {IndexType.OFFSET: files["offset"], IndexType.TIMESTAMP: files["time"],
+               IndexType.PRODUCER_SNAPSHOT: files["snapshot"]}
+
+    def plain_read(md, start, end=None) -> bytes:
+        with rsm.fetch_log_segment(md, start, end) as stream:
+            return stream.read()
+
+    turns, gateway_launches = [], {}
+    for arm in ("gateway", "plain", "plain", "gateway"):
+        # Each turn copies a segment of its own id, as a broker copies each
+        # rolled segment once (a manifest cached under an id outlives it).
+        md = dataclasses.replace(md, remote_log_segment_id=RemoteLogSegmentId(
+            md.remote_log_segment_id.topic_id_partition, KafkaUuid(rng.bytes(16))))
+        before = _cuda.launch_counts()
+        rec = {"arm": arm}
+        if arm == "gateway":
+            got = _run_client(_client_plan(
+                "turn", gw.port, md, sd, offsets=offsets,
+                indexes={**{t.name: str(p) for t, p in indexes.items()},
+                         "LEADER_EPOCH": str(Path(sd.log_segment).with_suffix(".leader-epoch"))}))
+            rec.update(copy_s=got["copy_s"], fetch_s=got["fetch_s"])
+            latencies = got["latencies_ms"]
+            for kernel, n in _cuda.launch_counts().items():
+                gateway_launches[kernel] = gateway_launches.get(kernel, 0) + n - before[kernel]
+        else:
+            t = time.perf_counter()
+            rsm.copy_log_segment_data(md, sd)
+            rec["copy_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            whole = plain_read(md, 0)
+            rec["fetch_s"] = time.perf_counter() - t
+            check(whole == source, "sidecar (plain): the whole fetch differs from the source")
+            del whole
+            latencies = []
+            for off in offsets:
+                t = time.perf_counter()
+                part = plain_read(md, off, off + MIB - 1)
+                latencies.append((time.perf_counter() - t) * 1e3)
+                check(part == source[off:off + MIB], f"sidecar (plain): range at {off} differs")
+            for index_type, path in indexes.items():
+                check(rsm.fetch_index(md, index_type).read() == path.read_bytes(),
+                      f"sidecar (plain): the {index_type.name} index differs")
+            check(rsm.fetch_index(md, IndexType.LEADER_EPOCH).read() == leader_epoch,
+                  "sidecar (plain): the LEADER_EPOCH index differs")
+            rsm.delete_log_segment_data(md)
+            try:
+                plain_read(md, 0)
+                raise SmokeFailure("sidecar: the deleted segment was served")
+            except RemoteResourceNotFoundException:
+                pass
+        rec["ranged_p50_ms"] = float(np.percentile(latencies, 50))
+        rec["ranged_p99_ms"] = float(np.percentile(latencies, 99))
+        gib = size / (1 << 30)
+        rec["copy_gib_s"], rec["fetch_gib_s"] = gib / rec["copy_s"], gib / rec["fetch_s"]
+        turns.append(rec)
+    _gcm_launched(gateway_launches, "sidecar (a) through the gateway")
+
+    def mean(arm, key):
+        return statistics.mean(r[key] for r in turns if r["arm"] == arm)
+
+    return {"segment_bytes": size, "turns": turns, "gateway_launches": gateway_launches,
+            **{f"{key}_gateway_over_plain": mean("gateway", key) / mean("plain", key)
+               for key in ("copy_gib_s", "fetch_gib_s", "ranged_p50_ms", "ranged_p99_ms")}}
+
+
+def _sidecar_fan_in(rsm, gw, md, sd, slice_bytes: int, consumers: int = 8) -> dict:
+    """(b): `consumers` keep-alive connections (threads of one client
+    process) read their own slices in 1 MiB fetches through one gateway,
+    at once."""
+    batcher = rsm.transform_backend.batcher
+    before = _batcher_counts(batcher)
+    got = _run_client(_client_plan("fan_in", gw.port, md, sd, slice_bytes=slice_bytes,
+                                   consumers=consumers))
+    # The pool grows a thread only when none is idle and never shrinks, so
+    # fewer threads than connections means the gateway served them in turn.
+    workers = len(gw._server._executor._threads)
+    check(min(consumers, gw.max_workers) <= workers <= gw.max_workers,
+          f"sidecar fan-in: {workers} workers for {consumers} connections "
+          f"(max {gw.max_workers})")
+    delta = _counts_delta(before, _batcher_counts(batcher))
+    check(delta["windows_submitted"] > 0 and delta["launches"] > 0,
+          f"sidecar fan-in: no merged launch ({delta})")
+    latencies = got["latencies_ms"]
+    return {"consumers": consumers, "slice_bytes": slice_bytes, "reads": len(latencies),
+            "wall_s": got["wall_s"], "p50_ms": float(np.percentile(latencies, 50)),
+            "p99_ms": float(np.percentile(latencies, 99)), "workers": workers,
+            "max_workers": gw.max_workers, "merged_launches": delta["launches"],
+            "batched_windows": delta["batched_windows"],
+            "fast_path_windows": delta["fast_path_windows"]}
+
+
+def _sidecar_policy(seed: int, work: Path, pub, priv, device, plain_gw) -> dict:
+    """(c): admission, deadlines, trace context and the status routes at
+    the boundary, over a 64 MiB segment."""
+    import socket
+
+    from tieredstorage_tpu_torch.ops import gcm
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.sidecar import shimwire
+    from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
+
+    seg = work / "segment-policy"
+    seg.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 41, 64 * MIB)
+    source = files["log"].read_bytes()
+    store = work / "store-policy"
+    store.mkdir()
+    counting = _counting_storage()
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "storage.backend.class": counting, "admission.enabled": True,
+        "admission.max.concurrent": 2, "admission.max.queue": 2,
+        "admission.queue.timeout.ms": 200, "admission.retry.after.ms": 1_000,
+        "tracing.enabled": True, "flight.enabled": True, "slo.enabled": True,
+        "timeline.enabled": True, "scrub.enabled": True, "scrub.interval.ms": 3_600_000}))
+    gw = SidecarHttpGateway(rsm).start()
+    rec: dict = {}
+    try:
+        rsm.copy_log_segment_data(md, sd)
+        md_frame = shimwire.encode_metadata(md)
+
+        # Admission 2 + 2 with both slots held: every request is shed, the
+        # queued two after the queue timeout, with only its headers sent.
+        admission = rsm.admission
+        shed_before = admission.shed_total
+        for _ in range(2):
+            admission.acquire("smoke-holder")
+        replies: list = []
+
+        def headers_only() -> None:
+            with socket.create_connection(("127.0.0.1", gw.port), timeout=60) as sock:
+                sock.sendall(b"POST /v1/copy HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                             b"Content-Length: %d\r\n\r\n" % (64 * MIB))
+                data = b""
+                while block := sock.recv(65536):
+                    data += block
+            head, _, body = data.partition(b"\r\n\r\n")
+            lines = head.decode("latin-1").split("\r\n")
+            fields = {k.lower(): v.strip() for k, _, v in (x.partition(":") for x in lines[1:])}
+            replies.append((int(lines[0].split()[1]), fields.get("retry-after"), body))
+
+        try:
+            errors = _run_threads([headers_only] * 8)
+        finally:
+            admission.release()
+            admission.release()
+        check(not errors, f"sidecar admission: {errors[:1]!r}")
+        check(sorted(r[:2] for r in replies) == [(429, "1")] * 8,
+              f"sidecar admission: {[r[:2] for r in replies]}")
+        check(admission.shed_total - shed_before == 8,
+              f"sidecar admission: shed {admission.shed_total - shed_before}")
+        check(_gateway_fetch(gw.port, md_frame, 0, MIB - 1) == source[:MIB],
+              "sidecar admission: the freed gateway did not serve")
+        rec["admission"] = {"held": 2, "queue": 2, "requests": 8, "shed": 8,
+                            "retry_after": "1", "body_bytes_sent": 0}
+
+        # Deadlines: '0' is already expired at the RSM's entry; '1' ms is
+        # adopted when the header is parsed and may still be live there.
+        deadline = {}
+        for value in ("0", "1"):
+            fetches, windows = dict(counting.fetches), gcm.device_dispatches()
+            status, _, body = _shim_post(gw.port, "/v1/fetch",
+                                         md_frame + shimwire.encode_fetch_tail(2 * MIB, 3 * MIB - 1),
+                                         headers={"x-deadline-ms": value})
+            deadline[value] = {
+                "status": status, "store_calls": sum(counting.fetches.values()) - sum(fetches.values()),
+                "gcm_windows": gcm.device_dispatches() - windows,
+                "body": body[:80].decode("utf-8", "replace")}
+        zero = deadline["0"]
+        check((zero["status"], zero["store_calls"], zero["gcm_windows"]) == (504, 0, 0),
+              f"sidecar deadline: {zero}")
+        rec["deadline"] = deadline
+
+        # Trace context: the caller's trace id on the gateway span, which
+        # encloses the RSM's; its flight record on /debug/requests.
+        trace = np.random.default_rng(seed + 43).bytes(16).hex()
+        _gateway_fetch(gw.port, md_frame, 5 * MIB, 6 * MIB - 1,
+                       headers={"traceparent": f"00-{trace}-00f067aa0ba902b7-01"})
+        status, payload = 404, b""
+        for _ in range(200):
+            status, payload = _shim_get(gw.port, f"/debug/requests?trace={trace}")
+            if status == 200:
+                break
+            time.sleep(0.01)
+        check(status == 200, f"sidecar trace: /debug/requests answered {status}")
+        records = json.loads(payload)["slowest"]
+        spans = {s.name: s for s in rsm.tracer.spans() if s.trace_id == trace}
+        outer, inner = spans.get("gateway.fetch"), spans.get("rsm.fetch_log_segment")
+        check(outer is not None and inner is not None and outer.start_s <= inner.start_s
+              and inner.end_s <= outer.end_s,
+              f"sidecar trace: spans {sorted(spans)}")
+        rec["trace"] = {"trace_id": trace, "records": [r["name"] for r in records],
+                        "tiers": records[0].get("tiers") if records else None,
+                        "gateway_span_ms": outer.duration_s * 1e3,
+                        "rsm_span_ms": inner.duration_s * 1e3}
+
+        # Status routes on (this RSM) and off (phase (a)'s RSM); no fleet.
+        routes = {}
+        for state, port in (("on", gw.port), ("off", plain_gw.port)):
+            for path in ("/slo", "/scrub", "/debug/timeline", "/debug/requests", "/chunk?key=k&chunks=0-0"):
+                status, body = _shim_get(port, path)
+                routes[f"{state} {path}"] = status
+                if path == "/scrub" and status == 200:
+                    check(json.loads(body)["enabled"] == (state == "on"), f"sidecar: /scrub {state}")
+                if path.startswith("/chunk"):
+                    check(body == b"fleet mode disabled", f"sidecar: /chunk said {body!r}")
+        want = {"on /slo": 200, "on /scrub": 200, "on /debug/timeline": 200,
+                "on /debug/requests": 200, "off /slo": 404, "off /scrub": 200,
+                "off /debug/timeline": 404, "off /debug/requests": 404}
+        check(all(routes[k] == v for k, v in want.items())
+              and routes["on /chunk?key=k&chunks=0-0"] == routes["off /chunk?key=k&chunks=0-0"] == 404,
+              f"sidecar routes: {routes}")
+        rec["routes"] = routes
+    finally:
+        gw.stop()
+        rsm.close()
+    return rec
+
+
+def _sidecar_process(seed: int, work: Path, pub, priv, segment_bytes: int,
+                     device: str = "cuda:0") -> dict:
+    """(d): `python -m tieredstorage_tpu_torch.sidecar` in a child: copy and
+    fetch over the shim wire and over gRPC, its scrape, the card memory it
+    holds, SIGTERM."""
+    import signal
+
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.sidecar import shimwire
+    from tieredstorage_tpu_torch.sidecar.client import SidecarRsmClient
+
+    seg = work / "segment-process"
+    seg.mkdir()
+    md, sd, files, leader_epoch = write_segment(seg, seed + 51, segment_bytes)
+    source = files["log"].read_bytes()
+    store = work / "store-process"
+    store.mkdir()
+    configs = _rsm_configs(store, pub, priv, device, SIDECAR_BATCH)
+    if device == "cuda:0":
+        del configs["transform.device"]  # the default
+    cfg = work / "sidecar.json"
+    cfg.write_text(json.dumps(configs))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.synchronize()
+        free_before = torch.cuda.mem_get_info(0)[0]
+    with open(work / "sidecar.stderr", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tieredstorage_tpu_torch.sidecar", "--config", str(cfg),
+             "--http-port", "0", "--metrics-port", "0"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    rec: dict = {"segment_bytes": segment_bytes}
+    try:
+        t = time.perf_counter()
+        line = proc.stdout.readline()
+        rec["ready_s"] = time.perf_counter() - t
+        check(line.startswith("SIDECAR_READY port="),
+              f"sidecar process: {line!r}\n{(work / 'sidecar.stderr').read_text()[-3000:]}")
+        ports = {k: int(v) for k, v in (f.split("=") for f in line.split()[1:])}
+        rec["ready_line"] = line.strip()
+        md_frame = shimwire.encode_metadata(md)
+        gib = segment_bytes / (1 << 30)
+
+        t = time.perf_counter()
+        status, _, body = _shim_post(ports["http_port"], "/v1/copy", chunks=_copy_body(md_frame, _sections(sd)))
+        rec["http_copy_gib_s"] = gib / (time.perf_counter() - t)
+        check(status == 204, f"sidecar process: http copy answered {status}: {body[:200]!r}")
+        t = time.perf_counter()
+        status, _, whole = _shim_post(ports["http_port"], "/v1/fetch",
+                                      md_frame + shimwire.encode_fetch_tail(0, None))
+        rec["http_fetch_gib_s"] = gib / (time.perf_counter() - t)
+        check(status == 200 and whole == source, "sidecar process: the http fetch differs")
+        del whole
+        check(_shim_post(ports["http_port"], "/v1/delete", md_frame)[0] == 204,
+              "sidecar process: http delete")
+
+        # The gRPC leg copies the segment under an id of its own.
+        from tieredstorage_tpu_torch.metadata import KafkaUuid, RemoteLogSegmentId
+
+        md = dataclasses.replace(md, remote_log_segment_id=RemoteLogSegmentId(
+            md.remote_log_segment_id.topic_id_partition,
+            KafkaUuid(np.random.default_rng(seed + 52).bytes(16))))
+        client = SidecarRsmClient(f"127.0.0.1:{ports['port']}", timeout=600)
+        try:
+            t = time.perf_counter()
+            client.copy_log_segment_data(md, sd)
+            rec["grpc_copy_gib_s"] = gib / (time.perf_counter() - t)
+            t = time.perf_counter()
+            check(client.fetch_log_segment(md, 0).read() == source,
+                  "sidecar process: the gRPC fetch differs")
+            rec["grpc_fetch_gib_s"] = gib / (time.perf_counter() - t)
+            off = segment_bytes // 3
+            check(client.fetch_log_segment(md, off, off + MIB - 1).read() == source[off:off + MIB],
+                  "sidecar process: the gRPC range differs")
+            check(client.fetch_index(md, IndexType.LEADER_EPOCH).read() == leader_epoch,
+                  "sidecar process: the gRPC index differs")
+            client.delete_log_segment_data(md)
+        finally:
+            client.close()
+        body, rec["scrape_ms"] = _scrape(ports["metrics_port"], "/metrics")
+        samples = _exposition_samples(body.decode())
+        rec["scraped"] = {k: v for k, v in samples.items() if k.startswith(
+            ("batch_metrics_batch_windows_submitted_total", "batch_metrics_batch_launches_total",
+             "batch_metrics_batch_fast_path_windows_total",
+             "remote_storage_manager_metrics_segment_copy_time_ms_count"))}
+        check(samples.get("batch_metrics_batch_windows_submitted_total", 0) > 0,
+              f"sidecar process: no GCM window in the scrape: {rec['scraped']}")
+        if on_card:
+            # The windows count on any device; the card's free memory says
+            # the child holds a context and buffers there (this process does
+            # no device work meanwhile) and gives them back when it exits.
+            rec["child_card_mib"] = (free_before - torch.cuda.mem_get_info(0)[0]) / MIB
+            check(rec["child_card_mib"] >= 64,
+                  f"sidecar process: the child holds {rec['child_card_mib']:.1f} MiB of the card")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rec["exit_code"] = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SmokeFailure("sidecar process: SIGTERM did not end the child")
+    check(rec["exit_code"] == 0, f"sidecar process: exit {rec['exit_code']}\n"
+          f"{(work / 'sidecar.stderr').read_text()[-3000:]}")
+    if on_card:
+        rec["card_mib_after_exit"] = (free_before - torch.cuda.mem_get_info(0)[0]) / MIB
+        check(rec["card_mib_after_exit"] < 64,
+              f"sidecar process: {rec['card_mib_after_exit']:.1f} MiB still held after the exit")
+    return rec
+
+
+def _witness_reads(seed: int, work: str, segment_bytes: int, device: str = "cuda:0") -> dict:
+    """(e)'s reads: (a)'s 64 ranged reads and (b)'s fan-in through one
+    gateway over an RSM with the batcher and a memory chunk cache of a
+    sixteenth of the segment (so the fan-in still decrypts), after an
+    untimed warm-up read; run in a child, with the witness or without."""
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
+    from tieredstorage_tpu_torch.utils import locks
+
+    work = Path(work)
+    pub, priv = generate_key_pair_pem_files(work, prefix="witness")
+    seg, store = work / "segment", work / "store"
+    seg.mkdir()
+    store.mkdir()
+    md, sd, _, _ = write_segment(seg, seed + 61, segment_bytes)
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        **SIDECAR_BATCH,
+        "fetch.chunk.cache.class": "tieredstorage_tpu_torch.fetch.cache.memory.MemoryChunkCache",
+        "fetch.chunk.cache.size": segment_bytes // 16}))
+    gw = SidecarHttpGateway(rsm).start()
+    try:
+        rsm.copy_log_segment_data(md, sd)
+        # The process's first reads build the fetch's GCM contexts, the
+        # batcher's buffers and the gateway's workers: neither arm times them.
+        _run_client(_client_plan("fan_in", gw.port, md, sd, consumers=8,
+                                slice_bytes=min(2 * MIB, segment_bytes // 8)))
+        offsets = [int(o) for o in
+                   np.random.default_rng(seed + 31).integers(0, segment_bytes - MIB, 64)]
+        ranged = _run_client(_client_plan("ranged", gw.port, md, sd, offsets=offsets))
+        latencies = ranged["latencies_ms"]
+        fan_in = _sidecar_fan_in(rsm, gw, md, sd, segment_bytes // 8)
+        rec = {"witness": locks.witness_enabled(), "ranged_s": ranged["wall_s"],
+               "ranged_p50_ms": float(np.percentile(latencies, 50)),
+               "ranged_p99_ms": float(np.percentile(latencies, 99)),
+               "fan_in_wall_s": fan_in["wall_s"], "read_wall_s": ranged["wall_s"] + fan_in["wall_s"],
+               "merged_launches": fan_in["merged_launches"]}
+    finally:
+        gw.stop()
+        rsm.close()
+    if locks.witness_enabled():
+        races = locks.race_witness().snapshot()["sites"]
+        rec.update({"violations": list(locks.witness().violations),
+                    "locks": sorted(locks.witness().acquired_names()),
+                    "edges": len(locks.witness().edges()),
+                    "sites": sorted(races)})
+    return rec
+
+
+def _witness_child(seed: int, work: Path, segment_bytes: int, device: str,
+                   witness: bool) -> dict:
+    work.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(REPO), TSTPU_LOCK_WITNESS="1" if witness else "0")
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print('WITNESS ' + json.dumps("
+         "chip_smoke._witness_reads(int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), "
+         "sys.argv[4])))", str(seed), str(work), str(segment_bytes), device],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=900)
+    check(res.returncode == 0, f"witness: the child failed:\n{res.stdout[-3000:]}")
+    return json.loads(next(x for x in res.stdout.splitlines() if x.startswith("WITNESS "))[8:])
+
+
+def sidecar_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 12: the sidecar. (a)-(c) in this process, the launch counts
+    zeroed before (a)'s turns and read after (c); (d) and (e) in children."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="sidecar")
+    seg, store = work / "segment", work / "store"
+    seg.mkdir()
+    store.mkdir()
+    md, sd, files, leader_epoch = write_segment(seg, seed + 30, segment_bytes)
+    out: dict = {}
+    launches: dict = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name]["part_s"] = time.perf_counter() - t
+        for kernel, n in _cuda.launch_counts().items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        _cuda.reset_launch_counts()
+
+    _cuda.reset_launch_counts()
+    plain = RemoteStorageManager()
+    plain.configure(_rsm_configs(store, pub, priv, device))
+    plain_gw = SidecarHttpGateway(plain).start()
+    try:
+        part("turns", lambda: _sidecar_turns(plain, plain_gw, md, sd, files, leader_epoch, seed))
+        batched = RemoteStorageManager()
+        batched.configure(_rsm_configs(store, pub, priv, device, SIDECAR_BATCH))
+        gw = SidecarHttpGateway(batched).start()
+        try:
+            def fan_in() -> dict:
+                batched.copy_log_segment_data(md, sd)
+                rec = _sidecar_fan_in(batched, gw, md, sd,
+                                      min(64 * MIB, segment_bytes // 8))
+                batched.delete_log_segment_data(md)
+                return rec
+            part("fan_in", fan_in)
+        finally:
+            gw.stop()
+            batched.close()
+        part("policy", lambda: _sidecar_policy(seed, work, pub, priv, device, plain_gw))
+    finally:
+        plain_gw.stop()
+        plain.close()
+    out["launches"] = launches
+    cut = min(segment_bytes, SIDECAR_CUT_BYTES)
+    t = time.perf_counter()
+    out["process"] = _sidecar_process(seed, work, pub, priv, cut, device)
+    out["process"]["part_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # Both arms are children started alike, in turns (off, on, on, off).
+    turns = [_witness_child(seed, work / f"witness-{i}-{arm}", cut, device, arm == "on")
+             for i, arm in enumerate(("off", "on", "on", "off"))]
+    want = {"batcher.WindowBatcher._cond", "gcm._DISPATCH_MU", "chunk_cache.ChunkCache._inflight_lock"}
+    for rec, armed in zip(turns, (False, True, True, False)):
+        check(rec["witness"] == armed, "witness: an arm is not armed as named")
+        if not armed:
+            continue
+        check(rec["violations"] == [], f"witness: violations {rec['violations']}")
+        check(want <= set(rec["locks"]), f"witness: missing locks {sorted(want - set(rec['locks']))}")
+        check(any(s.startswith("batcher.WindowBatcher.") for s in rec["sites"])
+              and "cuda.CudaTransformBackend.dispatch_stats" in rec["sites"],
+              f"witness: mutation sites {rec['sites']}")
+    walls = [rec["read_wall_s"] for rec in turns]
+    out["witness"] = {"segment_bytes": cut, "turns": turns, "read_wall_s": walls,
+                      "read_wall_ratio": (walls[1] + walls[2]) / (walls[0] + walls[3]),
+                      "round_ratios": [walls[1] / walls[0], walls[2] / walls[3]],
+                      "part_s": time.perf_counter() - t}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -2944,7 +3630,21 @@ def main(argv=None) -> int:
     for part in ("breaker", "budget", "hedge", "deadline", "admission"):
         print(f"failure policy {part}: " + json.dumps({"card": card, **policy[part]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sidecar_"))
+    try:
+        t = time.perf_counter()
+        sidecar = sidecar_phase(args.seed, args.segment_mib * MIB, work)
+        record["sidecar_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase sidecar: {record['sidecar_s']:.1f} s ((d) and (e) cut to "
+          f"{SIDECAR_CUT_BYTES} bytes from 1 GiB for time)")
+    record["sidecar"] = sidecar
+    for part in ("turns", "fan_in", "policy", "process", "witness"):
+        print(f"sidecar {part}: " + json.dumps({"card": card, **sidecar[part]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+    _gcm_launched(sidecar["launches"], "sidecar phase")
     _gcm_launched(policy["launches"], "failure policy phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(life["launches"], "lifecycle phase")
     _gcm_launched(obs["launches"], "observability phase", ("aes_ctr_keystream", "ghash_tree"))
@@ -2974,6 +3674,7 @@ def main(argv=None) -> int:
         entry["launches_lifecycle"] = life["launches"][name]
         entry["launches_observability"] = obs["launches"][name]
         entry["launches_failure_policy"] = policy["launches"].get(name, 0)
+        entry["launches_sidecar"] = sidecar["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

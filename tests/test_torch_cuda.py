@@ -926,3 +926,89 @@ def test_expired_waiter_leaves_its_batch_mates_launch_intact(device):
     assert flush["rows"] == 2
     plain.close()
     backend.close()
+
+
+def _gateway_segment(tmp_path, device, extra=None):
+    """The port's RSM on the card behind its shim-wire gateway, and the
+    frames of one 8 MiB segment (two 4 MiB chunks, encryption on)."""
+    from tieredstorage_tpu_torch.sidecar import shimwire
+    from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
+
+    rng = np.random.default_rng(12)
+    log = rng.bytes(8 << 20)
+    pub, priv = generate_key_pair_pem_files(tmp_path, prefix="gw")
+    store = tmp_path / "store"
+    store.mkdir()
+    rsm = RemoteStorageManager()
+    rsm.configure({
+        "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        "storage.root": str(store), "chunk.size": 4 << 20, "key.prefix": "gw/",
+        "transform.device": str(device), "encryption.enabled": True,
+        "encryption.key.pair.id": "k", "encryption.key.pairs": "k",
+        "encryption.key.pairs.k.public.key.file": str(pub),
+        "encryption.key.pairs.k.private.key.file": str(priv), **(extra or {}),
+    })
+    tip = metadata.TopicIdPartition(metadata.KafkaUuid(rng.bytes(16)), metadata.TopicPartition("gw", 0))
+    md = shimwire.encode_metadata(metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(rng.bytes(16))),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    ))
+    copy = md + shimwire.encode_sections({
+        "log_segment": log, "offset_index": rng.bytes(48), "time_index": rng.bytes(72),
+        "producer_snapshot": rng.bytes(40), "leader_epoch_index": b"0\n1\n0 0\n"})
+    return rsm, SidecarHttpGateway(rsm).start(), md, log, copy
+
+
+def _post_gateway(gw, path, body, headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", gw.port, timeout=120)
+    try:
+        conn.request("POST", path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def test_gateway_copy_and_fetch_on_the_card(device, tmp_path):
+    """The shim wire over the card: copy and fetch of an 8 MiB segment
+    through the gateway launch the AES and tree kernels (and L1 for the
+    index objects), and the bytes come back."""
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    rsm, gw, md, log, copy = _gateway_segment(tmp_path, device)
+    try:
+        before = _cuda.launch_counts()
+        assert _post_gateway(gw, "/v1/copy", copy)[0] == 204
+        assert _post_gateway(gw, "/v1/fetch", md + shimwire.encode_fetch_tail(0, None)) == (200, log)
+        start, end = (3 << 20) + 11, (5 << 20) + 7
+        assert _post_gateway(gw, "/v1/fetch", md + shimwire.encode_fetch_tail(start, end)) == (
+            200, log[start:end + 1])
+        status, index = _post_gateway(gw, "/v1/fetch-index", md + shimwire.encode_index_type("LEADER_EPOCH"))
+        assert (status, index) == (200, b"0\n1\n0 0\n")
+        after = _cuda.launch_counts()
+        assert after["aes_ctr_keystream"] > before["aes_ctr_keystream"]
+        assert after["ghash_tree"] > before["ghash_tree"]
+        assert after["ghash_level1"] > before["ghash_level1"]
+    finally:
+        gw.stop()
+        rsm.close()
+
+
+def test_expired_deadline_is_504_at_the_wire_with_no_gcm_window(device, tmp_path):
+    """x-deadline-ms: 0 is adopted as the request's deadline: 504 before
+    the store or the card is touched."""
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    rsm, gw, md, log, copy = _gateway_segment(tmp_path, device)
+    try:
+        assert _post_gateway(gw, "/v1/copy", copy)[0] == 204
+        before = (gcm.device_dispatches(), _cuda.launch_counts())
+        status, body = _post_gateway(gw, "/v1/fetch", md + shimwire.encode_fetch_tail(0, None),
+                                     {"x-deadline-ms": "0"})
+        assert status == 504 and body.startswith(b"DeadlineExceededException")
+        assert (gcm.device_dispatches(), _cuda.launch_counts()) == before
+    finally:
+        gw.stop()
+        rsm.close()

@@ -96,6 +96,19 @@ _FAILURE_POLICY = (
     "tieredstorage_tpu_torch.metrics.retry_metrics",
 )
 
+#: Modules of the sidecar: the shim wire, its HTTP gateway, the gRPC service,
+#: its client and the `python -m` entry point.
+_SIDECAR = (
+    "tieredstorage_tpu_torch.sidecar",
+    "tieredstorage_tpu_torch.sidecar.__main__",
+    "tieredstorage_tpu_torch.sidecar.shimwire",
+    "tieredstorage_tpu_torch.sidecar.sidecar_pb2",
+    "tieredstorage_tpu_torch.sidecar.rpc",
+    "tieredstorage_tpu_torch.sidecar.http_gateway",
+    "tieredstorage_tpu_torch.sidecar.server",
+    "tieredstorage_tpu_torch.sidecar.client",
+)
+
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
@@ -109,6 +122,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert set(_COMPRESSION) <= set(names.split())
     assert set(_STORAGE) <= set(names.split())
     assert set(_FAILURE_POLICY) <= set(names.split())
+    assert set(_SIDECAR) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -1,0 +1,246 @@
+"""The port's locks and mutation sites carry their JAX twins' witness names.
+
+A subprocess arms the witness (`TSTPU_LOCK_WITNESS=1`) before either
+package is imported, then runs one seeded drive through each package:
+
+- a whole RSM (filesystem store, encryption, the window batcher, the disk
+  chunk cache, readahead, the hot tier, the scrubber with a byte rate and
+  checksums) that
+  copies a segment, replays it in 40 KiB reads, reads it whole and
+  scrubs it; the JAX RSM runs `TpuTransformBackend` (JAX on one CPU device), the
+  port's `CudaTransformBackend` with `transform.device=cpu`, and the pools
+  of the chunk cache and readahead run inline, so the drive is the same;
+- the modules the RSM does not reach on that drive: a `LoadingCache` whose
+  removal listener raises, a `TokenBucket`, a `ManifestLookahead` that
+  joins one flight and loses another, an `HttpClient` request against a
+  loopback server, an `InMemoryStorage` and a replicated store of two.
+
+For every module of the table below, the lock names each witness saw
+acquired, the mutation sites the race witness recorded and the lock held at
+each site must be the JAX package's, with the port-only names of
+`transform/cuda.py` mapped to their `transform/tpu.py` twins. Port-only
+locks with no twin must be seen under their own names. No lock-order
+violation may be recorded.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+#: Port name -> JAX twin name, where the port's module has another name.
+PORT_TO_JAX = {
+    "cuda.CudaTransformBackend._stats_lock": "tpu.TpuTransformBackend._stats_lock",
+    "cuda.CudaTransformBackend.dispatch_stats": "tpu.TpuTransformBackend.dispatch_stats",
+}
+#: Locks of port-only code (no JAX twin) and the drive that reaches them.
+PORT_ONLY = ("cuda._StagingPool._lock", "cuda.CudaTransformBackend._pool_lock",
+             "gcm._CONSTS_MU", "crc32c._CONSTS_MU", "_cuda._LOCK")
+#: The modules whose plain locks became witnessed ones (module stems of the
+#: names; the port's `cuda` is compared as the JAX `tpu`).
+MODULES = ("caching", "ratelimit", "batcher", "chunk_manager", "manifest_cache",
+           "readahead", "chunk_cache", "device_hot", "httpclient", "memory",
+           "replicated", "gcm", "tpu")
+
+_DRIVE = r'''
+import concurrent.futures, http.server, importlib, io, json, sys, tempfile, threading
+from pathlib import Path
+
+import tests.test_torch_fetch_caches as fc
+from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+PKGS = {"jax": "tieredstorage_tpu", "port": "tieredstorage_tpu_torch"}
+tmp = Path(tempfile.mkdtemp())
+keys = generate_key_pair_pem_files(tmp, prefix="names")
+
+
+class Quiet(http.server.BaseHTTPRequestHandler):
+    def do_GET(self):
+        self.send_response(200)
+        self.send_header("Content-Length", "2")
+        self.end_headers()
+        self.wfile.write(b"ok")
+
+    def log_message(self, *args):
+        pass
+
+
+server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+
+
+def drive(name, P):
+    mod = lambda m: importlib.import_module(f"{P}.{m}")
+    for m in ("fetch.cache.chunk_cache", "fetch.readahead"):
+        setattr(mod(m), "ThreadPoolExecutor", fc.InlineExecutor)
+    root = tmp / name
+    root.mkdir()
+    store, cache_dir = root / "store", root / "cache"
+    store.mkdir()
+    extra = {"transform.batch.enabled": True, "scrub.enabled": True,
+             "scrub.interval.ms": 3_600_000, "scrub.rate.bytes": 1 << 20,
+             "scrub.checksums.enabled": True}
+    if name == "jax":
+        extra["transform.backend.class"] = "tieredstorage_tpu.transform.tpu.TpuTransformBackend"
+    rsm = fc._rsm(mod("rsm").RemoteStorageManager, store, keys, P, cache_dir, extra)
+    md, sd, log, _ = fc._segment(root, mod("metadata"))
+    rsm.copy_log_segment_data(md, sd)
+    fc._replay(rsm, md, log)
+    rsm.scrubber.scrub_once()
+    rsm.close()
+
+    caching = mod("utils.caching")
+    def boom(*_):
+        raise RuntimeError("listener")
+    cache = caching.LoadingCache(executor=fc.InlineExecutor(), max_weight=1,
+                                 removal_listener=boom)
+    cache.get("a", lambda: 1)
+    cache.get("b", lambda: 2)
+    mod("utils.ratelimit").TokenBucket(1 << 20).consume(4096)
+
+    manifest_cache = mod("fetch.manifest_cache")
+    key_cls = mod("storage.core").ObjectKey
+
+    class Through:
+        def get(self, key, loader, timeout=None):
+            return loader()
+
+    lookahead = manifest_cache.ManifestLookahead(Through())
+    gate = threading.Event()
+    lookahead.prefetch(key_cls("k1"), lambda: gate.wait(30) and "m1")
+    joined = threading.Thread(target=lookahead.get, args=(key_cls("k1"), lambda: "m1"))
+    joined.start()
+    while lookahead.joins == 0:
+        gate.wait(0.001)
+    gate.set()
+    joined.join(30)
+    def fail():
+        raise RuntimeError("lost")
+    lookahead.prefetch(key_cls("k2"), fail)
+    while lookahead.failures == 0:
+        gate.wait(0.001)
+
+    client = mod("storage.httpclient").HttpClient(f"http://127.0.0.1:{server.server_address[1]}")
+    client.request("GET", "/x")
+
+    memory = mod("storage.memory").InMemoryStorage()
+    memory.upload(io.BytesIO(b"abc"), key_cls("m"))
+    memory.fetch(key_cls("m")).read()
+    replicated = mod("storage.replicated").ReplicatedStorageBackend()
+    replicated.configure({
+        "replication.replicas": "a,b",
+        "replication.replica.a.backend.class": f"{P}.storage.memory.InMemoryStorage",
+        "replication.replica.b.backend.class": f"{P}.storage.memory.InMemoryStorage",
+    })
+    replicated.upload(io.BytesIO(b"abc"), key_cls("r"))
+    replicated.fetch(key_cls("r")).read()
+    replicated.close()
+
+    locks = mod("utils.locks")
+    return {
+        "locks": sorted(locks.witness().acquired_names()),
+        "sites": {s: v["held"] for s, v in locks.race_witness().snapshot()["sites"].items()},
+        "unguarded": locks.race_witness().snapshot()["unguarded_names"],
+        "violations": list(locks.witness().violations),
+    }
+
+
+out = {name: drive(name, P) for name, P in PKGS.items()}
+from tieredstorage_tpu_torch.ops import _cuda
+_cuda.launch_counts()
+from tieredstorage_tpu_torch.utils import locks
+out["port"]["locks"] = sorted(locks.witness().acquired_names())
+server.shutdown()
+print("DRIVE " + json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def witnessed():
+    # One JAX device, as the port has one: a virtual mesh would pad the JAX
+    # backend's windows and move the hot tier's admissions.
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update({"TSTPU_LOCK_WITNESS": "1", "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(REPO)})
+    res = subprocess.run([sys.executable, "-c", _DRIVE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    line = next(x for x in res.stdout.splitlines() if x.startswith("DRIVE "))
+    return json.loads(line[len("DRIVE "):])
+
+
+def _stem(name: str) -> str:
+    return name.split(".")[0]
+
+
+def _mapped(names):
+    return {PORT_TO_JAX.get(n, n) for n in names}
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_acquired_lock_names_equal_jax(witnessed, module):
+    jax = {n for n in witnessed["jax"]["locks"] if _stem(n) == module}
+    port = {n for n in _mapped(witnessed["port"]["locks"]) if _stem(n) == module}
+    port -= set(PORT_ONLY)
+    assert port == jax
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_mutation_sites_and_their_held_locks_equal_jax(witnessed, module):
+    jax = {s: set(held) for s, held in witnessed["jax"]["sites"].items() if _stem(s) == module}
+    port = {PORT_TO_JAX.get(s, s): _mapped(held) for s, held in witnessed["port"]["sites"].items()
+            if _stem(PORT_TO_JAX.get(s, s)) == module}
+    assert port == jax
+
+
+def test_every_part0_module_was_reached(witnessed):
+    """The drive reached a lock of every module, in both packages, and the
+    batcher, the caches and the backend recorded their mutation sites."""
+    stems = {_stem(n) for n in witnessed["jax"]["locks"]}
+    assert set(MODULES) - {"native"} <= stems
+    sites = set(witnessed["jax"]["sites"])
+    for site in ("batcher.WindowBatcher.launches", "batcher.WindowBatcher.fast_path_windows",
+                 "readahead.ReadaheadManager.promotions", "device_hot.DeviceHotCache.admissions",
+                 "manifest_cache.ManifestLookahead.joins", "caching.LoadingCache.stats",
+                 "tpu.TpuTransformBackend.dispatch_stats"):
+        assert site in sites
+
+
+def test_port_only_locks_are_witnessed_under_their_own_names(witnessed):
+    assert set(PORT_ONLY) <= set(witnessed["port"]["locks"])
+
+
+def test_unguarded_names_equal_jax(witnessed):
+    assert witnessed["port"]["unguarded"] == witnessed["jax"]["unguarded"]
+
+
+def test_no_lock_order_violation(witnessed):
+    assert witnessed["port"]["violations"] == []
+    assert witnessed["jax"]["violations"] == []
+
+
+_MODULE_LOCKS = r'''
+import json
+import tieredstorage_tpu.native as jn, tieredstorage_tpu.ops.gcm as jg
+import tieredstorage_tpu_torch.native as pn, tieredstorage_tpu_torch.ops.gcm as pg
+print(json.dumps({"native": [jn._lock.name, pn._lock.name],
+                  "gcm": [jg._DISPATCH_MU.name, pg._DISPATCH_MU.name]}))
+'''
+
+
+def test_module_locks_carry_the_jax_names():
+    """Module-level locks are made at import, so the witness must be armed
+    before it: `native._lock` (taken only when the host library loads) and
+    `gcm._DISPATCH_MU`."""
+    env = {**os.environ, "TSTPU_LOCK_WITNESS": "1", "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", _MODULE_LOCKS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    names = json.loads(res.stdout.strip().splitlines()[-1])
+    assert names == {"native": ["native._lock"] * 2, "gcm": ["gcm._DISPATCH_MU"] * 2}

@@ -186,8 +186,7 @@ def test_segments_cross_read_between_packages(tmp_path, keys, writer):
 
 @pytest.mark.parametrize(
     "key", ["fleet.enabled", "breaker.peer.failure.threshold",
-            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts",
-            "sidecar.grpc.max.workers"],
+            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts"],
 )
 def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
     configs = _configs(
@@ -215,6 +214,40 @@ KEY_PROBES = {
     "lifecycle.sweep.interval.ms": (1, 0), "lifecycle.sweep.on.start": (True, None),
     "lifecycle.grace.ms": (0, -1),
 }
+
+
+SIDECAR_KEYS = {"sidecar.grpc.max.workers": "sidecar_grpc_max_workers",
+                "sidecar.http.max.workers": "sidecar_http_max_workers"}
+
+
+@pytest.mark.parametrize("key", sorted(SIDECAR_KEYS))
+def test_sidecar_keys_are_jax_keys(tmp_path, keys, key):
+    """The sidecar's pool sizes: JAX's type, default, validator, importance
+    and doc, and the RSM property the server and gateway read."""
+    from tieredstorage_tpu.config.configdef import ConfigException as JaxConfigException
+    from tieredstorage_tpu.config.rsm_config import _base_def as jax_base_def
+    from tieredstorage_tpu_torch.config.rsm_config import NOT_YET_PORTED, _base_def
+
+    assert key not in NOT_YET_PORTED
+    port, jax = _base_def().keys[key], jax_base_def().keys[key]
+    assert (port.type, port.default, port.importance, port.doc) == (
+        jax.type, jax.default, jax.importance, jax.doc)
+    assert getattr(port.validator, "description", None) == getattr(jax.validator, "description", None)
+    port.validator(key, 1)
+    with pytest.raises(ConfigException) as port_err:
+        port.validator(key, 0)
+    with pytest.raises(JaxConfigException) as jax_err:
+        jax.validator(key, 0)
+    assert str(port_err.value) == str(jax_err.value)
+    prop = SIDECAR_KEYS[key]
+    assert getattr(RemoteStorageManager(), prop) == jax.default
+    rsm = RemoteStorageManager()
+    rsm.configure(_configs(
+        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        {"transform.device": "cpu", key: 3},
+    ))
+    assert getattr(rsm, prop) == 3
+    rsm.close()
 
 
 @pytest.mark.parametrize("key", FAULT_LIFECYCLE_REPLICATION_KEYS)

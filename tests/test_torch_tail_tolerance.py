@@ -5,9 +5,9 @@ The JAX suite (tests/test_tail_tolerance.py) runs against the port's
 modules, bottom-up: deadline math and scopes; the HTTP transport consuming
 the ambient deadline; the Hedger and its budget, and a hedged fetch whose
 corrupt straggler cannot tear the winner; the RetryBudget under the
-ResilientStorageBackend; the AdmissionController; jittered fault delays.
-Its gateway case waits for the sidecar slice and its single-flight cases
-for the fleet slice.
+ResilientStorageBackend; the AdmissionController; the sidecar gateway's
+shed; jittered fault delays. Its single-flight cases wait for the fleet
+slice.
 
 Then parity, exact equality on seeded inputs: Hedger counters on one
 slow-call schedule, RetryBudget balances, AdmissionController admit/shed
@@ -539,6 +539,61 @@ class TestAdmissionController:
 
 
 # ------------------------------------------------- jittered fault schedules
+class TestGatewaySheds:
+    def test_shed_returns_429_with_retry_after_before_reading_body(self, tmp_path):
+        import http.client
+
+        from tests.test_torch_rsm import _write_segment
+        from tieredstorage_tpu_torch import metadata
+        from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+        from tieredstorage_tpu_torch.sidecar import shimwire
+        from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
+
+        store = tmp_path / "store"
+        store.mkdir()
+        rsm = RemoteStorageManager()
+        rsm.configure({
+            "storage.backend.class": "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+            "storage.root": str(store),
+            "chunk.size": 4096,
+            "transform.device": "cpu",
+            "admission.enabled": True,
+            "admission.max.concurrent": 1,
+            "admission.max.queue": 0,
+            "admission.retry.after.ms": 2_000,
+        })
+        md, sd, _ = _write_segment(tmp_path, metadata)
+        rsm.copy_log_segment_data(md, sd)
+        gateway = SidecarHttpGateway(rsm).start()
+        try:
+            # Deterministically occupy the single slot, then hit the gate.
+            rsm.admission.acquire("test-holder")
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", gateway.port, timeout=10)
+                body = shimwire.encode_metadata(md) + shimwire.encode_fetch_tail(0, None)
+                conn.request("POST", "/v1/fetch", body=body)
+                resp = conn.getresponse()
+                payload = resp.read()
+                conn.close()
+                assert resp.status == 429
+                assert resp.getheader("Retry-After") == "2"
+                assert b"AdmissionRejectedException" in payload
+            finally:
+                rsm.admission.release()
+            # Slot freed: the same request is served normally.
+            conn = http.client.HTTPConnection("127.0.0.1", gateway.port, timeout=30)
+            conn.request("POST", "/v1/fetch", body=body)
+            resp = conn.getresponse()
+            served = resp.read()
+            conn.close()
+            assert resp.status == 200
+            assert len(served) == md.segment_size_in_bytes
+            assert rsm.admission.shed_total == 1
+        finally:
+            gateway.stop()
+            rsm.close()
+
+
 class TestJitteredDelays:
     def test_grammar_parses_ranges(self):
         rule = FaultSchedule.parse("fetch:delay=10..250@p=0.5").rules[0]

@@ -8,7 +8,8 @@ with the two-phase `encryption.key.pairs.<id>.*` define),
 `retry.launch.*` (the window batcher's launch retry), `tracing.*`,
 `flight.*`, `timeline.*` and `metrics.*` (the observability plane),
 `breaker.*`, `retry.budget.*`, `deadline.default.ms`, `hedge.*`,
-`admission.*` and `slo.*` (the failure policy), `scrub.*` (the
+`admission.*` and `slo.*` (the failure policy), `sidecar.*` (the
+sidecar's pools), `scrub.*` (the
 scrubber, its scheduler and the upload checksums), `fault.*` and `faults.*`
 (the fault-injecting backend and the fault plane), `lifecycle.*` (the
 intent journal and the recovery sweeper), `replication.antientropy.*`
@@ -48,8 +49,7 @@ FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 #: Keys of the JAX package's configuration that this package has not ported.
 NOT_YET_PORTED = frozenset({
     "breaker.peer.failure.threshold", "breaker.gossip.failure.threshold",
-    "retry.gossip.probe.attempts", "sidecar.grpc.max.workers",
-    "sidecar.http.max.workers", "fleet.enabled", "fleet.instance.id",
+    "retry.gossip.probe.attempts", "fleet.enabled", "fleet.instance.id",
     "fleet.instances", "fleet.vnodes", "fleet.forward.timeout.ms",
     "fleet.peer.down.cooldown.ms", "fleet.replication.factor",
     "fleet.gossip.enabled", "fleet.gossip.interval.ms",
@@ -479,6 +479,23 @@ def _base_def() -> ConfigDef:
             "seconds on the HTTP side.",
     ))
     d.define(ConfigKey(
+        "sidecar.grpc.max.workers", "int", default=8,
+        validator=in_range(1, None), importance="low",
+        doc="Thread pool size of the gRPC sidecar server (was hardcoded at "
+            "8). Size to the expected broker fetch parallelism; admission "
+            "control sheds what the pool cannot absorb.",
+    ))
+    d.define(ConfigKey(
+        "sidecar.http.max.workers", "int", default=32,
+        validator=in_range(1, None), importance="low",
+        doc="Bounded worker pool of the HTTP shim-wire gateway. Connections "
+            "are accepted eagerly but handled by at most this many threads; "
+            "excess connections queue in the executor instead of spawning "
+            "an unbounded thread per connection. Size to the expected "
+            "broker fetch parallelism plus fleet peer traffic; admission "
+            "control sheds what the pool cannot absorb.",
+    ))
+    d.define(ConfigKey(
         "slo.enabled", "bool", default=False, importance="medium",
         doc="Run the SLO engine (metrics/slo.py): declarative objectives "
             "over the existing latency histograms and counters (fetch "
@@ -894,6 +911,14 @@ class RemoteStorageManagerConfig:
     @property
     def admission_retry_after_ms(self) -> int:
         return self._values["admission.retry.after.ms"]
+
+    @property
+    def sidecar_grpc_max_workers(self) -> int:
+        return self._values["sidecar.grpc.max.workers"]
+
+    @property
+    def sidecar_http_max_workers(self) -> int:
+        return self._values["sidecar.http.max.workers"]
 
     @property
     def slo_enabled(self) -> bool:

@@ -26,7 +26,6 @@ import contextlib
 import dataclasses
 import io
 import logging
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, BinaryIO, Generic, Mapping, Optional, Sequence, TypeVar
@@ -44,6 +43,7 @@ from tieredstorage_tpu_torch.transform.scheduler import (
 from tieredstorage_tpu_torch.utils import flightrecorder as flight
 from tieredstorage_tpu_torch.utils.caching import LoadingCache, RemovalCause
 from tieredstorage_tpu_torch.utils.deadline import check_deadline, remaining_s
+from tieredstorage_tpu_torch.utils.locks import new_lock, new_unguarded
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 log = logging.getLogger(__name__)
@@ -94,10 +94,13 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
         #: Times a cache failure (I/O error or wedged load) was bypassed by
         #: fetching straight from the delegate instead of failing the read.
         #: Best-effort tallies bumped on reader and pool threads without a
-        #: lock: a torn update under-counts one rare failure.
-        self.degradations = 0
+        #: lock (declared with new_unguarded): a torn update under-counts one
+        #: rare failure.
+        self.degradations = new_unguarded("chunk_cache.ChunkCache.degradations", 0)
         #: Background prefetch loads that failed; never propagated.
-        self.prefetch_failures = 0
+        self.prefetch_failures = new_unguarded(
+            "chunk_cache.ChunkCache.prefetch_failures", 0
+        )
         #: Per-chunk single-flight across readers AND the async prefetch:
         #: a chunk whose fetch+detransform is in flight (delegate call
         #: issued, cache entry not yet registered) has a Future[bytes]
@@ -105,7 +108,7 @@ class ChunkCache(ChunkManager, Generic[T], abc.ABC):
         #: of duplicating it (without the join, a foreground read of a chunk
         #: the prefetch was already decoding decoded it again).
         self._inflight: dict[ChunkKey, "concurrent.futures.Future[bytes]"] = {}
-        self._inflight_lock = threading.Lock()
+        self._inflight_lock = new_lock("chunk_cache.ChunkCache._inflight_lock")
         #: Readers that joined another reader's in-flight chunk load.
         self.inflight_joins = 0
 

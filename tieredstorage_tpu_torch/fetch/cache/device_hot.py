@@ -60,6 +60,7 @@ import numpy as np
 from tieredstorage_tpu_torch.config.configdef import ConfigDef, ConfigKey, in_range
 from tieredstorage_tpu_torch.fetch.chunk_manager import ChunkManager
 from tieredstorage_tpu_torch.utils import flightrecorder as flightrec
+from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 # -------------------------------------------------------- capture plumbing
@@ -163,7 +164,7 @@ class FrequencySketch:
         #: without losing the hot set's lead over one-shot scans.
         self._decay_every = decay_every if decay_every else self._width * 8
         self._ops = 0
-        self._lock = threading.Lock()
+        self._lock = new_lock("device_hot.FrequencySketch._lock")
 
     @property
     def width(self) -> int:
@@ -179,15 +180,18 @@ class FrequencySketch:
         columns = self._columns(key)
         with self._lock:
             self._ops += 1
+            note_mutation("device_hot.FrequencySketch._ops")
             if self._ops >= self._decay_every:
                 self._ops = 0
                 self._counts >>= 1
+                note_mutation("device_hot.FrequencySketch._counts")
             estimate = self.MAX_COUNT
             for row, col in enumerate(columns):
                 value = int(self._counts[row, col])
                 if value < self.MAX_COUNT:
                     value += 1
                     self._counts[row, col] = value
+                    note_mutation("device_hot.FrequencySketch._counts")
                 estimate = min(estimate, value)
             return estimate
 
@@ -273,7 +277,7 @@ class DeviceHotCache(ChunkManager):
         self.budget_bytes = int(budget_bytes)
         self.admission_hits = max(1, int(admission_hits))
         self._sketch = FrequencySketch(sketch_width)
-        self._lock = threading.Lock()
+        self._lock = new_lock("device_hot.DeviceHotCache._lock")
         #: window key -> HotWindow, LRU order (first = coldest).
         self._windows: "OrderedDict[str, HotWindow]" = OrderedDict()
         #: (segment file, chunk id) -> window key of the NEWEST cover.
@@ -328,6 +332,7 @@ class DeviceHotCache(ChunkManager):
             self._bytes = 0
             self._device_bytes = 0
             self.device_windows = 0
+            note_mutation("device_hot.DeviceHotCache.device_windows")
         if hasattr(self._delegate, "close"):
             self._delegate.close()
 
@@ -369,6 +374,7 @@ class DeviceHotCache(ChunkManager):
                 wkey = self._resident.get((file, cid))
                 if wkey is None:
                     self.misses += 1
+                    note_mutation("device_hot.DeviceHotCache.misses")
                     return None
                 covers.append(self._windows[wkey])
             for wkey in dict.fromkeys(w.key for w in covers):
@@ -376,6 +382,7 @@ class DeviceHotCache(ChunkManager):
             self.hits += 1
             self.chunks_served += len(chunk_ids)
             self.zero_copy_serves += len(chunk_ids)
+            note_mutation("device_hot.DeviceHotCache.hits")
         return [w.chunk_view(cid) for w, cid in zip(covers, chunk_ids)]
 
     def device_rows(self, objects_key, chunk_ids: Sequence[int]):
@@ -419,11 +426,13 @@ class DeviceHotCache(ChunkManager):
             # the sketch remembers, the budget is not spent.
             with self._lock:
                 self.rejections += 1
+                note_mutation("device_hot.DeviceHotCache.rejections")
             return
         window = self._build_window(wkey, file, chunk_ids, chunks, captured)
         if window.nbytes > self.budget_bytes:
             with self._lock:
                 self.rejections += 1
+                note_mutation("device_hot.DeviceHotCache.rejections")
             self.tracer.event("hot.reject", window=wkey, bytes=window.nbytes)
             return
         evicted: list[str] = []
@@ -437,6 +446,7 @@ class DeviceHotCache(ChunkManager):
                     # TinyLFU gate: the LRU victim is still hotter than the
                     # candidate — a one-shot scan must not wash out the set.
                     self.rejections += 1
+                    note_mutation("device_hot.DeviceHotCache.rejections")
                     return
                 self._evict_locked(victim_key)
                 evicted.append(victim_key)
@@ -447,7 +457,9 @@ class DeviceHotCache(ChunkManager):
             self._device_bytes += window.device_nbytes
             if window.device is not None:
                 self.device_windows += 1
+                note_mutation("device_hot.DeviceHotCache.device_windows")
             self.admissions += 1
+            note_mutation("device_hot.DeviceHotCache.admissions")
         for victim_key in evicted:
             self.tracer.event("hot.evict", window=victim_key)
         self.tracer.event(
@@ -467,7 +479,9 @@ class DeviceHotCache(ChunkManager):
         self._device_bytes -= victim.device_nbytes
         if victim.device is not None:
             self.device_windows -= 1
+            note_mutation("device_hot.DeviceHotCache.device_windows")
         self.evictions += 1
+        note_mutation("device_hot.DeviceHotCache.evictions")
 
     def _build_window(
         self,

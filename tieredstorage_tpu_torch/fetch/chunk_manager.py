@@ -18,7 +18,6 @@ from __future__ import annotations
 import abc
 import io
 import logging
-import threading
 import time
 from typing import BinaryIO, Callable, Optional, Sequence
 
@@ -32,6 +31,7 @@ from tieredstorage_tpu_torch.storage.core import (
 from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformBackend
 from tieredstorage_tpu_torch.utils import faults, flightrecorder as flight
 from tieredstorage_tpu_torch.utils.deadline import check_deadline
+from tieredstorage_tpu_torch.utils.locks import new_lock
 from tieredstorage_tpu_torch.utils.streams import read_exactly
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
@@ -96,7 +96,7 @@ class DefaultChunkManager(ChunkManager):
         )
         self._now = time_source
         self._quarantine: dict[str, tuple[float, str]] = {}
-        self._quarantine_lock = threading.Lock()
+        self._quarantine_lock = new_lock("chunk_manager.DefaultChunkManager._quarantine_lock")
         #: Total detransform corruption detections.
         self.corruptions = 0
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 import abc
 import concurrent.futures
 import logging
-import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Mapping, Optional
 
@@ -28,6 +27,7 @@ from tieredstorage_tpu_torch.config.cache_config import CacheConfig
 from tieredstorage_tpu_torch.manifest.segment_manifest import SegmentManifestV1
 from tieredstorage_tpu_torch.storage.core import ObjectKey
 from tieredstorage_tpu_torch.utils.caching import LoadingCache
+from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 
 log = logging.getLogger(__name__)
 
@@ -111,7 +111,7 @@ class ManifestLookahead:
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="manifest-lookahead"
         )
-        self._lock = threading.Lock()
+        self._lock = new_lock("manifest_cache.ManifestLookahead._lock")
         self._flights: dict[str, "Future[SegmentManifestV1]"] = {}
         # Counters (guarded by _lock).
         self.launches = 0
@@ -129,6 +129,7 @@ class ManifestLookahead:
             future: "Future[SegmentManifestV1]" = Future()
             self._flights[key.value] = future
             self.launches += 1
+            note_mutation("manifest_cache.ManifestLookahead.launches")
         self._executor.submit(self._resolve, key, loader, future)
 
     def _resolve(
@@ -144,6 +145,7 @@ class ManifestLookahead:
             with self._lock:
                 self._flights.pop(key.value, None)
                 self.failures += 1
+                note_mutation("manifest_cache.ManifestLookahead.failures")
             future.set_exception(e)
             log.debug("Manifest lookahead of %s failed", key.value, exc_info=True)
             return
@@ -162,6 +164,7 @@ class ManifestLookahead:
             future = self._flights.get(key.value)
             if future is not None:
                 self.joins += 1
+                note_mutation("manifest_cache.ManifestLookahead.joins")
         if future is not None:
             try:
                 return future.result(timeout=timeout)

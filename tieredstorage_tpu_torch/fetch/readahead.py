@@ -60,7 +60,8 @@ resolve the next manifest once), the first window of the NEXT segment is
 speculated and its stream is pre-promoted, so the consumer crosses the
 boundary into an already-warm cache.
 
-Every counter here is guarded by ``_lock``.
+Every counter here is guarded by ``_lock``, with ``note_mutation`` at each
+write site under the JAX twin's names.
 """
 
 from __future__ import annotations
@@ -68,7 +69,6 @@ from __future__ import annotations
 import dataclasses
 import io
 import logging
-import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -82,6 +82,7 @@ from tieredstorage_tpu_torch.storage.core import ObjectKey
 from tieredstorage_tpu_torch.transform.scheduler import BACKGROUND, work_class_scope
 from tieredstorage_tpu_torch.transform.scheduler import speculative_scope
 from tieredstorage_tpu_torch.utils import flightrecorder as flight
+from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 log = logging.getLogger(__name__)
@@ -233,7 +234,7 @@ class ReadaheadManager(ChunkManager):
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="readahead"
         )
-        self._lock = threading.Lock()
+        self._lock = new_lock("readahead.ReadaheadManager._lock")
         #: LRU of per-segment detector states (segment file name -> _Stream).
         self._streams: "OrderedDict[str, _Stream]" = OrderedDict()
         #: Every speculated chunk not yet used/wasted/failed.
@@ -354,6 +355,7 @@ class ReadaheadManager(ChunkManager):
                 stream.strikes = 0
                 stream.frontier = max(stream.frontier, last + 1)
                 self.promotions += 1
+                note_mutation("readahead.ReadaheadManager.promotions")
         elif last + 1 == stream.expected_next:
             # Re-read ending at the current frontier (broker retry of the
             # previous window): neither a run nor a strike — idempotent
@@ -364,6 +366,7 @@ class ReadaheadManager(ChunkManager):
             if stream.state == READAHEAD:
                 stream.strikes += 1
                 self.strikes += 1
+                note_mutation("readahead.ReadaheadManager.strikes")
                 if stream.strikes >= self.max_strikes:
                     self._demote_locked(stream)
         stream.expected_next = last + 1
@@ -375,6 +378,7 @@ class ReadaheadManager(ChunkManager):
         stream.runs = 0
         stream.strikes = 0
         self.demotions += 1
+        note_mutation("readahead.ReadaheadManager.demotions")
         self._discard_outstanding_locked(stream)
 
     def _discard_outstanding_locked(self, stream: _Stream) -> None:
@@ -387,6 +391,7 @@ class ReadaheadManager(ChunkManager):
             if entry.completed_at is not None:
                 del self._speculated[key]
                 self.wasted_bytes += entry.n_bytes
+                note_mutation("readahead.ReadaheadManager.wasted_bytes")
             else:
                 entry.doomed = True
         stream.outstanding.clear()
@@ -395,6 +400,7 @@ class ReadaheadManager(ChunkManager):
         while len(self._streams) > self.streams_max:
             _, evicted = self._streams.popitem(last=False)
             self.stream_evictions += 1
+            note_mutation("readahead.ReadaheadManager.stream_evictions")
             self._discard_outstanding_locked(evicted)
 
     def _consume_locked(
@@ -411,10 +417,14 @@ class ReadaheadManager(ChunkManager):
             stream.outstanding.discard(key)
             used += 1
             self.used_chunks += 1
+            note_mutation("readahead.ReadaheadManager.used_chunks")
             self.used_bytes += entry.n_bytes
+            note_mutation("readahead.ReadaheadManager.used_bytes")
             if entry.completed_at is not None:
                 self.pre_admit_age_ms_sum += (now - entry.completed_at) * 1000.0
+                note_mutation("readahead.ReadaheadManager.pre_admit_age_ms_sum")
                 self.pre_admit_age_samples += 1
+                note_mutation("readahead.ReadaheadManager.pre_admit_age_samples")
         # Predictions the stream ran PAST without using are mispredicted
         # bytes even without a demotion (the consumer skipped them).
         superseded = [
@@ -428,6 +438,7 @@ class ReadaheadManager(ChunkManager):
             if entry.completed_at is not None:
                 del self._speculated[key]
                 self.wasted_bytes += entry.n_bytes
+                note_mutation("readahead.ReadaheadManager.wasted_bytes")
             else:
                 entry.doomed = True
         if used:
@@ -446,6 +457,7 @@ class ReadaheadManager(ChunkManager):
             # now — stop speculating until used bytes pull the ratio back
             # under the bound (degrades to the reactive baseline).
             self.ratio_throttles += 1
+            note_mutation("readahead.ReadaheadManager.ratio_throttles")
             return launches
         index = manifest.chunk_index
         stream_key = ChunkKey.of(objects_key, last).segment_file_name
@@ -485,6 +497,7 @@ class ReadaheadManager(ChunkManager):
         n_bytes = sum(index._chunk_at(cid).original_size for cid in ids)
         if self.inflight_bytes + n_bytes > self.budget_bytes:
             self.budget_deferrals += 1
+            note_mutation("readahead.ReadaheadManager.budget_deferrals")
             return None
         stream_key = ChunkKey.of(objects_key, ids[0]).segment_file_name
         for cid in ids:
@@ -495,9 +508,13 @@ class ReadaheadManager(ChunkManager):
             )
             stream.outstanding.add(key)
         self.inflight_bytes += n_bytes
+        note_mutation("readahead.ReadaheadManager.inflight_bytes")
         self.bytes_speculated += n_bytes
+        note_mutation("readahead.ReadaheadManager.bytes_speculated")
         self.windows_launched += 1
+        note_mutation("readahead.ReadaheadManager.windows_launched")
         self.chunks_speculated += len(ids)
+        note_mutation("readahead.ReadaheadManager.chunks_speculated")
         return n_bytes
 
     # ------------------------------------------------------------ speculation
@@ -550,6 +567,9 @@ class ReadaheadManager(ChunkManager):
                 return None
             stream.frontier = ids[-1] + 1
             self.cross_segment_continuations += 1
+            note_mutation(
+                "readahead.ReadaheadManager.cross_segment_continuations"
+            )
         return next_key, manifest, ids, planned, next_stream_key
 
     def _load_window(
@@ -586,6 +606,7 @@ class ReadaheadManager(ChunkManager):
         now = self._now()
         with self._lock:
             self.inflight_bytes -= n_bytes
+            note_mutation("readahead.ReadaheadManager.inflight_bytes")
             for key in keys:
                 entry = self._speculated.get(key)
                 if entry is None:
@@ -593,13 +614,16 @@ class ReadaheadManager(ChunkManager):
                 if entry.doomed:
                     del self._speculated[key]
                     self.wasted_bytes += entry.n_bytes
+                    note_mutation("readahead.ReadaheadManager.wasted_bytes")
                 else:
                     entry.completed_at = now
 
     def _resolve_failed(self, keys: list[ChunkKey], n_bytes: int) -> None:
         with self._lock:
             self.inflight_bytes -= n_bytes
+            note_mutation("readahead.ReadaheadManager.inflight_bytes")
             self.speculation_failures += 1
+            note_mutation("readahead.ReadaheadManager.speculation_failures")
             for key in keys:
                 entry = self._speculated.pop(key, None)
                 if entry is None:
@@ -607,6 +631,7 @@ class ReadaheadManager(ChunkManager):
                 # Never decrypted: not wasted decrypt bytes — back the
                 # failed window out of the speculated total entirely.
                 self.bytes_speculated -= entry.n_bytes
+                note_mutation("readahead.ReadaheadManager.bytes_speculated")
                 stream = self._streams.get(entry.stream)
                 if stream is not None:
                     stream.outstanding.discard(key)

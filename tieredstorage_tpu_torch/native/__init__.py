@@ -19,11 +19,12 @@ import ctypes
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from tieredstorage_tpu_torch.utils.locks import new_lock
 
 _REPO_ROOT = Path(__file__).resolve().parent.parent.parent
 _SOURCE = _REPO_ROOT / "native" / "transform_host.cpp"
@@ -31,7 +32,7 @@ _SOURCE = _REPO_ROOT / "native" / "transform_host.cpp"
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
 LDFLAGS = ("-shared", "-lzstd", "-ldl", "-lpthread")
 
-_lock = threading.Lock()
+_lock = new_lock("native._lock")
 _lib: Optional[ctypes.CDLL] = None
 _load_error: Optional[str] = None
 

@@ -33,6 +33,8 @@ from pathlib import Path
 
 import torch
 
+from tieredstorage_tpu_torch.utils.locks import new_lock
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("aes_ctr.cu", "ghash.cu", "huffman.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -50,7 +52,7 @@ _SIGNATURES = {
 
 LAUNCHES: dict[str, int] = {name: 0 for name in _SIGNATURES}
 LAUNCH_ROWS: dict[str, collections.Counter] = {name: collections.Counter() for name in _SIGNATURES}
-_LOCK = threading.Lock()
+_LOCK = new_lock("_cuda._LOCK")
 _LIB: list[ctypes.CDLL] = []
 #: What the last build printed (nvcc -Xptxas -v), how long it took, and when
 #: each source's nvcc finished (seconds from the start of the build).

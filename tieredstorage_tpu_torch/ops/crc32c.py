@@ -27,11 +27,12 @@ zero state contributes nothing: Z^k(0) = 0).
 from __future__ import annotations
 
 import functools
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
+
+from tieredstorage_tpu_torch.utils.locks import new_lock
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -154,7 +155,7 @@ def _length_offset(length: int) -> int:
 _SLAB_BLOCKS = 1 << 17
 
 _CONSTS: dict = {}
-_CONSTS_MU = threading.Lock()
+_CONSTS_MU = new_lock("crc32c._CONSTS_MU")
 
 
 def _device_consts(levels: int, device: torch.device) -> tuple:

@@ -41,6 +41,7 @@ from tieredstorage_tpu_torch.ops.ghash_cuda import (
     ghash_tree,
     use_ghash_tree,
 )
+from tieredstorage_tpu_torch.utils.locks import new_lock
 
 TAG_SIZE = 16
 
@@ -213,7 +214,7 @@ class _DeviceConsts:
 
 
 _DEVICE_CONSTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_CONSTS_MU = threading.Lock()
+_CONSTS_MU = new_lock("gcm._CONSTS_MU")
 
 
 def _device_consts(ctx, device: torch.device) -> _DeviceConsts:
@@ -389,7 +390,7 @@ def _gcm_varlen_batch(
 #: the per-thread counts are the backend's delta source, so one window never
 #: absorbs a sibling thread's launches into its own count.
 _DISPATCHES = [0]
-_DISPATCH_MU = threading.Lock()
+_DISPATCH_MU = new_lock("gcm._DISPATCH_MU")
 _COUNTERS = threading.local()
 
 

@@ -785,11 +785,27 @@ class RemoteStorageManager:
 
     @property
     def default_deadline_s(self) -> Optional[float]:
-        """`deadline.default.ms` in seconds; `_traced` installs it when the
-        caller brought no deadline."""
+        """`deadline.default.ms` in seconds; the sidecar boundaries and
+        `_traced` install it when the caller brought no deadline."""
         if self._config is None or self._config.deadline_default_ms is None:
             return None
         return self._config.deadline_default_ms / 1000.0
+
+    @property
+    def sidecar_grpc_max_workers(self) -> int:
+        """`sidecar.grpc.max.workers` (SidecarServer reads this when no
+        explicit max_workers is passed)."""
+        return (
+            self._config.sidecar_grpc_max_workers if self._config is not None else 8
+        )
+
+    @property
+    def sidecar_http_max_workers(self) -> int:
+        """`sidecar.http.max.workers` (SidecarHttpGateway reads this when no
+        explicit max_workers is passed)."""
+        return (
+            self._config.sidecar_http_max_workers if self._config is not None else 32
+        )
 
     @property
     def hedger(self) -> Optional[Hedger]:

@@ -1,0 +1,521 @@
+"""HTTP/1.1 gateway for the broker-side JVM shim (shim wire format v1).
+
+Counterpart of tieredstorage_tpu/sidecar/http_gateway.py over this
+package's RemoteStorageManager: the same routes, framing, error mapping and
+headers, so the Java shim (`kafka-shim/`) and the JAX package's clients
+cannot tell the two gateways apart. Runs inside the sidecar process;
+`python -m tieredstorage_tpu_torch.sidecar --http-port N` starts it next to
+the gRPC listener. It needs neither grpc nor protobuf.
+
+Error mapping (the shim translates back to KIP-405 exception types):
+404 RemoteResourceNotFoundException, 400 invalid argument,
+413 body over MAX_BODY_BYTES, 429 + Retry-After admission shed,
+504 deadline exceeded, 500 the rest.
+
+The ``x-deadline-ms`` header is adopted as the request's end-to-end
+Deadline (falling back to the RSM's ``deadline.default.ms``), and every
+POST passes the RSM's AdmissionController — shedding happens BEFORE the
+request body is read, so an overloaded sidecar refuses cheaply instead of
+buffering segment uploads it will never serve; a shed reply drops the
+connection. Requests carrying an ``x-tenant`` header are also subject to
+the controller's per-tenant fair share at saturation. A ``traceparent``
+header joins the caller's trace: the gateway span and the flight record
+cover the streamed response drain. Connections are handled by a bounded
+worker pool (``sidecar.http.max.workers``).
+
+Read-only routes: ``GET /v1/health``, ``GET /slo`` (``slo.enabled``),
+``GET /scrub``, ``GET /debug/requests[?n=K|?slowest=K|?trace=<id>]``
+(``flight.enabled``) and ``GET /debug/timeline`` (``timeline.enabled``),
+each also under ``/v1/``; a disabled plane answers 404. The fleet routes
+(``GET /chunk``, ``/fleet/ping``, ``/fleet/telemetry``, ``POST
+/fleet/gossip``) answer 404 "fleet mode disabled" / "fleet gossip
+disabled", as the JAX gateway does for an RSM without a fleet: this package
+has no fleet yet.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import pathlib
+import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlsplit
+
+from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
+from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+from tieredstorage_tpu_torch.metadata import LogSegmentData
+from tieredstorage_tpu_torch.sidecar import shimwire
+from tieredstorage_tpu_torch.utils.admission import AdmissionRejectedException
+from tieredstorage_tpu_torch.utils.deadline import (
+    DeadlineExceededException,
+    deadline_scope,
+    ensure_deadline,
+    parse_deadline_ms,
+)
+from tieredstorage_tpu_torch.utils.flightrecorder import NOOP_RECORDER
+from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
+
+_STREAM_BLOCK = 1 << 20
+#: Spool request bodies to disk past this (copy uploads are whole segments).
+_SPOOL_BYTES = 64 << 20
+#: Reject request bodies past this — matches the gRPC boundary's
+#: max-message ceiling so a runaway client can't OOM the sidecar.
+MAX_BODY_BYTES = 2 << 30
+
+
+class _BodyTooLarge(Exception):
+    pass
+
+
+class _StreamAborted(Exception):
+    """A fetch stream failed after the 200 was committed: the chunked
+    framing is unrecoverable, so the connection is aborted instead of a
+    second response being written into the body."""
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    rsm = None  # set per-server subclass
+
+    def log_message(self, fmt, *args):  # quiet; the RSM has its own tracing
+        pass
+
+    # ------------------------------------------------------------- plumbing
+    def _body(self):
+        """Request body as a seekable file, disk-spooled past _SPOOL_BYTES
+        and capped at MAX_BODY_BYTES (a copy request holds a whole segment,
+        which must not be required to fit in sidecar RAM).
+
+        Copy uploads touch disk twice (spooled body, then the decoded
+        section files) — accepted: decoding straight off the socket would
+        tie chunked-transfer framing into the section parser, and a segment
+        copy is a once-per-segment operation whose cost is dominated by the
+        transform, not local disk."""
+        out = tempfile.SpooledTemporaryFile(max_size=_SPOOL_BYTES)
+        total = 0
+
+        def take(n: int) -> None:
+            nonlocal total
+            remaining = n
+            while remaining:
+                block = self.rfile.read(min(remaining, _STREAM_BLOCK))
+                if not block:
+                    raise shimwire.ShimWireError("request body truncated")
+                total += len(block)
+                if total > MAX_BODY_BYTES:
+                    raise _BodyTooLarge()
+                out.write(block)
+                remaining -= len(block)
+
+        if self.headers.get("Transfer-Encoding", "").lower() == "chunked":
+            # java.net.http streams unknown-length bodies (the shim's copy
+            # path wraps file streams) as chunked; BaseHTTPRequestHandler
+            # doesn't decode it, so do it here.
+            while True:
+                raw_line = self.rfile.readline(1024)
+                if not raw_line.endswith(b"\n"):
+                    # Truncation here would silently shift the remainder of
+                    # the size line into the chunk data.
+                    raise shimwire.ShimWireError("chunk size line too long")
+                size_line = raw_line.strip()
+                # Strict RFC 7230 chunk-size grammar (1*HEXDIG). int(_, 16)
+                # alone also accepts "-5"/"+5"/"0x1f"/"1_0" — the negative
+                # forms would make take(n<0) spin reading to EOF, and the
+                # non-canonical ones are request-smuggling surface against
+                # stricter intermediaries.
+                # BWS before the chunk-ext ';' is valid per RFC 7230 §3.2.3
+                # (recipients MUST parse and remove) — strip it before the
+                # strict 1*HEXDIG check.
+                size_field = size_line.split(b";")[0].strip()
+                if not size_field or not all(
+                    c in b"0123456789abcdefABCDEF" for c in size_field
+                ):
+                    raise shimwire.ShimWireError(
+                        f"bad chunk size line {size_line!r}"
+                    )
+                size = int(size_field, 16)
+                if size == 0:
+                    # Consume the trailer section up to the final CRLF.
+                    while self.rfile.readline(1024).strip():
+                        pass
+                    break
+                take(size)
+                self.rfile.read(2)  # chunk-terminating CRLF
+        else:
+            raw_len = self.headers.get("Content-Length", "0").strip()
+            # Same strict grammar rationale as chunk sizes: bare int()
+            # accepts '+5'/'1_0'/'-7', all desync surface ('-7' would also
+            # spin take() to EOF). str.isdigit() is NOT the right gate — it
+            # accepts non-ASCII digits (e.g. '٥', '５') that int() happily
+            # parses, so hold the same explicit ASCII allowlist as the
+            # chunk-size arm.
+            if not raw_len or not all(c in "0123456789" for c in raw_len):
+                raise shimwire.ShimWireError(
+                    f"bad Content-Length {raw_len!r}"
+                )
+            length = int(raw_len)
+            if length > MAX_BODY_BYTES:
+                raise _BodyTooLarge()
+            take(length)
+        out.seek(0)
+        return out
+
+    def _reply(self, status: int, body: bytes = b"", headers=None) -> None:
+        self.send_response(status)
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        if body:
+            self.wfile.write(body)
+
+    def _reply_stream(self, stream) -> None:
+        """200 + chunked transfer of a file-like's contents.
+
+        The RSM's fetch streams are lazy: the manifest fetch (and its 404)
+        happens on the first read. Pull that block BEFORE committing the
+        status line so not-found maps to a clean 404 instead of a
+        truncated 200. A failure later mid-stream can only abort the
+        connection (the shim surfaces that as a transport error, the same
+        way a gRPC mid-stream abort lands)."""
+        with contextlib.closing(stream):
+            first = stream.read(_STREAM_BLOCK)
+            self.send_response(200)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            try:
+                block = first
+                while block:
+                    self.wfile.write(b"%x\r\n" % len(block) + block + b"\r\n")
+                    block = stream.read(_STREAM_BLOCK)
+                self.wfile.write(b"0\r\n\r\n")
+            except Exception as exc:
+                raise _StreamAborted() from exc
+
+    def _fail(self, exc: Exception) -> None:
+        headers = None
+        if isinstance(exc, AdmissionRejectedException):
+            status = 429
+            headers = {"Retry-After": str(max(1, math.ceil(exc.retry_after_s)))}
+        elif isinstance(exc, DeadlineExceededException):
+            status = 504
+        elif isinstance(exc, RemoteResourceNotFoundException):
+            status = 404
+        elif isinstance(exc, (ValueError, KeyError)):
+            status = 400
+        else:
+            status = 500
+        self._reply(status, f"{type(exc).__name__}: {exc}".encode("utf-8"),
+                    headers=headers)
+
+    # ------------------------------------------------------------- handlers
+    def do_GET(self) -> None:
+        parts = urlsplit(self.path)
+        if parts.path == "/v1/health":
+            self._reply(200)
+        elif parts.path in ("/chunk", "/v1/chunk", "/fleet/ping", "/v1/fleet/ping",
+                            "/fleet/telemetry", "/v1/fleet/telemetry"):
+            self._fleet_disabled()
+        elif parts.path in ("/slo", "/v1/slo"):
+            self._slo()
+        elif parts.path in ("/debug/requests", "/v1/debug/requests"):
+            self._debug_requests(parts.query)
+        elif parts.path in ("/debug/timeline", "/v1/debug/timeline"):
+            self._debug_timeline()
+        elif self.path in ("/scrub", "/v1/scrub"):
+            # Integrity-scrubber status: scheduler state, cumulative
+            # counters, and the last pass summary ({"enabled": false} when
+            # scrub.enabled is off).
+            status = (
+                self.rsm.scrub_status()
+                if hasattr(self.rsm, "scrub_status")
+                else {"enabled": False}
+            )
+            self._reply(200, json.dumps(status, indent=1).encode("utf-8"))
+        else:
+            self._reply(404, b"no such endpoint")
+
+    def _fleet_disabled(self) -> None:
+        """The fleet routes of an RSM without a fleet: the JAX gateway's
+        answer when ``fleet_router`` is None (no fleet in this package)."""
+        self._reply(404, b"fleet mode disabled")
+
+    def _slo(self) -> None:
+        """SLO verdicts (metrics/slo.py): compliance, error budget, and
+        two-window burn rates per declared objective. 404 while
+        ``slo.enabled`` is off — an absent engine must read as "not
+        configured", never as "everything within budget"."""
+        if getattr(self.rsm, "slo_engine", None) is None:
+            self._reply(404, b"slo engine disabled")
+            return
+        try:
+            status = self.rsm.slo_status()
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(status, indent=1).encode("utf-8"))
+
+    def _debug_requests(self, query: str) -> None:
+        """Flight-recorder evidence dump (utils/flightrecorder.py): the
+        slowest and the failed requests with tier/hedge/failover/GCM
+        accounting. ``?n=K`` bounds both lists, ``?slowest=K`` returns
+        just the K slowest completed records, ``?trace=<id>`` filters to
+        one trace's records (404 when nothing retained carries it — the
+        fleet stitcher's per-member query); 400 on a malformed count, 404
+        while ``flight.enabled`` is off."""
+        recorder = getattr(self.rsm, "flight_recorder", None)
+        if recorder is None or not recorder.enabled:
+            self._reply(404, b"flight recorder disabled")
+            return
+        # keep_blank_values: an explicit empty ?n= is a malformed request
+        # (400), not an absent parameter.
+        params = parse_qs(query, keep_blank_values=True, strict_parsing=False)
+
+        def count_of(name: str):
+            if name not in params:
+                return None
+            raw = params[name][0]
+            # Strict ASCII-digit grammar (the Content-Length precedent).
+            if not raw or not all(c in "0123456789" for c in raw) or int(raw) < 1:
+                raise ValueError(f"expected ?{name}=<positive integer>")
+            return int(raw)
+
+        try:
+            limit = count_of("n")
+            slowest = count_of("slowest")
+            trace = params["trace"][0] if "trace" in params else None
+            if trace is not None and not trace:
+                raise ValueError("expected ?trace=<trace id>")
+            status = self.rsm.flight_status(
+                limit=limit, trace=trace, slowest=slowest
+            )
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(status, indent=1).encode("utf-8"))
+
+    def _debug_timeline(self) -> None:
+        """Device-scheduler timeline ring (metrics/timeline.py): merged
+        launches with full scheduler context, the clock-epoch pin, and
+        counters. 404 while ``timeline.enabled`` is off — an absent ring
+        must read as "not armed", never as "the device was idle"."""
+        timeline = getattr(self.rsm, "timeline", None)
+        if timeline is None or not timeline.enabled:
+            self._reply(404, b"timeline recorder disabled")
+            return
+        try:
+            status = self.rsm.timeline_status()
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(status, indent=1).encode("utf-8"))
+
+    def do_POST(self) -> None:
+        if self.path in ("/fleet/gossip", "/v1/fleet/gossip"):
+            self._reply(404, b"fleet gossip disabled")
+            return
+        routes = {
+            "/v1/copy": self._copy,
+            "/v1/fetch": self._fetch,
+            "/v1/fetch-index": self._fetch_index,
+            "/v1/delete": self._delete,
+        }
+        handler = routes.get(self.path)
+        if handler is None:
+            self._reply(404, b"no such endpoint")
+            return
+        # Admission gate FIRST — an overloaded sidecar sheds before reading
+        # (and spooling) the request body. The unread body desyncs the
+        # keep-alive framing, so a shed reply also drops the connection.
+        admission = getattr(self.rsm, "admission", None)
+        tracer = getattr(self.rsm, "tracer", NOOP_TRACER)
+        # Optional tenant identity: engages the controller's per-tenant
+        # fair share at saturation (absent header = legacy behavior).
+        tenant = self.headers.get("x-tenant") or None
+        if admission is not None:
+            try:
+                admission.acquire(self.path, tenant=tenant)
+            except AdmissionRejectedException as exc:
+                tracer.event("admission.shed", path=self.path, tenant=tenant or "")
+                self._fail(exc)
+                self.close_connection = True
+                return
+        try:
+            self._handle_admitted(handler, tracer)
+        finally:
+            if admission is not None:
+                admission.release(tenant=tenant)
+
+    def _handle_admitted(self, handler, tracer) -> None:
+        try:
+            body = self._body()
+        except _BodyTooLarge:
+            self._reply(413, b"request body exceeds MAX_BODY_BYTES")
+            self.close_connection = True  # unread body left on the socket
+            return
+        except Exception as exc:  # noqa: BLE001 — body-framing failure
+            # The request body was only partially consumed: the remaining
+            # bytes would be parsed as the next request line, desyncing the
+            # keep-alive connection. Answer, then drop the connection.
+            self._fail(exc)
+            self.close_connection = True
+            return
+        # Join the caller's trace (W3C traceparent header, sent by the JVM
+        # shim or a Python client) and record the gateway leg as one span —
+        # the span covers the streamed response too, so time-to-last-byte of
+        # a fetch is the gateway span's extent. The caller's deadline
+        # (x-deadline-ms, remaining budget) is adopted the same way; absent
+        # one, the RSM's configured default applies. The scope covers the
+        # streamed drain, so chunk fetches during the response also honor it.
+        wire_deadline = parse_deadline_ms(self.headers.get(shimwire.DEADLINE_HEADER))
+        recorder = getattr(self.rsm, "flight_recorder", NOOP_RECORDER)
+        try:
+            # The flight record spans the streamed drain too (like the span
+            # and the deadline scope), so chunk-tier outcomes during the
+            # response land on THIS request's record.
+            with contextlib.closing(body), \
+                    deadline_scope(wire_deadline), \
+                    ensure_deadline(getattr(self.rsm, "default_deadline_s", None)) as deadline, \
+                    tracer.continue_trace(
+                        self.headers.get(shimwire.TRACEPARENT_HEADER)), \
+                    tracer.span(
+                        "gateway" + self.path.replace("/v1/", "."),
+                        **(
+                            {"deadline_ms": round(deadline.remaining_s() * 1000.0, 1)}
+                            if deadline is not None else {}
+                        ),
+                    ) as span, \
+                    recorder.request(
+                        "gateway" + self.path.replace("/v1/", "."),
+                        trace_id=span.trace_id if span else None,
+                    ):
+                handler(body)
+        except _StreamAborted:
+            # Response already committed; the only safe move is dropping
+            # the connection so the client sees a truncated stream (the
+            # shim maps that to RemoteStorageException).
+            self.close_connection = True
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+
+    def _copy(self, body) -> None:
+        md = shimwire.decode_metadata(body)
+        with tempfile.TemporaryDirectory(prefix="sidecar-http-copy-") as tmp:
+            # Sections stream straight to files — a multi-GiB segment never
+            # has to fit in sidecar RAM on top of the spooled request body.
+            paths = shimwire.decode_sections_to_dir(body, tmp)
+            for required in ("log_segment", "offset_index", "time_index",
+                             "leader_epoch_index"):
+                if paths[required] is None:
+                    raise shimwire.ShimWireError(
+                        f"missing required section {required}"
+                    )
+            if paths["producer_snapshot"] is None:
+                # KIP-405 requires the snapshot; tolerate shims for older
+                # brokers by materializing an empty one, like the reference
+                # e2e fixtures do.
+                p = pathlib.Path(tmp) / "producer_snapshot"
+                p.write_bytes(b"")
+                paths["producer_snapshot"] = p
+            data = LogSegmentData(
+                log_segment=paths["log_segment"],
+                offset_index=paths["offset_index"],
+                time_index=paths["time_index"],
+                producer_snapshot_index=paths["producer_snapshot"],
+                transaction_index=paths["transaction_index"],
+                leader_epoch_index=paths["leader_epoch_index"].read_bytes(),
+            )
+            custom = self.rsm.copy_log_segment_data(md, data)
+        if custom:
+            self._reply(200, bytes(custom))
+        else:
+            self._reply(204)
+
+    def _fetch(self, body) -> None:
+        md = shimwire.decode_metadata(body)
+        start, end = shimwire.decode_fetch_tail(body)
+        self._reply_stream(self.rsm.fetch_log_segment(md, start, end))
+
+    def _fetch_index(self, body) -> None:
+        md = shimwire.decode_metadata(body)
+        name = shimwire.decode_index_type(body)
+        try:
+            index_type = IndexType[name]
+        except KeyError:
+            raise shimwire.ShimWireError(f"unknown index type {name!r}") from None
+        self._reply_stream(self.rsm.fetch_index(md, index_type))
+
+    def _delete(self, body) -> None:
+        self.rsm.delete_log_segment_data(shimwire.decode_metadata(body))
+        self._reply(204)
+
+
+class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer handling connections on a BOUNDED worker pool.
+
+    The stock server spawns one unbounded thread per connection, so a fleet
+    instance under fan-in (brokers + peer forwards) multiplies stacks
+    without limit. Here connections are accepted eagerly (cheap) and handed
+    to a fixed executor (`sidecar.http.max.workers`); excess connections
+    queue in the executor until a worker frees up — bounded memory, and the
+    admission controller still sheds the work itself."""
+
+    def __init__(self, server_address, handler_class, max_workers: int):
+        super().__init__(server_address, handler_class)
+        self.max_workers = max_workers
+        self._executor = ThreadPoolExecutor(
+            max_workers=max_workers, thread_name_prefix="sidecar-http"
+        )
+
+    def process_request(self, request, client_address):
+        try:
+            self._executor.submit(
+                self.process_request_thread, request, client_address
+            )
+        except RuntimeError:  # executor shut down mid-accept
+            self.shutdown_request(request)
+
+    def server_close(self):
+        try:
+            super().server_close()
+        finally:
+            self._executor.shutdown(wait=False, cancel_futures=True)
+
+
+class SidecarHttpGateway:
+    def __init__(
+        self,
+        rsm,
+        *,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        max_workers: Optional[int] = None,
+    ):
+        handler = type("BoundHandler", (_Handler,), {"rsm": rsm})
+        if max_workers is None:
+            max_workers = getattr(rsm, "sidecar_http_max_workers", 32)
+        self._server = _BoundedThreadingHTTPServer((host, port), handler, max_workers)
+        self.port = self._server.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def max_workers(self) -> int:
+        return self._server.max_workers
+
+    def start(self) -> "SidecarHttpGateway":
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="sidecar-http", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

@@ -38,7 +38,6 @@ import io
 import random
 import socket
 import ssl
-import threading
 import time
 from datetime import datetime, timezone
 from email.utils import parsedate_to_datetime
@@ -50,6 +49,7 @@ from tieredstorage_tpu_torch.utils.deadline import (
     check_deadline,
     current_deadline,
 )
+from tieredstorage_tpu_torch.utils.locks import new_condition
 
 
 class HttpError(Exception):
@@ -238,7 +238,7 @@ class _ConnectionPool:
             raise ValueError(f"max_connections must be >= 1, got {max_connections}")
         self._factory = factory
         self.max_connections = max_connections
-        self._cond = threading.Condition()
+        self._cond = new_condition("httpclient._ConnectionPool._cond")
         self._idle: list[http.client.HTTPConnection] = []
         self._in_use = 0
         #: Lifetime counters (pool health introspection).

@@ -1,6 +1,6 @@
 """In-memory storage backend for tests and as a fast local fake.
 
-Counterpart of tieredstorage_tpu/storage/memory.py, with a plain lock. The
+Counterpart of tieredstorage_tpu/storage/memory.py. The
 analogue of the reference test tree's fake backends
 (reference: core/src/test/java/.../config/NoopStorageBackend.java:30-60 is a
 no-op used for config plumbing; this one actually stores bytes so the full
@@ -10,7 +10,6 @@ contract suite and the RSM lifecycle tests can run in-process).
 from __future__ import annotations
 
 import io
-import threading
 from typing import BinaryIO, Dict, Mapping, Optional
 
 from tieredstorage_tpu_torch.storage.core import (
@@ -20,12 +19,13 @@ from tieredstorage_tpu_torch.storage.core import (
     ObjectKey,
     StorageBackend,
 )
+from tieredstorage_tpu_torch.utils.locks import new_lock
 
 
 class InMemoryStorage(StorageBackend):
     def __init__(self) -> None:
         self._objects: Dict[str, bytes] = {}
-        self._lock = threading.Lock()
+        self._lock = new_lock("memory.InMemoryStorage._lock")
 
     def configure(self, configs: Mapping[str, object]) -> None:
         pass

@@ -1,6 +1,6 @@
 """Replicated multi-backend storage: quorum writes, health-probed failover.
 
-Counterpart of tieredstorage_tpu/storage/replicated.py, with plain locks; the
+Counterpart of tieredstorage_tpu/storage/replicated.py; the
 RSM hands it its tracer and the failover-time hook (`on_failover`), and
 publishes its counters as the replication-metrics gauges. A replica whose
 backend chain holds an OPEN circuit breaker (a child wrapped in
@@ -80,6 +80,7 @@ from tieredstorage_tpu_torch.utils.deadline import (
     deadline_scope,
     remaining_s,
 )
+from tieredstorage_tpu_torch.utils.locks import new_lock
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 log = logging.getLogger(__name__)
@@ -144,7 +145,7 @@ class ReplicaState:
     def __init__(self, name: str, backend: StorageBackend) -> None:
         self.name = name
         self.backend = backend
-        self._lock = threading.Lock()
+        self._lock = new_lock("replicated.ReplicaState._lock")
         self._latency_ms: Optional[float] = None
         self._error_rate = 0.0
         #: Cumulative counters.
@@ -274,14 +275,14 @@ class ReplicatedStorageBackend(StorageBackend):
         self._probe_prefix = probe_prefix
         self.tracer = tracer
         self._pool: Optional[ThreadPoolExecutor] = None
-        self._pool_lock = threading.Lock()
+        self._pool_lock = new_lock("replicated.ReplicatedStorageBackend._pool_lock")
         self._prober: Optional[HealthProber] = None
         #: Optional `(elapsed_ms)` hook, called on each failover.
         self.on_failover: Optional[Callable[[float], None]] = None
         #: Cumulative counters.
         self.failovers = 0
         self.quorum_failures = 0
-        self._counter_lock = threading.Lock()
+        self._counter_lock = new_lock("replicated.ReplicatedStorageBackend._counter_lock")
         self._validate_quorum()
         if self._replicas and self._probe_interval_s:
             self.start_prober()

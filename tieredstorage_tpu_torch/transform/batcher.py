@@ -1,8 +1,8 @@
 """Work-class-aware device scheduler: ONE GCM queue for fetch, encrypt, scrub.
 
-Counterpart of tieredstorage_tpu/transform/batcher.py, whole, with plain
-`threading` locks (the `utils/locks` witnesses are not wired here yet). The
-RSM points `on_flush` at the batch-metrics group (metrics/batch_metrics.py)
+Counterpart of tieredstorage_tpu/transform/batcher.py, whole: its
+condition and mutation sites carry the JAX twin's witness names
+(utils/locks.py). The RSM points `on_flush` at the batch-metrics group (metrics/batch_metrics.py)
 and `timeline` at its scheduler timeline (metrics/timeline.py); each entry
 carries its submitting request's flight-recorder trace id, captured at
 enqueue on the request thread (the flusher has no ambient record).
@@ -81,6 +81,7 @@ from tieredstorage_tpu_torch.transform.scheduler import (
     validate_work_class,
 )
 from tieredstorage_tpu_torch.utils import faults, flightrecorder
+from tieredstorage_tpu_torch.utils.locks import new_condition, note_mutation
 from tieredstorage_tpu_torch.utils.retry import RetryPolicy, call_with_retry
 
 
@@ -213,7 +214,7 @@ class WindowBatcher:
         self.set_launch_retry(launch_attempts, launch_backoff_s)
         #: The ONE guard of every shared field below; doubles as the
         #: flusher's wakeup condition.
-        self._cond = threading.Condition()
+        self._cond = new_condition("batcher.WindowBatcher._cond")
         #: bucket key (work_class, decrypt, data_key, aad, bucket_bytes)
         #: -> queued entries. One class + one direction per merged launch.
         self._buckets: dict[tuple, list[_PendingWindow]] = {}
@@ -314,6 +315,10 @@ class WindowBatcher:
                 )
                 self._class_allowance[work_class] = self._class_burst[work_class]
                 self._class_refill_at[work_class] = self._now()
+            note_mutation("batcher.WindowBatcher._class_rate")
+            note_mutation("batcher.WindowBatcher._class_burst")
+            note_mutation("batcher.WindowBatcher._class_allowance")
+            note_mutation("batcher.WindowBatcher._class_refill_at")
             self._cond.notify()
 
     def class_queued(self) -> dict[str, int]:
@@ -342,18 +347,24 @@ class WindowBatcher:
         if self._stopped:
             raise BatcherStoppedError("WindowBatcher is stopped")
         self.windows_submitted += 1
+        note_mutation("batcher.WindowBatcher.windows_submitted")
         if is_speculative():
             self.speculative_windows += 1
+            note_mutation("batcher.WindowBatcher.speculative_windows")
             self.speculative_bytes += n_bytes
+            note_mutation("batcher.WindowBatcher.speculative_bytes")
         fast = work_class != BACKGROUND and not self._buckets and self._inflight == 0
         if fast:
             self._inflight += 1
+            note_mutation("batcher.WindowBatcher._inflight")
             self.fast_path_windows += 1
+            note_mutation("batcher.WindowBatcher.fast_path_windows")
         return fast
 
     def _release_inflight(self) -> None:
         with self._cond:
             self._inflight -= 1
+            note_mutation("batcher.WindowBatcher._inflight")
             if self._buckets:
                 self._cond.notify()
 
@@ -490,6 +501,8 @@ class WindowBatcher:
             self._class_allowance[work_class], rate, burst, elapsed
         )
         self._class_refill_at[work_class] = now
+        note_mutation("batcher.WindowBatcher._class_allowance")
+        note_mutation("batcher.WindowBatcher._class_refill_at")
         need = min(need_bytes, burst, self.max_bytes)
         return now + admission_defer_s(self._class_allowance[work_class], need, rate)
 
@@ -557,8 +570,10 @@ class WindowBatcher:
         if take:
             work_class = key[0]
             self._served_bytes[work_class] += total
+            note_mutation("batcher.WindowBatcher._served_bytes")
             if work_class in self._class_rate:
                 self._class_allowance[work_class] -= total
+                note_mutation("batcher.WindowBatcher._class_allowance")
         return take
 
     def _run(self) -> None:
@@ -574,12 +589,14 @@ class WindowBatcher:
                     continue
                 groups = [(key, self._take_locked(key)) for key in due]
                 self._inflight += 1
+                note_mutation("batcher.WindowBatcher._inflight")
             try:
                 for key, entries in groups:
                     self._flush_group(key, entries)
             finally:
                 with self._cond:
                     self._inflight -= 1
+                    note_mutation("batcher.WindowBatcher._inflight")
 
     def flush_now(self) -> int:
         """Flush every queued window synchronously on the calling thread
@@ -602,6 +619,7 @@ class WindowBatcher:
     def _on_launch_retry(self, attempt: int, delay_s: float, exc: BaseException) -> None:
         with self._cond:
             self.launch_retries += 1
+            note_mutation("batcher.WindowBatcher.launch_retries")
 
     def _launch_once(
         self, ctx, packed: torch.Tensor, out_host: torch.Tensor, decrypt: bool,
@@ -656,6 +674,7 @@ class WindowBatcher:
         if expired:
             with self._cond:
                 self.expired_windows += expired
+                note_mutation("batcher.WindowBatcher.expired_windows")
             tl = self.timeline
             if tl is not None:
                 tl.record_expired(work_class, expired, now)
@@ -700,6 +719,7 @@ class WindowBatcher:
         except BaseException as exc:  # noqa: BLE001 - every waiter must wake
             with self._cond:
                 self.launch_failures += 1
+                note_mutation("batcher.WindowBatcher.launch_failures")
             for e in live:
                 e.error = exc
                 e.event.set()
@@ -711,11 +731,16 @@ class WindowBatcher:
         occupancy = len(live)
         with self._cond:
             self._batch_seq += 1
+            note_mutation("batcher.WindowBatcher._batch_seq")
             batch_id = self._batch_seq
             self.launches += 1
+            note_mutation("batcher.WindowBatcher.launches")
             self.batched_windows += occupancy
+            note_mutation("batcher.WindowBatcher.batched_windows")
             self.class_launches[work_class] += 1
+            note_mutation("batcher.WindowBatcher.class_launches")
             self.class_flushed_windows[work_class] += occupancy
+            note_mutation("batcher.WindowBatcher.class_flushed_windows")
             self._launch_s.append(launch_s)
             if len(self._launch_s) > self.LAUNCH_SAMPLES:
                 del self._launch_s[0]
@@ -755,6 +780,7 @@ class WindowBatcher:
         backend._staging.release(out_host)
         with self._cond:
             self.class_added_wait_ms[work_class] += sum(added_waits)
+            note_mutation("batcher.WindowBatcher.class_added_wait_ms")
         tl = self.timeline
         if tl is not None:
             tl.record_flush(

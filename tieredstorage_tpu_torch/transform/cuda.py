@@ -42,7 +42,6 @@ import dataclasses
 import functools
 import hmac
 import os
-import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
@@ -75,6 +74,7 @@ from tieredstorage_tpu_torch.transform.api import (
     TransformOptions,
     resolve_device,
 )
+from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
 
@@ -127,7 +127,7 @@ class _StagingPool:
 
     def __init__(self) -> None:
         self._free: dict[tuple, list[torch.Tensor]] = collections.defaultdict(list)
-        self._lock = threading.Lock()
+        self._lock = new_lock("cuda._StagingPool._lock")
         self.allocations = 0
 
     def acquire(self, shape: tuple, pinned: bool) -> torch.Tensor:
@@ -213,11 +213,11 @@ class CudaTransformBackend(TransformBackend):
     def __init__(self, device=None):
         self._device_spec = DEFAULT_DEVICE if device is None else str(device)
         self._device: Optional[torch.device] = None
-        self._stats_lock = threading.Lock()
+        self._stats_lock = new_lock("cuda.CudaTransformBackend._stats_lock")
         self.dispatch_stats = DispatchStats()
         self._staging = _StagingPool()
         self._pool: Optional[ThreadPoolExecutor] = None
-        self._pool_lock = threading.Lock()
+        self._pool_lock = new_lock("cuda.CudaTransformBackend._pool_lock")
         #: Cross-request window batcher (transform/batcher.py), built by
         #: `configure()` from `transform.batch.enabled` or explicitly by
         #: `enable_batching()`; None = every window dispatches unbatched.
@@ -296,12 +296,14 @@ class CudaTransformBackend(TransformBackend):
         with self._stats_lock:
             self.dispatch_stats.windows += 1
             self.dispatch_stats.bytes_in += n_bytes
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
 
     def _note_batched_fetch(self) -> None:
         """One device→host copy for a merged flush (shared by every window
         it coalesced)."""
         with self._stats_lock:
             self.dispatch_stats.d2h_fetches += 1
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
 
     def _zstd_pool(self) -> ThreadPoolExecutor:
         with self._pool_lock:
@@ -456,6 +458,7 @@ class CudaTransformBackend(TransformBackend):
         with self._stats_lock:
             self.dispatch_stats.h2d_transfers += 1
             self.dispatch_stats.rows_per_device = host.shape[0]
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return staged
 
     def _launch_packed(
@@ -481,6 +484,7 @@ class CudaTransformBackend(TransformBackend):
             self.dispatch_stats.hbm_roundtrips += gcm_ops.thread_hbm_roundtrips() - rt_before
             if out.data_ptr() == staged.data_ptr():
                 self.dispatch_stats.donated_buffers += 1
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return out, ready
 
     def _run_window(self, enc, payloads, sizes, ivs, *, decrypt: bool) -> _StagedWindow:
@@ -502,6 +506,7 @@ class CudaTransformBackend(TransformBackend):
         with self._stats_lock:
             self.dispatch_stats.windows += 1
             self.dispatch_stats.bytes_in += sum(sizes)
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return _StagedWindow(ivs, sizes, n_bytes, host, out, ready)
 
     def _fetch(self, staged: _StagedWindow) -> np.ndarray:
@@ -510,6 +515,7 @@ class CudaTransformBackend(TransformBackend):
             staged.ready.synchronize()
         with self._stats_lock:
             self.dispatch_stats.d2h_fetches += 1
+            note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return staged.host.numpy()
 
     @_spanned("transform.encrypt_dispatch")

@@ -1,6 +1,6 @@
 """Single-flight async loading cache — the Caffeine-equivalent primitive.
 
-Counterpart of tieredstorage_tpu/utils/caching.py, with plain locks.
+Counterpart of tieredstorage_tpu/utils/caching.py.
 
 The reference leans on Caffeine `AsyncCache`s for all three fetch-side caches
 (chunks: core/.../fetch/cache/ChunkCache.java:76-157; segment indexes:
@@ -25,12 +25,13 @@ Loads run on a caller-supplied executor; `get` blocks up to `timeout`
 from __future__ import annotations
 
 import enum
-import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import Executor, Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Generic, Hashable, Optional, TypeVar
+
+from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 
 K = TypeVar("K", bound=Hashable)
 V = TypeVar("V")
@@ -89,7 +90,7 @@ class LoadingCache(Generic[K, V]):
         self._expire = expire_after_access_s
         self._listener = removal_listener
         self._now = time_source
-        self._lock = threading.Lock()
+        self._lock = new_lock("caching.LoadingCache._lock")
         # Ordered oldest-access-first for LRU eviction.
         self._entries: "OrderedDict[K, _Entry[V]]" = OrderedDict()
         self._total_weight = 0
@@ -275,6 +276,7 @@ class LoadingCache(Generic[K, V]):
             except Exception:  # noqa: BLE001 — listener failures must not poison the cache
                 with self._lock:
                     self.stats.listener_failures += 1
+                    note_mutation("caching.LoadingCache.stats")
 
     # ------------------------------------------------------------- inspection
     @property

@@ -10,9 +10,10 @@ handful of threads, not a hot loop).
 from __future__ import annotations
 
 import io
-import threading
 import time
 from typing import BinaryIO
+
+from tieredstorage_tpu_torch.utils.locks import new_lock
 
 MIN_RATE = 16 * 1024  # bytes/s floor
 
@@ -27,7 +28,7 @@ class TokenBucket:
         self._tokens = float(rate_bytes_per_second)
         self._rate = float(rate_bytes_per_second)
         self._last = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = new_lock("ratelimit.TokenBucket._lock")
 
     def _refill_locked(self) -> None:
         now = time.monotonic()
