@@ -187,13 +187,43 @@ Phases, in order, each printing its seconds:
              `transform.device`): a 256 MiB segment (cut for time) over the
              shim wire and over gRPC, GCM windows in the child's scrape,
              the card memory the child holds and gives back, SIGTERM and
-             exit 0; (e) (a)'s ranges and (b)'s fan-in at 256 MiB over the
-             batcher and a memory chunk cache, after an untimed warm-up, in
-             four children in turns with `TSTPU_LOCK_WITNESS` 0, 1, 1, 0:
-             no lock-order violation, the
+             exit 0; (e) (a)'s ranges and (b)'s fan-in at 64 MiB (cut for
+             time) over the batcher and a memory chunk cache, after an
+             untimed warm-up, in two children, `TSTPU_LOCK_WITNESS` 0 then
+             1: no lock-order violation, the
              batcher's condition, the dispatch lock and the chunk cache's
              in-flight lock seen, the batcher's and the backend's mutation
              sites recorded, and the read's wall time both ways.
+13. fleet — the main path's keys behind three members of one fleet
+             (R=2, 64 vnodes, gossip at JAX's defaults: 1 s periods, 3
+             suspect and 3 dead), each a child running the sidecar's
+             `__main__` with `--fleet-peers` and the default
+             `transform.device`, phase 6's batcher, a memory chunk cache
+             of an eighth of the segment, the flight recorder, the tracer
+             and the timeline; the 1 GiB segment copied once by an RSM in
+             this process; the owners from the port's
+             `FleetRouter.route_owners`. Launch counts are each member's
+             own (SIGUSR2 writes them), taken before (e) and after (b) (the
+             owner) or (c) (the survivors). (e) 8 connections at once read
+             32 cold 1 MiB ranges through the member that owns nothing for
+             the key, each with its own `traceparent`: one trace stitched
+             by `FleetTelemetry.assemble_trace` spans it and the owner with
+             a flow edge and passes `validate_chrome_events`; (a) the
+             segment read whole, then 64 cold 1 MiB ranges, through the
+             owner and through that member: bytes equal, its forwards and
+             peer hits, AES and the tree launched in the owner and no
+             launch in the other two, the forwarded ÷ owner ratios; (b) 8
+             keep-alive connections, 4 on each of the other two members,
+             read the same cold 64 MiB in 1 MiB reads: the owner's store
+             reads equal its windows; (c) the owner SIGKILLed: reads
+             through a survivor equal the source, fail over to the second
+             owner and open the dead owner's breaker, and gossip declares
+             it suspect, then dead within 3 + 3 + 1 periods of the last
+             heartbeat each survivor heard, with a new view epoch; (d) a
+             survivor's `GET /fleet/telemetry?aggregate=1` at that quiet
+             moment: every summed series equals the members' own payloads
+             and the dead member is unreachable; the card memory the
+             members give back.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -2826,6 +2856,10 @@ def failure_policy_phase(seed: int, segment_bytes: int, work: Path, device: str 
 
 
 SIDECAR_CUT_BYTES = 256 * MIB
+#: Phase 12 (e)'s witness children: two (witness off, on) at 64 MiB, cut
+#: from four in turns at 256 MiB so that the smoke, phase 13 included,
+#: stays near 700 s.
+WITNESS_CUT_BYTES = 64 * MIB
 #: Phase 6's batcher settings, which (b) and (e) read through.
 SIDECAR_BATCH = {"transform.batch.enabled": True, "transform.batch.wait.ms": 2,
                  "transform.batch.windows": 16, "transform.batch.bytes": 64 * MIB}
@@ -3455,11 +3489,12 @@ def sidecar_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda
     out["process"] = _sidecar_process(seed, work, pub, priv, cut, device)
     out["process"]["part_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    # Both arms are children started alike, in turns (off, on, on, off).
-    turns = [_witness_child(seed, work / f"witness-{i}-{arm}", cut, device, arm == "on")
-             for i, arm in enumerate(("off", "on", "on", "off"))]
+    # Both arms are children started alike, one after the other (off, on).
+    witness_cut = min(segment_bytes, WITNESS_CUT_BYTES)
+    turns = [_witness_child(seed, work / f"witness-{i}-{arm}", witness_cut, device, arm == "on")
+             for i, arm in enumerate(("off", "on"))]
     want = {"batcher.WindowBatcher._cond", "gcm._DISPATCH_MU", "chunk_cache.ChunkCache._inflight_lock"}
-    for rec, armed in zip(turns, (False, True, True, False)):
+    for rec, armed in zip(turns, (False, True)):
         check(rec["witness"] == armed, "witness: an arm is not armed as named")
         if not armed:
             continue
@@ -3469,10 +3504,514 @@ def sidecar_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda
               and "cuda.CudaTransformBackend.dispatch_stats" in rec["sites"],
               f"witness: mutation sites {rec['sites']}")
     walls = [rec["read_wall_s"] for rec in turns]
-    out["witness"] = {"segment_bytes": cut, "turns": turns, "read_wall_s": walls,
-                      "read_wall_ratio": (walls[1] + walls[2]) / (walls[0] + walls[3]),
-                      "round_ratios": [walls[1] / walls[0], walls[2] / walls[3]],
+    out["witness"] = {"segment_bytes": witness_cut, "turns": turns, "read_wall_s": walls,
+                      "read_wall_ratio": walls[1] / walls[0],
                       "part_s": time.perf_counter() - t}
+    return out
+
+
+#: Phase 13's members and its gossip bound: a member is declared dead within
+#: suspect + dead + 1 periods of the last heartbeat of it that a survivor
+#: heard.
+FLEET_MEMBERS = ("a", "b", "c")
+FLEET_GOSSIP_BOUND = 3 + 3 + 1
+
+
+def _fleet_member(counts_path: str) -> None:
+    """One fleet member: the sidecar package's `__main__`, run as `python -m
+    tieredstorage_tpu_torch.sidecar` runs it, after SIGUSR2 is armed to
+    write this process's kernel launch counts and GCM dispatches to
+    `counts_path` (how the smoke reads a member's launches)."""
+    import runpy
+    import signal
+
+    from tieredstorage_tpu_torch.ops import _cuda, gcm
+
+    def dump(*_):
+        tmp = counts_path + ".tmp"
+        Path(tmp).write_text(json.dumps({
+            "launches": _cuda.launch_counts(),
+            "rows": {k: {str(r): n for r, n in v.items()} for k, v in _cuda.launch_rows().items()},
+            "dispatches": gcm.device_dispatches()}))
+        os.replace(tmp, counts_path)
+
+    signal.signal(signal.SIGUSR2, dump)
+    runpy.run_module("tieredstorage_tpu_torch.sidecar", run_name="__main__", alter_sys=True)
+
+
+class FleetMember:
+    """A fleet member in a child process (`_fleet_member`): its gateway on
+    `port`, `--fleet-peers` naming every member."""
+
+    def __init__(self, name: str, port: int, configs: dict, peers: str, work: Path) -> None:
+        self.name, self.port = name, port
+        cfg = work / f"{name}.json"
+        cfg.write_text(json.dumps(configs))
+        self.counts_path = work / f"{name}.counts.json"
+        self.stderr = work / f"{name}.stderr"
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        with open(self.stderr, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; chip_smoke._fleet_member(sys.argv.pop(1))",
+                 str(self.counts_path), "--config", str(cfg), "--http-port", str(port),
+                 "--fleet-peers", peers],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        self.started = time.perf_counter()
+
+    def wait_ready(self) -> float:
+        line = self.proc.stdout.readline()
+        check(line.startswith("SIDECAR_READY port=") and f"http_port={self.port}" in line,
+              f"fleet member {self.name}: {line!r}\n{self.stderr.read_text()[-3000:]}")
+        return time.perf_counter() - self.started
+
+    def counts(self) -> dict:
+        """This member's cumulative launch counts and GCM dispatches."""
+        import signal
+
+        self.counts_path.unlink(missing_ok=True)
+        self.proc.send_signal(signal.SIGUSR2)
+        deadline = time.monotonic() + 60
+        while not self.counts_path.exists():
+            check(time.monotonic() < deadline and self.proc.poll() is None,
+                  f"fleet member {self.name}: no launch counts")
+            time.sleep(0.01)
+        return json.loads(self.counts_path.read_text())
+
+    def get(self, path: str) -> dict:
+        status, body = _shim_get(self.port, path)
+        check(status == 200, f"fleet member {self.name}: GET {path} answered {status}: {body[:200]!r}")
+        return json.loads(body)
+
+    def view(self) -> dict:
+        """The gossip view with heartbeats: an exchange that carries no
+        member, so it changes nothing."""
+        status, _, body = _shim_post(self.port, "/fleet/gossip",
+                                     json.dumps({"from": "smoke", "members": []}).encode())
+        check(status == 200, f"fleet member {self.name}: gossip view answered {status}")
+        return json.loads(body)
+
+    def signal(self, sig) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+
+    def wait(self, timeout: float) -> str:
+        """How the member ended: its exit code, or "killed" when it had not
+        ended within `timeout` (then SIGKILL ends it)."""
+        try:
+            return str(self.proc.wait(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            return "killed"
+
+
+def _free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _counts_diff(after: dict, before: dict) -> dict:
+    out = {k: after["launches"].get(k, 0) - before["launches"].get(k, 0)
+           for k in after["launches"]}
+    out["gcm_dispatches"] = after["dispatches"] - before["dispatches"]
+    return out
+
+
+def _fleet_layout(n_chunks: int) -> dict:
+    """Which chunks each leg reads, so that every timed read is cold where
+    it is served: the herd's (64 MiB at full size), the owner's and the
+    forwarded 1 MiB ranges (64 chunks each), the reads after the kill, the
+    traced burst's, and a warm-up chunk. Each member's chunk cache holds
+    an eighth of the segment (32 chunks at full size): the herd's windows
+    fit, and a whole-segment scan leaves no earlier chunk warm."""
+    taken = 0
+
+    def take(n: int) -> list[int]:
+        nonlocal taken
+        taken += n
+        return list(range(taken - n, taken))
+
+    ranged = min(64, n_chunks // 4)
+    layout = {"herd": take(max(1, n_chunks // 16)), "owner_ranged": take(ranged),
+              "forwarded_ranged": take(ranged), "death": take(max(1, n_chunks // 32)),
+              "trace": take(min(32, n_chunks // 8)), "warm": n_chunks - 1,
+              "cache_chunks": max(2 * max(1, n_chunks // 16), n_chunks // 8)}
+    check(taken < n_chunks - 1, f"fleet: {n_chunks} chunks are too few for the legs")
+    return layout
+
+
+def _traceparent(trace_id: str) -> str:
+    return f"00-{trace_id}-{trace_id[:16]}-01"
+
+
+def _gossip_observer(members: list, victim: str, stop: threading.Event, out: dict) -> None:
+    """Every 50 ms, each survivor's view of `victim` (heartbeat, status), its
+    period count and its ring."""
+    while not stop.is_set():
+        for m in members:
+            view = m.view()
+            hb = next((e["heartbeat"] for e in view["members"] if e["name"] == victim), None)
+            ping = m.get("/fleet/ping")
+            status = ping["gossip"]["members"].get(victim, {}).get("status")
+            out.setdefault(m.name, []).append({
+                "t": time.perf_counter(), "periods": ping["gossip"]["periods"],
+                "heartbeat": hb, "status": status, "ring": ping["ring_instances"],
+                "view_epoch": ping["view_epoch"], "generation": ping["generation"]})
+        stop.wait(0.05)
+
+
+def _gossip_verdict(samples: list, victim: str, t_kill: float) -> dict:
+    """Periods from the last heartbeat of the victim this survivor heard (and
+    from the kill) to its obituary, and the suspicion before it."""
+    final_hb = samples[-1]["heartbeat"]
+    heard = next(s for s in samples if s["heartbeat"] == final_hb)
+    after_kill = next(s for s in samples if s["t"] >= t_kill)
+    suspect = next((s for s in samples if s["status"] == "suspect"), None)
+    dead = next(s for s in samples if s["status"] == "dead")
+    dropped = next(s for s in samples if victim not in s["ring"])
+    check(suspect is not None and suspect["t"] < dead["t"],
+          f"fleet death: {victim} was never seen suspect before dead")
+    return {"suspect_s": suspect["t"] - t_kill, "dead_s": dead["t"] - t_kill,
+            "ring_dropped_s": dropped["t"] - t_kill,
+            "periods_from_heartbeat": dead["periods"] - heard["periods"],
+            "periods_from_kill": dead["periods"] - after_kill["periods"],
+            "view_epoch": [samples[0]["view_epoch"], dropped["view_epoch"]],
+            "generation": [samples[0]["generation"], dropped["generation"]]}
+
+
+def _series(payload: dict) -> dict:
+    return {f"{s['group']}:{s['name']}" + (
+        "{" + ",".join(f"{k}={v}" for k, v in sorted(s["tags"].items())) + "}"
+        if s["tags"] else ""): s for s in payload["samples"]}
+
+
+def _telemetry_sums(members: list, aggregate_on) -> dict:
+    """(d): each reachable member's local payload at a quiet moment, the
+    aggregate scrape of `aggregate_on`, the payloads again; every summed
+    series that held still in every member equals the sum of its parts."""
+    before = {m.name: _series(m.get("/fleet/telemetry")) for m in members}
+    scrape = aggregate_on.get("/fleet/telemetry?aggregate=1")
+    after = {m.name: _series(m.get("/fleet/telemetry")) for m in members}
+    compared, unequal = [], []
+    for key, merged in scrape["fleet"].items():
+        if merged["aggregation"] not in ("sum", "histogram-merge"):
+            continue
+        if sorted(merged["members"]) != sorted(before):
+            continue
+        if any(before[n].get(key) != after[n].get(key) for n in before):
+            continue  # moved during the scrape (the gossip counters)
+        field = "count" if merged["kind"] == "histogram" else "value"
+        want = sum(before[n][key][field] for n in before)
+        compared.append(key)
+        if abs(merged[field] - want) > 1e-9 * max(1.0, abs(want)):
+            unequal.append((key, merged[field], want))
+    check(not unequal, f"fleet telemetry: merged sums differ: {unequal[:5]}")
+    needed = ("remote-storage-manager-metrics:segment-fetch-requested-bytes-total",
+              "remote-storage-manager-metrics:remote-fetch-time-ms",
+              "fleet-metrics:fleet-forwards-total", "fleet-ping:peer_cache-peer-hits-total")
+    missing = [key for key in needed if key not in compared]
+    check(not missing, f"fleet telemetry: not compared: {missing}")
+    return {"scrape": scrape, "compared": len(compared),
+            "fetch_requests": scrape["fleet"][needed[1]]["count"],
+            "requested_bytes": scrape["fleet"][needed[0]]["value"],
+            "forwards": scrape["fleet"][needed[2]]["value"]}
+
+
+def fleet_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 13: a fleet of three members (children), R=2, gossip at JAX's
+    defaults, over one store; the segment copied once by an in-process RSM.
+    (e) and (a) through the owner and through the member that owns nothing
+    for the key, (b) the herd, (c) the owner killed, (d) the telemetry."""
+    import signal
+
+    from tieredstorage_tpu_torch.fleet import FleetRouter, FleetTelemetry
+    from tieredstorage_tpu_torch.metrics.timeline import validate_chrome_events
+    from tieredstorage_tpu_torch.object_key import Suffix
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.sidecar import shimwire
+
+    pub, priv = generate_key_pair_pem_files(work, prefix="fleet")
+    store = work / "store"
+    store.mkdir()
+    ports = dict(zip(FLEET_MEMBERS, _free_ports(len(FLEET_MEMBERS))))
+    urls = {n: f"http://127.0.0.1:{p}" for n, p in ports.items()}
+    peers = ",".join(f"{n}={u}" for n, u in urls.items())
+    out: dict = {"segment_bytes": segment_bytes, "members": list(FLEET_MEMBERS)}
+    layout = _fleet_layout(-(-segment_bytes // CHUNK))
+
+    # The copying broker, before the members start: what it leaves on the
+    # card (its kernel modules and tables) stays out of the members' count.
+    seg = work / "segment"
+    seg.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 71, segment_bytes)
+    source = files["log"].read_bytes()
+    copier = RemoteStorageManager()
+    copier.configure(_rsm_configs(store, pub, priv, device))
+    try:
+        t = time.perf_counter()
+        copier.copy_log_segment_data(md, sd)
+        out["copy_gib_s"] = segment_bytes / (1 << 30) / (time.perf_counter() - t)
+        log_key = copier._object_key(md, Suffix.LOG).value
+    finally:
+        copier.close()
+    on_card = device.startswith("cuda")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free_before = torch.cuda.mem_get_info(0)[0]
+    members: dict = {}
+    try:
+        for name in FLEET_MEMBERS:
+            configs = _rsm_configs(store, pub, priv, device, {
+                **SIDECAR_BATCH,
+                "fetch.chunk.cache.class":
+                    "tieredstorage_tpu_torch.fetch.cache.memory.MemoryChunkCache",
+                "fetch.chunk.cache.size": layout["cache_chunks"] * CHUNK,
+                "fleet.enabled": True, "fleet.instance.id": name, "fleet.vnodes": 64,
+                "fleet.replication.factor": 2, "fleet.gossip.enabled": True,
+                "fault.injection.enabled": True, "fault.schedule": [],
+                "tracing.enabled": True, "flight.enabled": True, "timeline.enabled": True})
+            if device == "cuda:0":
+                del configs["transform.device"]  # the default
+            members[name] = FleetMember(name, ports[name], configs, peers, work)
+        out["ready_s"] = {n: m.wait_ready() for n, m in members.items()}
+        deadline = time.monotonic() + 60
+        while True:
+            pings = {n: m.get("/fleet/ping") for n, m in members.items()}
+            if all(sorted(p["ring_instances"]) == sorted(FLEET_MEMBERS)
+                   and len(p["gossip"]["members"]) == len(FLEET_MEMBERS)
+                   and all(v["status"] == "alive" for v in p["gossip"]["members"].values())
+                   for p in pings.values()):
+                break
+            check(time.monotonic() < deadline, f"fleet: no agreed view at start: {pings}")
+            time.sleep(0.1)
+        router = FleetRouter(FLEET_MEMBERS[0])
+        router.set_membership(urls)
+        (owner, _), (second, _) = router.route_owners(log_key, 2)
+        third = next(n for n in FLEET_MEMBERS if n not in (owner, second))
+        out["roles"] = {"owner": owner, "second": second, "non_owner": third}
+        O, S, N = members[owner], members[second], members[third]
+        md_frame = shimwire.encode_metadata(md)
+        span = min(MIB, CHUNK)
+        rng = np.random.default_rng(seed + 72)
+
+        def range_of(chunk: int) -> tuple[int, int]:
+            last = min(CHUNK, segment_bytes - chunk * CHUNK) - span
+            off = chunk * CHUNK + int(rng.integers(0, last + 1))
+            return off, off + span - 1
+
+        def read(member, start, end=None, headers=None, conn=None) -> float:
+            t = time.perf_counter()
+            got = _gateway_fetch(member.port, md_frame, start, end, headers=headers, conn=conn)
+            took = time.perf_counter() - t
+            stop = segment_bytes if end is None else end + 1
+            check(got == source[start:stop],
+                  f"fleet: {start}-{end} through {member.name} differs from the source")
+            return took
+
+        # Untimed warm-up: each member's connections, manifest and the owner's
+        # GCM context, on a chunk no timed leg reads.
+        warm = range_of(layout["warm"])
+        for m in (O, N, S):
+            read(m, *warm)
+        if on_card:
+            torch.cuda.empty_cache()
+            out["card_mib_held_by_members"] = (free_before - torch.cuda.mem_get_info(0)[0]) / MIB
+        counts0 = {n: m.counts() for n, m in members.items()}
+
+        # (e) A burst of traced forwarded reads (8 connections at once, each
+        # read its own trace) so that the owner's windows ride merged
+        # launches; the first trace stitched across two members with a flow
+        # edge is the exemplar.
+        trace_ids: list = []
+        lanes = [layout["trace"][i::8] for i in range(8)]
+
+        def burst(i: int) -> None:
+            for j, chunk in enumerate(lanes[i]):
+                trace_id = f"{seed:08x}{i:08x}{j:016x}"
+                trace_ids.append(trace_id)
+                read(N, *range_of(chunk), headers={"traceparent": _traceparent(trace_id)})
+
+        errors = _run_threads([lambda i=i: burst(i) for i in range(8)])
+        check(not errors, f"fleet trace: {errors[:1]!r}")
+        # The smoke reads every member over its routes: it is a member of
+        # this telemetry's view with no records of its own.
+        view = FleetRouter("smoke")
+        view.set_membership(urls)
+        telemetry = FleetTelemetry([], instance_id="smoke", router=view)
+        stitched, tried = None, 0
+        try:
+            for trace_id in sorted(trace_ids):
+                tried += 1
+                candidate = telemetry.assemble_trace(trace_id)
+                if len(candidate["span_instances"]) >= 2 and candidate["flow_edges"]:
+                    stitched = candidate
+                    break
+        finally:
+            telemetry.close()
+        check(stitched is not None,
+              f"fleet trace: none of {tried} traces spans two members with a flow edge")
+        check(owner in stitched["span_instances"] and third in stitched["span_instances"],
+              f"fleet trace: spans {stitched['span_instances']}")
+        out["trace"] = {
+            "trace_id": stitched["trace_id"], "tried": tried,
+            "span_instances": stitched["span_instances"],
+            "records": {n: [r["name"] for r in i["records"]]
+                        for n, i in stitched["instances"].items() if i["records"]},
+            "hop_edges": len(stitched["hop_edges"]), "flow_edges": stitched["flow_edges"],
+            "chrome_events": validate_chrome_events(stitched["chrome_trace"]["traceEvents"])}
+
+        # (a) Whole and ranged reads through the owner and through the member
+        # that owns nothing for the key.
+        reads: dict = {}
+        for label, m in (("owner", O), ("forwarded", N)):
+            reads[f"{label}_fetch_gib_s"] = segment_bytes / (1 << 30) / read(m, 0)
+        for label, m, key in (("owner", O, "owner_ranged"), ("forwarded", N, "forwarded_ranged")):
+            latencies = [read(m, *range_of(c)) * 1e3 for c in layout[key]]
+            reads[f"{label}_ranged_p50_ms"] = float(np.percentile(latencies, 50))
+            reads[f"{label}_ranged_p99_ms"] = float(np.percentile(latencies, 99))
+        reads["ranges"] = len(layout["owner_ranged"])
+        reads["fetch_ratio"] = reads["forwarded_fetch_gib_s"] / reads["owner_fetch_gib_s"]
+        for q in ("p50", "p99"):
+            reads[f"ranged_{q}_ratio"] = (reads[f"forwarded_ranged_{q}_ms"]
+                                          / reads[f"owner_ranged_{q}_ms"])
+        counts1 = {n: m.counts() for n, m in members.items()}
+        ping = N.get("/fleet/ping")["peer_cache"]
+        reads["non_owner_peer_cache"] = ping
+        check(ping["forwards"] > 0 and ping["peer_hits"] > 0,
+              f"fleet reads: the non-owner forwarded nothing: {ping}")
+        reads["launches"] = {n: _counts_diff(counts1[n], counts0[n]) for n in members}
+        _gcm_launched(reads["launches"][owner], "fleet reads: the owner",
+                      ("aes_ctr_keystream", "ghash_tree"))
+        for n in (second, third):
+            check(not any(reads["launches"][n].values()),
+                  f"fleet reads: {n} launched {reads['launches'][n]}")
+        out["reads"] = reads
+
+        # (b) The herd: 8 keep-alive connections, 4 on each of the two members
+        # that forward to the owner, read the same cold range in 1 MiB reads.
+        herd_start = layout["herd"][0] * CHUNK
+        herd_end = min((layout["herd"][-1] + 1) * CHUNK, segment_bytes)
+        before_calls = O.get("/fleet/ping")["storage_fetch_calls"]
+        latencies: list = []
+
+        def herd(m) -> None:
+            conn = http.client.HTTPConnection("127.0.0.1", m.port, timeout=600)
+            try:
+                for off in range(herd_start, herd_end, span):
+                    latencies.append(read(m, off, off + span - 1, conn=conn) * 1e3)
+            finally:
+                conn.close()
+
+        t = time.perf_counter()
+        errors = _run_threads([lambda m=m: herd(m) for m in (S, N) for _ in range(4)])
+        wall = time.perf_counter() - t
+        check(not errors, f"fleet herd: {errors[:1]!r}")
+        calls = O.get("/fleet/ping")["storage_fetch_calls"] - before_calls
+        counts2 = {n: m.counts() for n, m in members.items()}
+        out["herd"] = {
+            "connections": 8, "bytes": herd_end - herd_start, "wall_s": wall,
+            "p50_ms": float(np.percentile(latencies, 50)),
+            "p99_ms": float(np.percentile(latencies, 99)),
+            "windows": len(layout["herd"]), "owner_backend_reads": calls,
+            "launches": {n: _counts_diff(counts2[n], counts1[n]) for n in members}}
+        check(calls == len(layout["herd"]),
+              f"fleet herd: {calls} backend reads on the owner for {len(layout['herd'])} windows")
+        for n in (second, third):
+            check(not any(out["herd"]["launches"][n].values()),
+                  f"fleet herd: {n} launched {out['herd']['launches'][n]}")
+
+        # (c) The owner killed: a survivor reads through the second owner, its
+        # breaker for the owner opens, gossip declares the owner dead.
+        samples: dict = {}
+        stop_observer = threading.Event()
+        observer = threading.Thread(target=_gossip_observer,
+                                    args=([S, N], owner, stop_observer, samples))
+        observer.start()
+        death: dict = {}
+        try:
+            time.sleep(0.2)
+            before_death = N.get("/fleet/ping")["peer_cache"]
+            t_kill = time.perf_counter()
+            O.signal(signal.SIGKILL)
+            O.wait(60)
+            for i, chunk in enumerate(layout["death"]):
+                read(N, *range_of(chunk))
+                if i == 0:
+                    death["kill_to_first_good_read_s"] = time.perf_counter() - t_kill
+            after_death = N.get("/fleet/ping")["peer_cache"]
+            death["non_owner_peer_cache"] = after_death
+            check(after_death["failover_hits"] > before_death["failover_hits"]
+                  and after_death["forward_failures"] > before_death["forward_failures"],
+                  f"fleet death: no failover to the second owner: {after_death}")
+            local = {key: s["value"] for key, s in _series(N.get("/fleet/telemetry")).items()
+                     if s["kind"] == "value"}
+            death["peers_down"] = local["fleet-metrics:fleet-peers-down"]
+            death["peer_breaker_opened"] = local["retry-metrics:breaker-board-peer-opened-total"]
+            check(death["peers_down"] >= 1 and death["peer_breaker_opened"] >= 1,
+                  f"fleet death: the dead owner's breaker is not open: {death}")
+
+            # (d) The telemetry at the quiet moment after the kill, while the
+            # dead member is still in the ring.
+            sums = _telemetry_sums([S, N], N)
+            scrape = sums.pop("scrape")
+            check(scrape["members"].get(owner, {}).get("reachable") is False
+                  and [u[0] for u in scrape["unreachable"]] == [owner],
+                  f"fleet telemetry: the dead member is not shown unreachable: "
+                  f"{scrape['members']} {scrape['unreachable']}")
+            out["telemetry"] = {**sums, "members": scrape["members"],
+                                "unreachable": scrape["unreachable"]}
+
+            deadline = time.monotonic() + 60
+            while not all(samples.get(m.name) and owner not in samples[m.name][-1]["ring"]
+                          for m in (S, N)):
+                check(time.monotonic() < deadline, "fleet death: the survivors kept the dead owner")
+                time.sleep(0.05)
+            death["converged_s"] = time.perf_counter() - t_kill
+        finally:
+            stop_observer.set()
+            observer.join(timeout=30)
+        death["gossip"] = {m.name: _gossip_verdict(samples[m.name], owner, t_kill) for m in (S, N)}
+        for name, verdict in death["gossip"].items():
+            check(verdict["periods_from_heartbeat"] <= FLEET_GOSSIP_BOUND,
+                  f"fleet death: {name} took {verdict['periods_from_heartbeat']} periods")
+            check(verdict["view_epoch"][1] > verdict["view_epoch"][0],
+                  f"fleet death: {name}'s view epoch did not advance: {verdict}")
+        counts3 = {n: members[n].counts() for n in (second, third)}
+        death["launches"] = {n: _counts_diff(counts3[n], counts2[n]) for n in counts3}
+        out["death"] = death
+        launches: dict = {}
+        for n in FLEET_MEMBERS:
+            diff = _counts_diff(counts2[n] if n == owner else counts3[n], counts0[n])
+            for kernel, v in diff.items():
+                launches[kernel] = launches.get(kernel, 0) + v
+        out["launches"] = launches
+        # As the JAX fleet soak stops its members: SIGTERM, then SIGKILL
+        # after 10 s. A member's gateway workers serve its peers' keep-alive
+        # connections until they close, so a member may not exit by itself
+        # while another still runs.
+        for n in (second, third):
+            members[n].signal(signal.SIGTERM)
+        out["exit"] = {n: members[n].wait(10) for n in (second, third)}
+    finally:
+        for m in members.values():
+            m.signal(signal.SIGKILL)
+            m.wait(60)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["card_mib_after_exit"] = (free_before - torch.cuda.mem_get_info(0)[0]) / MIB
+        check(out["card_mib_after_exit"] < 64,
+              f"fleet: {out['card_mib_after_exit']:.1f} MiB still held after the members exited")
     return out
 
 
@@ -3637,13 +4176,36 @@ def main(argv=None) -> int:
         record["sidecar_s"] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase sidecar: {record['sidecar_s']:.1f} s ((d) and (e) cut to "
-          f"{SIDECAR_CUT_BYTES} bytes from 1 GiB for time)")
+    print(f"phase sidecar: {record['sidecar_s']:.1f} s ((d) cut to {SIDECAR_CUT_BYTES} bytes "
+          f"and (e) to two children of {WITNESS_CUT_BYTES} bytes, from 1 GiB, for time)")
     record["sidecar"] = sidecar
     for part in ("turns", "fan_in", "policy", "process", "witness"):
         print(f"sidecar {part}: " + json.dumps({"card": card, **sidecar[part]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        t = time.perf_counter()
+        fleet = fleet_phase(args.seed, args.segment_mib * MIB, work)
+        record["fleet_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase fleet: {record['fleet_s']:.1f} s")
+    record["fleet"] = fleet
+    roles = fleet["roles"]
+    print("fleet reads: " + json.dumps({"card": card, "roles": roles, **{
+        k: v for k, v in fleet["reads"].items() if k != "launches"},
+        "owner_launches": fleet["reads"]["launches"][roles["owner"]],
+        "non_owner_launches": fleet["reads"]["launches"][roles["non_owner"]]}))
+    print("fleet herd: " + json.dumps({"card": card, **fleet["herd"]}))
+    print("fleet death: " + json.dumps({"card": card, **fleet["death"]}))
+    print("fleet telemetry: " + json.dumps({"card": card, **fleet["telemetry"]}))
+    print("fleet trace: " + json.dumps({"card": card, **fleet["trace"]}))
+    print("fleet members: " + json.dumps({"card": card, **{k: fleet[k] for k in (
+        "copy_gib_s", "ready_s", "card_mib_held_by_members", "card_mib_after_exit",
+        "exit")}}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+    _gcm_launched(fleet["launches"], "fleet phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(sidecar["launches"], "sidecar phase")
     _gcm_launched(policy["launches"], "failure policy phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(life["launches"], "lifecycle phase")
@@ -3675,6 +4237,7 @@ def main(argv=None) -> int:
         entry["launches_observability"] = obs["launches"][name]
         entry["launches_failure_policy"] = policy["launches"].get(name, 0)
         entry["launches_sidecar"] = sidecar["launches"].get(name, 0)
+        entry["launches_fleet"] = fleet["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -109,6 +109,18 @@ _SIDECAR = (
     "tieredstorage_tpu_torch.sidecar.client",
 )
 
+#: Modules of the fleet: the ring, single flight, the peer tier, gossip, the
+#: fleet metrics and the fleet-wide telemetry.
+_FLEET = (
+    "tieredstorage_tpu_torch.fleet",
+    "tieredstorage_tpu_torch.fleet.ring",
+    "tieredstorage_tpu_torch.fleet.singleflight",
+    "tieredstorage_tpu_torch.fleet.peer_cache",
+    "tieredstorage_tpu_torch.fleet.metrics",
+    "tieredstorage_tpu_torch.fleet.gossip",
+    "tieredstorage_tpu_torch.fleet.telemetry",
+)
+
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
@@ -123,6 +135,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert set(_STORAGE) <= set(names.split())
     assert set(_FAILURE_POLICY) <= set(names.split())
     assert set(_SIDECAR) <= set(names.split())
+    assert set(_FLEET) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

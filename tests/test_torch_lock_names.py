@@ -13,7 +13,13 @@ package is imported, then runs one seeded drive through each package:
 - the modules the RSM does not reach on that drive: a `LoadingCache` whose
   removal listener raises, a `TokenBucket`, a `ManifestLookahead` that
   joins one flight and loses another, an `HttpClient` request against a
-  loopback server, an `InMemoryStorage` and a replicated store of two.
+  loopback server, an `InMemoryStorage` and a replicated store of two;
+- a seeded fleet drive: a router whose membership changes, a single flight
+  that coalesces a follower, a peer tier that forwards to a loopback owner
+  (a hit, then a dead owner whose breaker opens), three gossip agents on a
+  fake clock over an in-process transport that drops seeded attempts (a
+  member killed, suspected and declared dead), a fleet telemetry scrape
+  with one unreachable member, and the fleet metrics.
 
 For every module of the table below, the lock names each witness saw
 acquired, the mutation sites the race witness recorded and the lock held at
@@ -47,7 +53,18 @@ PORT_ONLY = ("cuda._StagingPool._lock", "cuda.CudaTransformBackend._pool_lock",
 #: names; the port's `cuda` is compared as the JAX `tpu`).
 MODULES = ("caching", "ratelimit", "batcher", "chunk_manager", "manifest_cache",
            "readahead", "chunk_cache", "device_hot", "httpclient", "memory",
-           "replicated", "gcm", "tpu")
+           "replicated", "gcm", "tpu", "ring", "singleflight", "peer_cache", "gossip",
+           "telemetry", "retry")
+#: The fleet's locks and mutation sites, which the fleet drive must reach.
+FLEET_LOCKS = ("ring.FleetRouter._lock", "singleflight.SingleFlight._lock",
+               "peer_cache.PeerChunkCache._lock", "gossip.GossipAgent._lock",
+               "telemetry.FleetTelemetry._lock", "retry.BreakerBoard._lock")
+FLEET_SITES = ("peer_cache.PeerChunkCache.forwards", "peer_cache.PeerChunkCache.peer_hits",
+               "peer_cache.PeerChunkCache.forward_failures", "gossip.GossipAgent._members",
+               "gossip.GossipAgent.probes_sent", "gossip.GossipAgent.acks",
+               "gossip.GossipAgent.probe_failures", "gossip.GossipAgent.retried_probes",
+               "telemetry.FleetTelemetry.scrapes",
+               "telemetry.FleetTelemetry.peer_scrape_failures", "retry.BreakerBoard.opened")
 
 _DRIVE = r'''
 import concurrent.futures, http.server, importlib, io, json, sys, tempfile, threading
@@ -74,6 +91,112 @@ class Quiet(http.server.BaseHTTPRequestHandler):
 
 server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
 threading.Thread(target=server.serve_forever, daemon=True).start()
+
+
+class Owner(http.server.BaseHTTPRequestHandler):
+    def do_GET(self):
+        body = b"\x00\x00\x00\x01\x00\x00\x00\x02ok"
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):
+        pass
+
+
+def fleet_drive(mod, key_cls, server):
+    """The fleet's locks and mutation sites, seeded, the same in each package."""
+    fleet = mod("fleet")
+    router = fleet.FleetRouter("me", vnodes=8)
+    owner = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Owner)
+    threading.Thread(target=owner.serve_forever, daemon=True).start()
+    router.set_membership({"o": f"http://127.0.0.1:{owner.server_address[1]}"})
+    router.route("seg/x.log")
+    router.route_owners("seg/x.log", 2)
+
+    flight = fleet.SingleFlight()
+    entered, release = threading.Event(), threading.Event()
+    def held():
+        entered.set()
+        release.wait(30)
+        return 1
+    leader = threading.Thread(target=flight.do, args=("k", held))
+    leader.start()
+    entered.wait(30)
+    follower = threading.Thread(target=flight.do, args=("k", held))
+    follower.start()
+    while flight.coalesced == 0:
+        entered.wait(0.001)
+    release.set()
+    leader.join(30)
+    follower.join(30)
+
+    class Local:
+        def get_chunks(self, key, manifest, ids):
+            return [b"x"] * len(ids)
+
+        def get_chunk(self, key, manifest, cid):
+            raise NotImplementedError
+
+    class AllOwner:
+        instances = ("me", "o")
+
+        def owner(self, key):
+            return "o"
+
+        def owners(self, key, n):
+            return ["o", "me"][:n]
+
+    router._ring = AllOwner()
+    metrics_registry = mod("metrics.core").MetricsRegistry()
+    recorder = fleet.FleetMetrics(metrics_registry)
+    cache = fleet.PeerChunkCache(Local(), router, replication=1,
+                                 on_forward=recorder.record_forward)
+    cache.get_chunks(key_cls("seg/x.log"), None, [0])
+    owner.shutdown()
+    owner.server_close()
+    router.set_membership({"o": f"http://127.0.0.1:{server.server_address[1] + 1}"})
+    router._ring = AllOwner()
+    cache.get_chunks(key_cls("seg/x.log"), None, [1])
+    with cache.serving_locally("seg/x.log"):
+        cache.get_chunks(key_cls("seg/x.log"), None, [2])
+
+    clock = [0.0]
+    alive = {"a", "b", "c"}
+    seeds = {n: f"http://{n}" for n in alive}
+    agents, attempts = {}, [0]
+    def transport_for(src):
+        def transport(url, payload):
+            dst = url.split("//")[1]
+            attempts[0] += 1
+            if dst not in alive or attempts[0] % 7 == 0:
+                raise ConnectionRefusedError(dst)
+            return agents[dst].on_gossip(payload)
+        return transport
+    for n in sorted(alive):
+        r = fleet.FleetRouter(n, vnodes=8)
+        r.set_membership(seeds)
+        agents[n] = fleet.GossipAgent(r, interval_s=1.0, transport=transport_for(n),
+                                      time_source=lambda: clock[0], sleeper=lambda s: None)
+    for period in range(14):
+        if period == 4:
+            alive.discard("c")
+        clock[0] += 1.0
+        for n in sorted(alive):
+            agents[n].run_period()
+    fleet.register_fleet_metrics(metrics_registry, router=router, peer_cache=cache,
+                                 gossip=agents["a"])
+
+    def scrape_transport(url):
+        raise ConnectionError(url)
+    telemetry = fleet.FleetTelemetry([metrics_registry], instance_id="me", router=router,
+                                     transport=scrape_transport)
+    telemetry.scrape()
+    telemetry.close()
+    for agent in agents.values():
+        agent.stop()
+    cache.close()
 
 
 def drive(name, P):
@@ -143,6 +266,8 @@ def drive(name, P):
     replicated.fetch(key_cls("r")).read()
     replicated.close()
 
+    fleet_drive(mod, key_cls, server)
+
     locks = mod("utils.locks")
     return {
         "locks": sorted(locks.witness().acquired_names()),
@@ -210,6 +335,14 @@ def test_every_part0_module_was_reached(witnessed):
                  "manifest_cache.ManifestLookahead.joins", "caching.LoadingCache.stats",
                  "tpu.TpuTransformBackend.dispatch_stats"):
         assert site in sites
+
+
+def test_fleet_drive_reached_every_fleet_lock_and_site(witnessed):
+    """The fleet drive reached each fleet lock and mutation site, in both
+    packages (their equality is the per-module tests' job)."""
+    for side in ("jax", "port"):
+        assert set(FLEET_LOCKS) <= set(witnessed[side]["locks"])
+        assert set(FLEET_SITES) <= set(witnessed[side]["sites"])
 
 
 def test_port_only_locks_are_witnessed_under_their_own_names(witnessed):

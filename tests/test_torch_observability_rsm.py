@@ -316,9 +316,11 @@ def test_not_yet_ported_lists_only_the_failure_policy_and_fleet_keys():
     assert not set(PLANE_KEYS) & NOT_YET_PORTED
     assert NOT_YET_PORTED <= set(jax_base_def().keys)
     assert not NOT_YET_PORTED & set(_base_def().keys)
-    # The failure policy of the RSM and the sidecar are ported; the fleet's
-    # keys, with its breaker and retry keys, stay for its slice.
-    assert not {"deadline.default.ms", "slo.enabled", "breaker.enabled",
-                "sidecar.grpc.max.workers", "sidecar.http.max.workers"} & NOT_YET_PORTED
+    # The failure policy, the sidecar and the fleet (with its breaker and
+    # retry keys) are ported: no key is left, and the port defines every
+    # key of the JAX package's configuration.
+    assert NOT_YET_PORTED == frozenset()
+    assert set(jax_base_def().keys) == set(_base_def().keys)
     assert {"fleet.enabled", "breaker.peer.failure.threshold",
-            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts"} <= NOT_YET_PORTED
+            "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts"} <= \
+        set(_base_def().keys)

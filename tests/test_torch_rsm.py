@@ -189,12 +189,35 @@ def test_segments_cross_read_between_packages(tmp_path, keys, writer):
             "breaker.gossip.failure.threshold", "retry.gossip.probe.attempts"],
 )
 def test_unported_keys_are_refused_by_name(tmp_path, keys, key):
-    configs = _configs(
-        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
-        {"transform.device": "cpu", key: "1"},
-    )
-    with pytest.raises(ConfigException, match=f"{key} is not yet ported"):
-        RemoteStorageManager().configure(configs)
+    """The keys the port refused by name until the fleet was ported: each is
+    now accepted and validated as the JAX package validates it (the same
+    value gives the same answer, and an error the same message)."""
+    from tieredstorage_tpu.config.configdef import ConfigException as JaxConfigException
+    from tieredstorage_tpu.config.rsm_config import RemoteStorageManagerConfig as JaxConfig
+
+    outcomes = []
+    for value in ("1", "0"):
+        configs = _configs(
+            tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+            {"transform.device": "cpu", key: value},
+        )
+        try:
+            rsm = RemoteStorageManager()
+            rsm.configure(configs)
+            rsm.close()
+            port = "accepted"
+        except ConfigException as e:
+            port = str(e)
+        try:
+            JaxConfig(_configs(
+                tmp_path, keys, "tieredstorage_tpu.storage.filesystem.FileSystemStorage",
+                {key: value}))
+            jax = "accepted"
+        except JaxConfigException as e:
+            jax = str(e)
+        assert port == jax and "not yet ported" not in port
+        outcomes.append(port)
+    assert "accepted" in outcomes and len(set(outcomes)) == 2
 
 
 FAULT_LIFECYCLE_REPLICATION_KEYS = [

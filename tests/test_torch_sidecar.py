@@ -182,11 +182,41 @@ class TestContract:
 
 @pytest.mark.parametrize("flag", [["--fleet-peers", "a=http://127.0.0.1:1"],
                                   ["--virtual-cpu-devices", "1"]])
-def test_unported_flags_are_refused_by_name(tmp_path, keys, flag):
+def test_unported_flags_are_refused_by_name(tmp_path, keys, flag, monkeypatch):
+    """`--virtual-cpu-devices` is still refused by name. `--fleet-peers` is
+    applied as the JAX sidecar applies it: the membership of a fleet RSM
+    (read where the gRPC server would start), and "fleet mode is not
+    enabled" without a fleet."""
+    from tieredstorage_tpu_torch.errors import RemoteStorageException
+    from tieredstorage_tpu_torch.sidecar import server as server_mod
+
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps(_configs(tmp_path, keys, FS, {"transform.device": "cpu"})))
-    with pytest.raises(ConfigException, match=f"{flag[0]} is not yet ported"):
+    if flag[0] == "--virtual-cpu-devices":
+        with pytest.raises(ConfigException, match=f"{flag[0]} is not yet ported"):
+            main(["--config", str(cfg), *flag])
+        return
+    with pytest.raises(RemoteStorageException, match="fleet mode is not enabled"):
         main(["--config", str(cfg), *flag])
+
+    class Started(Exception):
+        pass
+
+    started = []
+
+    def server(rsm, **kwargs):
+        started.append(rsm)
+        raise Started
+
+    monkeypatch.setattr(server_mod, "SidecarServer", server)
+    cfg.write_text(json.dumps(_configs(tmp_path, keys, FS, {
+        "transform.device": "cpu", "fleet.enabled": True, "fleet.instance.id": "me"})))
+    with pytest.raises(Started):
+        main(["--config", str(cfg), "--fleet-peers", f"{flag[1]},me"])
+    try:
+        assert started[0].fleet_router.peers == {"a": "http://127.0.0.1:1", "me": None}
+    finally:
+        started[0].close()
 
 
 # ------------------------------------------------------------- failover

@@ -186,12 +186,32 @@ class TestObservabilityRoutes(jax_suite.TestObservabilityRoutes):
         gw.stop()
         rsm.close()
 
-    def test_fleet_telemetry_route(self, obs_gateway):
-        """No fleet in the port: the JAX gateway's answer for an RSM without
-        one, on both routes."""
-        gw, _, _ = obs_gateway
+    def test_fleet_telemetry_route(self, obs_gateway, tmp_path):
+        """An RSM without a fleet: the JAX gateway's 404 on both routes. A
+        fleet RSM with the same planes: this member's samples, and the
+        merged scrape of its (solo) membership view."""
+        gw, _, json = obs_gateway
         for path in ("/fleet/telemetry", "/v1/fleet/telemetry?aggregate=1"):
             assert _get(gw.port, path) == (404, b"fleet mode disabled")
+        rsm = _port_rsm({"storage.backend.class": FS, "storage.root": str(tmp_path),
+                         "chunk.size": 16384, "flight.enabled": True,
+                         "timeline.enabled": True, "fleet.enabled": True,
+                         "fleet.instance.id": "solo"})
+        fleet_gw = SidecarHttpGateway(rsm).start()
+        try:
+            status, body = _get(fleet_gw.port, "/fleet/telemetry")
+            local = json.loads(body)
+            assert status == 200 and local["instance"] == "solo"
+            names = {s["name"] for s in local["samples"]}
+            assert {"fleet-instances", "fleet-peer-hits-total",
+                    "peer_cache-forwards-total"} <= names
+            status, body = _get(fleet_gw.port, "/v1/fleet/telemetry?aggregate=1")
+            scrape = json.loads(body)
+            assert status == 200 and set(scrape["members"]) == {"solo"}
+            assert scrape["fleet"]["fleet-metrics:fleet-instances"]["value"] == 1.0
+        finally:
+            fleet_gw.stop()
+            rsm.close()
 
 
 # ------------------------------------------------------------- parity

@@ -6,8 +6,8 @@ modules, bottom-up: deadline math and scopes; the HTTP transport consuming
 the ambient deadline; the Hedger and its budget, and a hedged fetch whose
 corrupt straggler cannot tear the winner; the RetryBudget under the
 ResilientStorageBackend; the AdmissionController; the sidecar gateway's
-shed; jittered fault delays. Its single-flight cases wait for the fleet
-slice.
+shed; jittered fault delays; the hedger inside a single-flight resolve of
+the fleet's peer tier.
 
 Then parity, exact equality on seeded inputs: Hedger counters on one
 slow-call schedule, RetryBudget balances, AdmissionController admit/shed
@@ -359,6 +359,98 @@ class TestHedgedFetchUnderFaults:
         finally:
             hedger.close()
             replicated.close()
+
+
+class TestHedgeSingleFlightInteraction:
+    """The hedger races attempts WITHIN one single-flight resolve
+    (fleet/singleflight.py wraps the chunk manager whose storage GET the
+    hedger hedges). A hedge that loses to the coalesced primary must not
+    count as a win, and the flight slot must never leak — followers get the
+    winner's bytes and the registry returns to empty."""
+
+    def _fleet_manager(self, schedule_spec: str, *, hedge_delay_s: float):
+        from tieredstorage_tpu_torch.fleet import FleetRouter, PeerChunkCache
+
+        storage = InMemoryStorage()
+        key, manifest, payload, backend = _upload_one_segment(storage)
+        schedule = FaultSchedule.parse(schedule_spec, seed=11)
+        manager = DefaultChunkManager(FaultInjectingBackend(storage, schedule), backend)
+        hedger = Hedger(lambda: hedge_delay_s, HedgeBudget(100))
+        manager.hedger = hedger
+        peer = PeerChunkCache(manager, FleetRouter("solo", vnodes=4))
+        return peer, hedger, schedule, key, manifest, payload
+
+    def _concurrent_reads(self, peer, key, manifest, n=4):
+        results: list = [None] * n
+        barrier = threading.Barrier(n)
+
+        def read(i):
+            barrier.wait()
+            results[i] = b"".join(peer.get_chunks(key, manifest, list(range(8))))
+
+        threads = [threading.Thread(target=read, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in threads)
+        return results
+
+    def test_hedge_losing_to_coalesced_primary_no_win_no_leaked_slot(self):
+        # EVERY storage fetch stalls 80 ms; the hedge (launched at 20 ms)
+        # restarts the same 80 ms clock, so the primary always finishes
+        # first and the hedge is a pure loser.
+        peer, hedger, schedule, key, manifest, payload = self._fleet_manager(
+            "fetch:delay=80", hedge_delay_s=0.02
+        )
+        try:
+            results = self._concurrent_reads(peer, key, manifest)
+            assert results == [payload] * 4
+            flight = peer.singleflight
+            assert flight.leaders == 1 and flight.coalesced == 3
+            assert flight.pending == 0
+            assert hedger.launched == 1 and hedger.wins == 0
+            assert schedule.calls("fetch") == 2
+        finally:
+            hedger.close()
+            peer.close()
+
+    def test_hedge_winning_inside_a_flight_counts_once_and_serves_followers(self):
+        # Only the FIRST storage fetch stalls (300 ms); the hedge is clean
+        # and fast, wins, and every coalesced follower gets its bytes.
+        peer, hedger, schedule, key, manifest, payload = self._fleet_manager(
+            "fetch:delay=300@1", hedge_delay_s=0.02
+        )
+        try:
+            results = self._concurrent_reads(peer, key, manifest)
+            assert results == [payload] * 4
+            flight = peer.singleflight
+            assert flight.leaders == 1 and flight.coalesced == 3
+            assert flight.pending == 0
+            assert hedger.launched == 1 and hedger.wins == 1
+            assert schedule.calls("fetch") == 2
+        finally:
+            hedger.close()
+            peer.close()
+
+    def test_failed_flight_leaves_registry_clean_for_retry(self):
+        # Both attempts stall THEN fail (a fast-failing primary would raise
+        # before the hedge even launches): the error reaches the caller,
+        # the slot is gone, and a later read (faults exhausted) succeeds.
+        peer, hedger, schedule, key, manifest, payload = self._fleet_manager(
+            "fetch:delay=50@1, fetch:raise@1, fetch:delay=50@2, fetch:raise@2",
+            hedge_delay_s=0.005,
+        )
+        try:
+            with pytest.raises(FaultInjectedException):
+                peer.get_chunks(key, manifest, list(range(8)))
+            assert peer.singleflight.pending == 0
+            assert peer.singleflight.failures == 1
+            out = b"".join(peer.get_chunks(key, manifest, list(range(8))))
+            assert out == payload
+        finally:
+            hedger.close()
+            peer.close()
 
 
 # ------------------------------------------------------------- retry budget

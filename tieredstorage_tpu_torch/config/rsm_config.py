@@ -1,6 +1,7 @@
-"""RemoteStorageManager configuration schema, cut to the keys this package implements.
+"""RemoteStorageManager configuration schema.
 
-Counterpart of tieredstorage_tpu/config/rsm_config.py. Implemented keys:
+Counterpart of tieredstorage_tpu/config/rsm_config.py, with every key of the
+JAX package's configuration:
 `storage.*` (with the required `storage.backend.class`), `key.prefix`,
 `key.prefix.mask`, `chunk.size`, `compression.*`, `encryption.*` (keyring
 with the two-phase `encryption.key.pairs.<id>.*` define),
@@ -9,7 +10,8 @@ with the two-phase `encryption.key.pairs.<id>.*` define),
 `flight.*`, `timeline.*` and `metrics.*` (the observability plane),
 `breaker.*`, `retry.budget.*`, `deadline.default.ms`, `hedge.*`,
 `admission.*` and `slo.*` (the failure policy), `sidecar.*` (the
-sidecar's pools), `scrub.*` (the
+sidecar's pools), `fleet.*`, `breaker.peer.*`, `breaker.gossip.*` and
+`retry.gossip.probe.attempts` (the fleet), `scrub.*` (the
 scrubber, its scheduler and the upload checksums), `fault.*` and `faults.*`
 (the fault-injecting backend and the fault plane), `lifecycle.*` (the
 intent journal and the recovery sweeper), `replication.antientropy.*`
@@ -18,9 +20,9 @@ intent journal and the recovery sweeper), `replication.antientropy.*`
 its backend reads, and the fetch plane's keys, which their own modules parse:
 `fetch.chunk.cache.*`, `fetch.manifest.cache.*`, `fetch.indexes.cache.*`
 (config/cache_config.py), `fetch.chunk.cache.class`, `cache.device.*` and
-`readahead.*` (fetch/factory.py). Every other key of the JAX package's
-configuration raises a ConfigException naming it as not yet ported: a
-setting is never ignored silently.
+`readahead.*` (fetch/factory.py). A key named in `NOT_YET_PORTED` raises
+a ConfigException naming it as not yet ported: a setting is never ignored
+silently.
 """
 
 from __future__ import annotations
@@ -46,16 +48,21 @@ FETCH_CHUNK_CACHE_PREFIX = "fetch.chunk.cache."
 FETCH_INDEXES_CACHE_PREFIX = "fetch.indexes.cache."
 FETCH_MANIFEST_CACHE_PREFIX = "fetch.manifest.cache."
 
-#: Keys of the JAX package's configuration that this package has not ported.
-NOT_YET_PORTED = frozenset({
-    "breaker.peer.failure.threshold", "breaker.gossip.failure.threshold",
-    "retry.gossip.probe.attempts", "fleet.enabled", "fleet.instance.id",
-    "fleet.instances", "fleet.vnodes", "fleet.forward.timeout.ms",
-    "fleet.peer.down.cooldown.ms", "fleet.replication.factor",
-    "fleet.gossip.enabled", "fleet.gossip.interval.ms",
-    "fleet.gossip.probe.timeout.ms", "fleet.gossip.suspect.periods",
-    "fleet.gossip.dead.periods",
-})
+#: Keys of the JAX package's configuration that this package has not ported
+#: (a key named here is refused, never ignored). Every key is ported.
+NOT_YET_PORTED: frozenset = frozenset()
+
+
+def _parse_fleet_instances(value) -> None:
+    from tieredstorage_tpu_torch.fleet.ring import parse_instances
+
+    parse_instances(value)
+
+
+_valid_fleet_instances = parseable_by(
+    _parse_fleet_instances, "fleet members 'name[=http://host:port]'"
+)
+
 
 def _codec_id(name: str, value) -> None:
     import warnings
@@ -446,6 +453,32 @@ def _base_def() -> ConfigDef:
             "end-to-end deadline, or the retry is abandoned.",
     ))
     d.define(ConfigKey(
+        "breaker.peer.failure.threshold", "int", default=1,
+        validator=in_range(1, None), importance="low",
+        doc="Consecutive failed forwards that open a peer's circuit breaker "
+            "(per-owner, fleet/peer_cache.py). The default 1 keeps the "
+            "historical mark-down-on-first-failure behavior; the breaker "
+            "re-admits a single half-open probe forward after "
+            "fleet.peer.down.cooldown.ms.",
+    ))
+    d.define(ConfigKey(
+        "breaker.gossip.failure.threshold", "int", default=2,
+        validator=in_range(1, None), importance="low",
+        doc="Consecutive failed probe ROUNDS (retries included) that open a "
+            "gossip member's breaker. Refusing members are deprioritized in "
+            "probe-target selection — never silenced: if every candidate is "
+            "refusing the agent falls back to plain round-robin so the "
+            "failure detector keeps running.",
+    ))
+    d.define(ConfigKey(
+        "retry.gossip.probe.attempts", "int", default=2,
+        validator=in_range(1, None), importance="low",
+        doc="Attempts per gossip probe round trip (including the first). "
+            "Backoff between attempts uses decorrelated jitter seeded per "
+            "instance id, so a partitioned fleet does not retry its probes "
+            "in lockstep.",
+    ))
+    d.define(ConfigKey(
         "admission.enabled", "bool", default=False, importance="medium",
         doc="Gate the sidecar boundaries (HTTP gateway + gRPC service) with "
             "an admission controller: at most admission.max.concurrent "
@@ -494,6 +527,102 @@ def _base_def() -> ConfigDef:
             "an unbounded thread per connection. Size to the expected "
             "broker fetch parallelism plus fleet peer traffic; admission "
             "control sheds what the pool cannot absorb.",
+    ))
+    d.define(ConfigKey(
+        "fleet.enabled", "bool", default=False, importance="medium",
+        doc="Run this sidecar as a member of a gateway fleet: segment object "
+            "keys route to owner instances on a consistent-hash ring "
+            "(fleet/ring.py), non-owner chunk misses are resolved with one "
+            "hop to the owner's chunk cache over the shim-wire GET /chunk "
+            "route before falling back to remote storage, and concurrent "
+            "duplicate fetches coalesce to one backend read. Requires "
+            "fleet.instance.id.",
+    ))
+    d.define(ConfigKey(
+        "fleet.instance.id", "string", default=None,
+        validator=non_empty_string, importance="medium",
+        doc="This instance's name on the fleet ring (must be unique across "
+            "the fleet and stable across restarts — the ring is derived "
+            "from names, so renaming an instance moves its keys).",
+    ))
+    d.define(ConfigKey(
+        "fleet.instances", "list", default=[],
+        validator=_valid_fleet_instances, importance="medium",
+        doc="Static fleet membership: entries 'name=http://host:port' (a "
+            "routable peer gateway) or bare 'name' (address unknown — "
+            "typically this instance itself). Every member must configure "
+            "the same list so all rings agree. Empty means a solo ring "
+            "until FleetRouter.set_membership / --fleet-peers supplies "
+            "addresses (ports are often only known after gateways bind).",
+    ))
+    d.define(ConfigKey(
+        "fleet.vnodes", "int", default=64,
+        validator=in_range(1, 4096), importance="low",
+        doc="Virtual nodes per instance on the consistent-hash ring; more "
+            "vnodes smooth per-instance ownership toward 1/N at the cost "
+            "of a larger (static) ring table.",
+    ))
+    d.define(ConfigKey(
+        "fleet.forward.timeout.ms", "long", default=2_000,
+        validator=in_range(1, None), importance="low",
+        doc="Socket timeout for one peer GET /chunk forward; the ambient "
+            "end-to-end deadline clamps it further. A forward that times "
+            "out marks the peer down and the read falls back to remote "
+            "storage.",
+    ))
+    d.define(ConfigKey(
+        "fleet.peer.down.cooldown.ms", "long", default=5_000,
+        validator=in_range(1, None), importance="low",
+        doc="How long a peer stays marked down after a failed forward "
+            "(reads route straight to remote storage meanwhile); the next "
+            "forward after the cooldown is the health probe.",
+    ))
+    d.define(ConfigKey(
+        "fleet.replication.factor", "int", default=2,
+        validator=in_range(1, 16), importance="medium",
+        doc="Replica owners per segment key: the R distinct ring successors "
+            "of the key's hash. Non-owner misses try the owners in ring "
+            "order (first-owner preference keeps the hot arc concentrated; "
+            "a dead first owner fails over to the next with one forward "
+            "hop), so a hard-killed instance loses no cache tier. 1 "
+            "restores single-owner routing.",
+    ))
+    d.define(ConfigKey(
+        "fleet.gossip.enabled", "bool", default=False, importance="medium",
+        doc="Run the SWIM-style gossip membership daemon (fleet/gossip.py): "
+            "periodic probes over the shim-wire gateway (POST /fleet/gossip) "
+            "carry membership deltas, unreachable members degrade "
+            "alive -> suspect -> dead, and each agreed view is applied to "
+            "the ring as an epoch-numbered membership. fleet.instances "
+            "becomes the SEED set only. Requires fleet.enabled and the "
+            "HTTP gateway.",
+    ))
+    d.define(ConfigKey(
+        "fleet.gossip.interval.ms", "long", default=1_000,
+        validator=in_range(10, None), importance="low",
+        doc="Gossip protocol period: one probe/exchange per period, and the "
+            "unit the suspect/dead thresholds are counted in.",
+    ))
+    d.define(ConfigKey(
+        "fleet.gossip.probe.timeout.ms", "long", default=750,
+        validator=in_range(1, None), importance="low",
+        doc="Socket timeout for one gossip probe round trip; keep it below "
+            "fleet.gossip.interval.ms so a wedged peer cannot stall the "
+            "protocol period.",
+    ))
+    d.define(ConfigKey(
+        "fleet.gossip.suspect.periods", "int", default=3,
+        validator=in_range(1, None), importance="low",
+        doc="Protocol periods without hearing from a member before it is "
+            "marked SUSPECT (still in the ring — suspicion is refutable by "
+            "an incarnation bump, so a slow member does not thrash keys).",
+    ))
+    d.define(ConfigKey(
+        "fleet.gossip.dead.periods", "int", default=3,
+        validator=in_range(1, None), importance="low",
+        doc="Protocol periods a member stays SUSPECT without refutation "
+            "before it is declared DEAD and removed from the ring (bounded "
+            "key movement: only the dead member's arcs move).",
     ))
     d.define(ConfigKey(
         "slo.enabled", "bool", default=False, importance="medium",
@@ -655,6 +784,14 @@ class RemoteStorageManagerConfig:
         if self.compression_heuristic_enabled and not self.compression_enabled:
             raise ConfigException(
                 "compression.enabled must be enabled if compression.heuristic.enabled is"
+            )
+        if self._values["fleet.enabled"] and not self._values["fleet.instance.id"]:
+            raise ConfigException(
+                "fleet.instance.id must be provided if fleet.enabled is"
+            )
+        if self._values["fleet.gossip.enabled"] and not self._values["fleet.enabled"]:
+            raise ConfigException(
+                "fleet.enabled must be enabled if fleet.gossip.enabled is"
             )
         if self._values["slo.window.short.ms"] >= self._values["slo.window.long.ms"]:
             raise ConfigException(
@@ -893,6 +1030,18 @@ class RemoteStorageManagerConfig:
         return self._values["retry.budget.backoff.ms"]
 
     @property
+    def breaker_peer_failure_threshold(self) -> int:
+        return self._values["breaker.peer.failure.threshold"]
+
+    @property
+    def breaker_gossip_failure_threshold(self) -> int:
+        return self._values["breaker.gossip.failure.threshold"]
+
+    @property
+    def retry_gossip_probe_attempts(self) -> int:
+        return self._values["retry.gossip.probe.attempts"]
+
+    @property
     def admission_enabled(self) -> bool:
         return self._values["admission.enabled"]
 
@@ -919,6 +1068,54 @@ class RemoteStorageManagerConfig:
     @property
     def sidecar_http_max_workers(self) -> int:
         return self._values["sidecar.http.max.workers"]
+
+    @property
+    def fleet_enabled(self) -> bool:
+        return self._values["fleet.enabled"]
+
+    @property
+    def fleet_instance_id(self) -> Optional[str]:
+        return self._values["fleet.instance.id"]
+
+    @property
+    def fleet_instances(self) -> list[str]:
+        return self._values["fleet.instances"]
+
+    @property
+    def fleet_vnodes(self) -> int:
+        return self._values["fleet.vnodes"]
+
+    @property
+    def fleet_forward_timeout_ms(self) -> int:
+        return self._values["fleet.forward.timeout.ms"]
+
+    @property
+    def fleet_peer_down_cooldown_ms(self) -> int:
+        return self._values["fleet.peer.down.cooldown.ms"]
+
+    @property
+    def fleet_replication_factor(self) -> int:
+        return self._values["fleet.replication.factor"]
+
+    @property
+    def fleet_gossip_enabled(self) -> bool:
+        return self._values["fleet.gossip.enabled"]
+
+    @property
+    def fleet_gossip_interval_ms(self) -> int:
+        return self._values["fleet.gossip.interval.ms"]
+
+    @property
+    def fleet_gossip_probe_timeout_ms(self) -> int:
+        return self._values["fleet.gossip.probe.timeout.ms"]
+
+    @property
+    def fleet_gossip_suspect_periods(self) -> int:
+        return self._values["fleet.gossip.suspect.periods"]
+
+    @property
+    def fleet_gossip_dead_periods(self) -> int:
+        return self._values["fleet.gossip.dead.periods"]
 
     @property
     def slo_enabled(self) -> bool:

@@ -116,18 +116,18 @@ class ChunkManagerFactory:
         inner_wrapper=None,
     ) -> ChunkManager:
         """`inner_wrapper`, when given, wraps the DefaultChunkManager BELOW
-        the cache tiers (the JAX package's fleet mode inserts its peer tier
-        there: local cache first, then the hot tier, then route-to-owner,
-        then backend)."""
+        the cache tiers (fleet mode inserts the PeerChunkCache tier there:
+        local cache first, then the hot tier, then route-to-owner, then
+        backend)."""
         default = DefaultChunkManager(fetcher, transform_backend)
         inner: ChunkManager = (
             inner_wrapper(default) if inner_wrapper is not None else default
         )
         self.device_hot_cache = None
         if self._config.device_cache_bytes > 0:
-            # Below the ChunkCache: a local chunk-cache miss tries the
-            # resident decrypted window BEFORE paying a storage fetch +
-            # detransform.
+            # Between ChunkCache and PeerChunkCache: a local chunk-cache
+            # miss tries the resident decrypted window BEFORE paying a peer
+            # forward or a storage fetch + detransform.
             self.device_hot_cache = DeviceHotCache(
                 inner,
                 transform_backend,

@@ -4,8 +4,17 @@ Counterpart of tieredstorage_tpu/rsm.py (its `configure`,
 `copy_log_segment_data`, `fetch_segment_manifest`, `fetch_log_segment`,
 `fetch_index`, `delete_log_segment_data`, `set_segment_successor`, the
 scrub, lifecycle and anti-entropy accessors, the observability payloads and
-`close`), the failure policy and the SLO engine, without the plane this
-package has not ported yet: fleet mode.
+`close`), the failure policy, the SLO engine and fleet mode.
+
+Fleet mode, as in the JAX package (`fleet.*`): a consistent-hash router
+(fleet/ring.py) gives every segment object key R owners, and the chunk
+chain gains a `PeerChunkCache` tier below the local caches that resolves a
+miss with one `GET /chunk` hop to the first live owner (whose
+`fleet_fetch_chunks` serves it through its own chunk path and card) before
+falling back to the local store. `fleet.gossip.enabled` runs the SWIM-style
+membership daemon (fleet/gossip.py, started by `start_fleet_gossip`), and
+the fleet's telemetry (fleet/telemetry.py) serves this member's samples
+and the merged fleet-wide scrape.
 
 Failure policy, as in the JAX package: each KIP-405 operation runs under an
 end-to-end deadline (`_traced`: the caller's ambient one, else
@@ -71,6 +80,7 @@ so a segment written by either package reads back through the other.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import logging
@@ -101,6 +111,14 @@ from tieredstorage_tpu_torch.fetch.manifest_cache import (
     MemorySegmentManifestCache,
 )
 from tieredstorage_tpu_torch.fetch.readahead import ReadaheadManager
+from tieredstorage_tpu_torch.fleet import (
+    FleetMetrics,
+    FleetRouter,
+    GossipAgent,
+    PeerChunkCache,
+    parse_instances,
+    register_fleet_metrics,
+)
 from tieredstorage_tpu_torch.kafka_records import (
     InvalidRecordBatchException,
     segment_looks_compressed,
@@ -233,6 +251,13 @@ class RemoteStorageManager:
         #: Device-scheduler timeline ring (`timeline.enabled`): merged-launch
         #: attribution served by `timeline_status` (metrics/timeline.py).
         self.timeline: TimelineRecorder = NOOP_TIMELINE
+        #: Fleet-wide telemetry aggregator (fleet mode).
+        self._fleet_telemetry = None
+        #: Fleet mode (`fleet.*`): consistent-hash router + peer cache tier.
+        self.fleet_router: Optional[FleetRouter] = None
+        self._peer_cache: Optional[PeerChunkCache] = None
+        self._fleet_metrics: Optional[FleetMetrics] = None
+        self._gossip: Optional[GossipAgent] = None
 
     # ------------------------------------------------------------------ setup
     def configure(self, configs: Mapping[str, object]) -> None:
@@ -279,6 +304,7 @@ class RemoteStorageManager:
         self._rsa = rsa
         if config.upload_rate_limit is not None:
             self._rate_bucket = TokenBucket(config.upload_rate_limit)
+        self._wire_fleet_router(config)
         self._chunk_manager = self._build_chunk_manager(backend)
         self._wire_fetch_observability()
         self._wire_tail_tolerance(config)
@@ -294,6 +320,7 @@ class RemoteStorageManager:
         self._wire_scrubber(config)
         self._wire_lifecycle(config)
         self._wire_slo(config)
+        self._wire_fleet_telemetry(config)
 
     def _transform_device(self):
         """The configured `transform.device` (`cuda:0` by default)."""
@@ -430,6 +457,172 @@ class RemoteStorageManager:
     @property
     def antientropy_scheduler(self):
         return self._antientropy_scheduler
+
+    def _wire_fleet_router(self, config: RemoteStorageManagerConfig) -> None:
+        """Fleet mode (`fleet.*`): build the consistent-hash router BEFORE
+        the chunk manager — `_build_chunk_manager` inserts the
+        PeerChunkCache tier (route → forward-to-owner → local single-flight
+        backend fetch) between the local chunk cache and the default
+        manager. Static membership comes from `fleet.instances`; dynamic
+        deployments call `set_fleet_peers` once gateway ports are known."""
+        if not config.fleet_enabled:
+            return
+        self.fleet_router = FleetRouter(
+            config.fleet_instance_id,
+            vnodes=config.fleet_vnodes,
+            tracer=self.tracer,
+        )
+        static = parse_instances(config.fleet_instances)
+        if static:
+            self.fleet_router.set_membership(static)
+        if config.fleet_gossip_enabled:
+            # Seeded from the static list (which becomes the SEED set only:
+            # gossip owns membership from here). Started explicitly via
+            # start_fleet_gossip once the gateway is up — probing peers
+            # before this instance can answer them would just spread
+            # suspicion of ourselves.
+            self._gossip = GossipAgent(
+                self.fleet_router,
+                interval_s=config.fleet_gossip_interval_ms / 1000.0,
+                probe_timeout_s=config.fleet_gossip_probe_timeout_ms / 1000.0,
+                suspect_periods=config.fleet_gossip_suspect_periods,
+                dead_periods=config.fleet_gossip_dead_periods,
+                probe_retries=config.retry_gossip_probe_attempts - 1,
+                breaker_threshold=config.breaker_gossip_failure_threshold,
+                tracer=self.tracer,
+            )
+        self._fleet_metrics = FleetMetrics(self._metrics.registry)
+        log.info(
+            "Fleet mode enabled: instance=%s vnodes=%d replication=%d "
+            "gossip=%s members=%s",
+            config.fleet_instance_id, config.fleet_vnodes,
+            config.fleet_replication_factor, config.fleet_gossip_enabled,
+            sorted(self.fleet_router.peers) or [config.fleet_instance_id],
+        )
+
+    @property
+    def peer_chunk_cache(self) -> Optional[PeerChunkCache]:
+        return self._peer_cache
+
+    @property
+    def gossip_agent(self) -> Optional[GossipAgent]:
+        return self._gossip
+
+    def set_fleet_peers(self, peers: Mapping[str, Optional[str]]) -> None:
+        """Replace fleet membership with {name: base_url|None} — the
+        bootstrap hook for deployments whose gateway ports are only known
+        after bind, and the demotion hook when a member is declared dead
+        (bounded key movement: only the arcs of the changed instances
+        move). Under gossip this reseeds the agent: the entries join the
+        probe set, and membership is gossip's from there."""
+        if self.fleet_router is None:
+            raise RemoteStorageException("fleet mode is not enabled")
+        self.fleet_router.set_membership(peers)
+        if self._gossip is not None:
+            self._gossip.seed(peers)
+
+    def start_fleet_gossip(self) -> Optional[GossipAgent]:
+        """Start the gossip membership daemon (`fleet.gossip.enabled`).
+        Called once the HTTP gateway is bound — the sidecar CLI does this
+        after SIDECAR_READY so inbound /fleet/gossip probes can be
+        answered from the first period."""
+        if self._gossip is not None:
+            self._gossip.start()
+        return self._gossip
+
+    def fleet_gossip(self, payload: Mapping) -> dict:
+        """Serve one inbound gossip exchange (the gateway's POST
+        /fleet/gossip): merge the sender's view, answer with ours."""
+        if self._gossip is None:
+            raise RemoteStorageException("fleet gossip is not enabled")
+        return self._gossip.on_gossip(payload)
+
+    def fleet_ping(self, *, include_witness: bool = False) -> dict:
+        """Liveness/status body for the gateway's GET /fleet/ping: ring
+        state, the gossip view, peer-tier counters, the store's fetch calls
+        when `fault.injection.enabled` counts them, and (on request) the
+        runtime lock witness's verdict. The JAX package's witness half also
+        carries its static race model's cross-check, which this package
+        has not ported: only `enabled` and `lock_violations` are here."""
+        if self.fleet_router is None:
+            raise RemoteStorageException("fleet mode is not enabled")
+        router = self.fleet_router
+        status: dict = {
+            "instance": router.instance_id,
+            "generation": router.generation,
+            "view_epoch": router.view_epoch,
+            "ring_instances": sorted(router.instances),
+        }
+        if self._gossip is not None:
+            status["gossip"] = {
+                "epoch": self._gossip.epoch,
+                "periods": self._gossip.periods,
+                "members": {
+                    name: {"status": m.status, "incarnation": m.incarnation}
+                    for name, m in self._gossip.members().items()
+                },
+            }
+        if self._peer_cache is not None:
+            cache = self._peer_cache
+            status["peer_cache"] = {
+                "replication": cache.replication,
+                "forwards": cache.forwards,
+                "peer_hits": cache.peer_hits,
+                "peer_misses": cache.peer_misses,
+                "forward_failures": cache.forward_failures,
+                "failover_hits": cache.failover_hits,
+            }
+        if self._fault_schedule is not None:
+            status["storage_fetch_calls"] = self._fault_schedule.calls("fetch")
+        if include_witness:
+            from tieredstorage_tpu_torch.utils.locks import witness, witness_enabled
+
+            status["witness"] = {
+                "enabled": witness_enabled(),
+                "lock_violations": list(witness().violations),
+            }
+        return status
+
+    def fleet_fetch_chunks(
+        self, object_key_value: str, first: int, last: int
+    ) -> list[bytes]:
+        """Serve a window of plaintext chunks of a locally-owned segment to
+        a fleet sibling (the gateway's GET /chunk route). Runs through this
+        instance's FULL chunk path — local cache hit, else single-flight
+        backend fetch and the decrypt on this instance's device — with the
+        key pinned local so a forwarded request is never re-forwarded,
+        even under transient ring disagreement."""
+        if self.fleet_router is None:
+            raise RemoteStorageException("fleet mode is not enabled")
+        base, _, suffix = object_key_value.rpartition(".")
+        if not base or suffix != Suffix.LOG.value:
+            raise ValueError(
+                f"peer chunk reads serve .log objects only, got {object_key_value!r}"
+            )
+        if first < 0 or last < first:
+            raise ValueError(f"invalid chunk window {first}-{last}")
+        manifest_key = ObjectKey(f"{base}.{Suffix.MANIFEST.value}")
+        with ensure_deadline(self.default_deadline_s):
+            check_deadline("fleet chunk serve")
+            self._check_not_quarantined(manifest_key)
+            manifest = self._manifest_lookahead.get(
+                manifest_key, lambda: self._fetch_manifest_by_key(manifest_key)
+            )
+            if last >= manifest.chunk_index.chunk_count:
+                raise ValueError(
+                    f"chunk window {first}-{last} beyond "
+                    f"{manifest.chunk_index.chunk_count} chunks"
+                )
+            pin = (
+                self._peer_cache.serving_locally(object_key_value)
+                if self._peer_cache is not None
+                else contextlib.nullcontext()
+            )
+            with pin:
+                return self._chunk_manager.get_chunks(
+                    ObjectKey(object_key_value), manifest,
+                    list(range(first, last + 1)),
+                )
 
     def _wire_lifecycle(self, config: RemoteStorageManagerConfig) -> None:
         """Crash-consistent lifecycle plane (`lifecycle.*`): the upload
@@ -713,7 +906,24 @@ class RemoteStorageManager:
     def _build_chunk_manager(self, backend) -> ChunkManager:
         factory = ChunkManagerFactory()
         factory.configure(self._config.raw_props())
-        manager = factory.init_chunk_manager(self._storage, backend)
+        wrapper = None
+        if self.fleet_router is not None:
+            config = self._config
+
+            def wrapper(default):
+                self._peer_cache = PeerChunkCache(
+                    default,
+                    self.fleet_router,
+                    replication=config.fleet_replication_factor,
+                    forward_timeout_s=config.fleet_forward_timeout_ms / 1000.0,
+                    down_cooldown_s=config.fleet_peer_down_cooldown_ms / 1000.0,
+                    breaker_threshold=config.breaker_peer_failure_threshold,
+                    tracer=self.tracer,
+                    on_forward=self._fleet_metrics.record_forward,
+                )
+                return self._peer_cache
+
+        manager = factory.init_chunk_manager(self._storage, backend, wrapper)
         self._device_hot = factory.device_hot_cache
         self._readahead = factory.readahead_manager
         return manager
@@ -817,8 +1027,9 @@ class RemoteStorageManager:
 
     def _register_resilience_metrics(self) -> None:
         """The resilience-metrics gauges of every wired component (None for
-        a plane that is off), then the retry-metrics group with the storage
-        breaker. The fleet's breaker boards come with the fleet."""
+        a plane that is off), the fleet-metrics group in fleet mode, then
+        the retry-metrics group with the storage breaker and the fleet's
+        `peer` and `gossip` breaker boards."""
         register_resilience_metrics(
             self._metrics.registry,
             breaker=self._breaker,
@@ -830,12 +1041,24 @@ class RemoteStorageManager:
             admission=self.admission,
             deadline_exceeded_supplier=deadline_util.exceeded_total,
         )
+        if self.fleet_router is not None:
+            register_fleet_metrics(
+                self._metrics.registry,
+                router=self.fleet_router,
+                peer_cache=self._peer_cache,
+                gossip=self._gossip,
+            )
         from tieredstorage_tpu_torch.metrics.retry_metrics import register_retry_metrics
 
+        boards = {}
+        if self._peer_cache is not None:
+            boards["peer"] = self._peer_cache.breakers
+        if self._gossip is not None:
+            boards["gossip"] = self._gossip.breakers
         register_retry_metrics(
             self._metrics.registry,
             breakers={"storage": self._breaker} if self._breaker is not None else None,
-            boards={},
+            boards=boards,
         )
 
     def _register_cache_metrics(self) -> None:
@@ -926,6 +1149,37 @@ class RemoteStorageManager:
         if not self.timeline.enabled:
             raise RemoteStorageException("timeline recorder is not enabled")
         return self.timeline.status()
+
+    def _wire_fleet_telemetry(self, config: RemoteStorageManagerConfig) -> None:
+        """Fleet-wide telemetry (fleet/telemetry.py): this member serves
+        its metric samples on GET /fleet/telemetry and can aggregate the
+        whole membership view into one scrape (?aggregate=1)."""
+        if self.fleet_router is None:
+            return
+        from tieredstorage_tpu_torch.fleet.telemetry import FleetTelemetry
+
+        self._fleet_telemetry = FleetTelemetry(
+            [self._metrics.registry],
+            instance_id=config.fleet_instance_id,
+            router=self.fleet_router,
+            ping=self.fleet_ping,
+            timeout_s=config.fleet_forward_timeout_ms / 1000.0,
+            flight_recorder=self.flight_recorder,
+            timeline=self.timeline,
+        )
+
+    @property
+    def fleet_telemetry(self):
+        return self._fleet_telemetry
+
+    def fleet_telemetry_payload(self, *, aggregate: bool = False) -> dict:
+        """The gateway's GET /fleet/telemetry body: this member's samples,
+        or the merged fleet-wide scrape when ``aggregate`` is set."""
+        if self._fleet_telemetry is None:
+            raise RemoteStorageException("fleet mode is not enabled")
+        if aggregate:
+            return self._fleet_telemetry.scrape()
+        return self._fleet_telemetry.local_payload()
 
     @property
     def transform_backend(self):
@@ -1525,13 +1779,18 @@ class RemoteStorageManager:
             ) from failures[0][1]
 
     def close(self) -> None:
-        # As in the JAX package: the anti-entropy scheduler, the scrub
-        # scheduler and the sweep scheduler (their passes read through the
-        # store and the transform backend), then the journal, then the
-        # replicated store's prober and write pool, the hedger's pool; then
-        # the Chrome trace export (`tracing.export.path`); then the chunk
-        # chain: its close drains the readahead and cache pools, whose loads
-        # reach the transform backend closed last.
+        # As in the JAX package: the fleet's telemetry clients and the
+        # gossip daemon, the anti-entropy scheduler, the scrub scheduler and
+        # the sweep scheduler (their passes read through the store and the
+        # transform backend), then the journal, then the replicated store's
+        # prober and write pool, the hedger's pool; then the Chrome trace
+        # export (`tracing.export.path`); then the chunk chain: its close
+        # drains the readahead and cache pools, whose loads reach the peer
+        # tier's clients and the transform backend closed last.
+        if self._fleet_telemetry is not None:
+            self._fleet_telemetry.close()
+        if self._gossip is not None:
+            self._gossip.stop()
         if self._antientropy_scheduler is not None:
             self._antientropy_scheduler.stop()
         if self._scrub_scheduler is not None:
@@ -1554,6 +1813,8 @@ class RemoteStorageManager:
                 )
         if self._chunk_manager is not None and hasattr(self._chunk_manager, "close"):
             self._chunk_manager.close()
+        if self._peer_cache is not None:
+            self._peer_cache.close()
         for cache in (self._manifest_lookahead, self._manifest_cache, self._indexes_cache):
             if cache is not None:
                 cache.close()

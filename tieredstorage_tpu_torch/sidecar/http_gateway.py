@@ -26,11 +26,31 @@ worker pool (``sidecar.http.max.workers``).
 Read-only routes: ``GET /v1/health``, ``GET /slo`` (``slo.enabled``),
 ``GET /scrub``, ``GET /debug/requests[?n=K|?slowest=K|?trace=<id>]``
 (``flight.enabled``) and ``GET /debug/timeline`` (``timeline.enabled``),
-each also under ``/v1/``; a disabled plane answers 404. The fleet routes
-(``GET /chunk``, ``/fleet/ping``, ``/fleet/telemetry``, ``POST
-/fleet/gossip``) answer 404 "fleet mode disabled" / "fleet gossip
-disabled", as the JAX gateway does for an RSM without a fleet: this package
-has no fleet yet.
+each also under ``/v1/``; a disabled plane answers 404.
+
+Fleet routes, as the JAX gateway's (each also under ``/v1/``; an RSM
+without a fleet answers 404 "fleet mode disabled" / "fleet gossip
+disabled"):
+
+- ``GET /chunk?key=<object key>&chunks=<lo>-<hi>`` — the peer-cache route:
+  a sibling instance asks the OWNER of a segment for a window of plaintext
+  chunks (framed u32 count + per-chunk u32 len|bytes). Served through the
+  owner's full chunk path (cache, then single-flight backend fetch and the
+  owner's decrypt), with the caller's ``x-deadline-ms`` and
+  ``traceparent`` honored; deliberately NOT admission-gated — a client
+  request already holds a slot while it forwards, so gating the peer hop
+  could deadlock the fleet at saturation (the bounded worker pool is the
+  backstop).
+- ``POST /fleet/gossip`` — one SWIM membership exchange: the sender's JSON
+  view is merged (fleet/gossip.py precedence rules) and this member's full
+  view is the response. NOT admission-gated: gossip is the failure
+  detector, and shedding it under load would make overload read as mass
+  death.
+- ``GET /fleet/ping[?witness=1]`` — liveness + status: ring generation and
+  epoch, the gossip view, peer-tier counters; ``witness=1`` adds the
+  runtime lock witness's verdict.
+- ``GET /fleet/telemetry[?aggregate=1]`` — this member's metric samples, or
+  the whole membership view merged into one fleet-wide scrape.
 """
 
 from __future__ import annotations
@@ -44,7 +64,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, unquote, urlsplit
 
 from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
 from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
@@ -218,9 +238,12 @@ class _Handler(BaseHTTPRequestHandler):
         parts = urlsplit(self.path)
         if parts.path == "/v1/health":
             self._reply(200)
-        elif parts.path in ("/chunk", "/v1/chunk", "/fleet/ping", "/v1/fleet/ping",
-                            "/fleet/telemetry", "/v1/fleet/telemetry"):
-            self._fleet_disabled()
+        elif parts.path in ("/chunk", "/v1/chunk"):
+            self._peer_chunk(parts.query)
+        elif parts.path in ("/fleet/ping", "/v1/fleet/ping"):
+            self._fleet_ping(parts.query)
+        elif parts.path in ("/fleet/telemetry", "/v1/fleet/telemetry"):
+            self._fleet_telemetry(parts.query)
         elif parts.path in ("/slo", "/v1/slo"):
             self._slo()
         elif parts.path in ("/debug/requests", "/v1/debug/requests"):
@@ -240,10 +263,102 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(404, b"no such endpoint")
 
-    def _fleet_disabled(self) -> None:
-        """The fleet routes of an RSM without a fleet: the JAX gateway's
-        answer when ``fleet_router`` is None (no fleet in this package)."""
-        self._reply(404, b"fleet mode disabled")
+    def _peer_chunk(self, query: str) -> None:
+        """Fleet peer-cache route: serve a window of plaintext chunks of a
+        locally-owned segment to a sibling instance (fleet/peer_cache.py).
+        The serving path pins the key local, so a forwarded request can
+        never be re-forwarded even under transient ring disagreement."""
+        serve = getattr(self.rsm, "fleet_fetch_chunks", None)
+        if serve is None or getattr(self.rsm, "fleet_router", None) is None:
+            self._reply(404, b"fleet mode disabled")
+            return
+        tracer = getattr(self.rsm, "tracer", NOOP_TRACER)
+        try:
+            params = parse_qs(query, keep_blank_values=False, strict_parsing=False)
+            key = unquote(params["key"][0])
+            window = params["chunks"][0]
+            first_s, _, last_s = window.partition("-")
+            first, last = int(first_s), int(last_s or first_s)
+        except (KeyError, IndexError, ValueError):
+            self._reply(400, b"expected ?key=<object key>&chunks=<lo>-<hi>")
+            return
+        wire_deadline = parse_deadline_ms(self.headers.get(shimwire.DEADLINE_HEADER))
+        recorder = getattr(self.rsm, "flight_recorder", NOOP_RECORDER)
+        try:
+            with deadline_scope(wire_deadline), \
+                    ensure_deadline(getattr(self.rsm, "default_deadline_s", None)), \
+                    tracer.continue_trace(
+                        self.headers.get(shimwire.TRACEPARENT_HEADER)), \
+                    tracer.span(
+                        "gateway.chunk", key=key, chunks=last - first + 1
+                    ) as span, \
+                    recorder.request(
+                        "gateway.chunk",
+                        trace_id=span.trace_id if span else None,
+                    ):
+                chunks = serve(key, first, last)
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        from tieredstorage_tpu_torch.fleet.peer_cache import encode_chunk_frames
+
+        self._reply(200, encode_chunk_frames(chunks))
+
+    def _fleet_ping(self, query: str) -> None:
+        """Fleet liveness/status: ring + gossip view (+ the lock witness's
+        verdict on ``?witness=1``)."""
+        ping = getattr(self.rsm, "fleet_ping", None)
+        if ping is None or getattr(self.rsm, "fleet_router", None) is None:
+            self._reply(404, b"fleet mode disabled")
+            return
+        params = parse_qs(query, keep_blank_values=False, strict_parsing=False)
+        include_witness = params.get("witness", ["0"])[0] in ("1", "true")
+        try:
+            status = ping(include_witness=include_witness)
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(status, indent=1).encode("utf-8"))
+
+    def _fleet_telemetry(self, query: str) -> None:
+        """Fleet telemetry (fleet/telemetry.py): this member's metric
+        samples, or — with ``?aggregate=1`` — the whole membership view
+        merged into one fleet-wide scrape."""
+        if getattr(self.rsm, "fleet_telemetry", None) is None:
+            self._reply(404, b"fleet mode disabled")
+            return
+        params = parse_qs(query, keep_blank_values=False, strict_parsing=False)
+        aggregate = params.get("aggregate", ["0"])[0] in ("1", "true")
+        try:
+            payload = self.rsm.fleet_telemetry_payload(aggregate=aggregate)
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(payload, indent=1).encode("utf-8"))
+
+    def _fleet_gossip(self) -> None:
+        """One SWIM membership exchange: merge the sender's JSON view,
+        answer with ours. Not admission-gated (see module docstring)."""
+        serve = getattr(self.rsm, "fleet_gossip", None)
+        if serve is None or getattr(self.rsm, "gossip_agent", None) is None:
+            self._reply(404, b"fleet gossip disabled")
+            return
+        try:
+            body = self._body()
+        except Exception as exc:  # noqa: BLE001 — body-framing failure
+            self._fail(exc)
+            self.close_connection = True
+            return
+        try:
+            with contextlib.closing(body):
+                payload = json.loads(body.read())
+                if not isinstance(payload, dict):
+                    raise ValueError("gossip payload must be a JSON object")
+                view = serve(payload)
+        except Exception as exc:  # noqa: BLE001 — boundary translation
+            self._fail(exc)
+            return
+        self._reply(200, json.dumps(view).encode("utf-8"))
 
     def _slo(self) -> None:
         """SLO verdicts (metrics/slo.py): compliance, error budget, and
@@ -317,7 +432,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self) -> None:
         if self.path in ("/fleet/gossip", "/v1/fleet/gossip"):
-            self._reply(404, b"fleet gossip disabled")
+            self._fleet_gossip()
             return
         routes = {
             "/v1/copy": self._copy,

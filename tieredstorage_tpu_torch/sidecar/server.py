@@ -276,8 +276,11 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument(
         "--fleet-peers", default=None, metavar="NAME=URL,...",
-        help="Fleet membership override (the JAX sidecar's flag); the fleet "
-             "is not yet ported, so giving it is refused.",
+        help="Fleet membership override applied after configure(): "
+             "comma-separated 'name=http://host:port' entries (bare 'name' "
+             "for address-less members). Replaces fleet.instances — for "
+             "deployments whose gateway ports are only known at launch. "
+             "Requires fleet.enabled in the config.",
     )
     parser.add_argument(
         "--virtual-cpu-devices", type=int, default=None, metavar="N",
@@ -286,17 +289,21 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     args = parser.parse_args(argv)
 
-    # The fleet and the virtual-device pin have no twin in this package yet:
-    # refuse them by name rather than ignore them.
-    for flag, value in (("--fleet-peers", args.fleet_peers),
-                        ("--virtual-cpu-devices", args.virtual_cpu_devices)):
-        if value is not None:
-            raise ConfigException(f"{flag} is not yet ported to tieredstorage_tpu_torch")
+    # The virtual-device pin has no twin in this package yet: refuse it by
+    # name rather than ignore it.
+    if args.virtual_cpu_devices is not None:
+        raise ConfigException(
+            "--virtual-cpu-devices is not yet ported to tieredstorage_tpu_torch"
+        )
 
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
 
     rsm = RemoteStorageManager()
     rsm.configure(json.loads(pathlib.Path(args.config).read_text()))
+    if args.fleet_peers:
+        from tieredstorage_tpu_torch.fleet import parse_instances
+
+        rsm.set_fleet_peers(parse_instances(args.fleet_peers.split(",")))
     exporter = None
     if args.metrics_port is not None:
         from tieredstorage_tpu_torch.metrics.prometheus import PrometheusExporter
@@ -315,6 +322,10 @@ def main(argv: Optional[list[str]] = None) -> None:
         from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway
 
         gateway = SidecarHttpGateway(rsm, port=args.http_port, host=args.host).start()
+    # Gossip membership starts only once the gateway can answer inbound
+    # /fleet/gossip probes (fleet.gossip.enabled is a no-op otherwise).
+    if gateway is not None:
+        rsm.start_fleet_gossip()
     server = SidecarServer(rsm, port=args.port, host=args.host).start()
     print(
         f"SIDECAR_READY port={server.port}"

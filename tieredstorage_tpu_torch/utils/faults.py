@@ -31,9 +31,11 @@ through the I/O seams the retry policy (utils/retry.py) guards. A rule is
 The seams this package has: ``device.launch`` (transform/batcher.py, keyed
 by work class), ``storage.read`` (fetch/chunk_manager.py and the RSM's
 index reads), ``storage.write`` (the RSM's upload chokepoint),
-``lifecycle.journal`` (storage/lifecycle.py) and ``lifecycle.sweep``
-(scrub/sweeper.py). ``peer.forward`` and ``gossip.probe`` belong to the
-fleet tier, which is not ported; rules naming them parse and never fire.
+``lifecycle.journal`` (storage/lifecycle.py), ``lifecycle.sweep``
+(scrub/sweeper.py), ``peer.forward`` (fleet/peer_cache.py, per forward
+attempt before the wire, keyed ``<owner>|<object key>``) and
+``gossip.probe`` (fleet/gossip.py, per probe round trip, keyed by the
+member's URL).
 
 Arming mirrors the lock witness (utils/locks.py): set ``TSTPU_FAULTS`` to
 the rule spec (rules joined with ``;`` or ``,``), optionally
