@@ -224,6 +224,23 @@ Phases, in order, each printing its seconds:
              moment: every summed series equals the members' own payloads
              and the dead member is unreachable; the card memory the
              members give back.
+14. mesh — windows split over a mesh of members that all sit on cuda:0,
+             each member on its own stream (the round has one card; a
+             plan of several cards splits the same way). Launch counts are
+             zeroed before (a) and read after (b). (a) `run_drill` with 2
+             and 4 members at 4 MiB x 64-row windows: every check true
+             (byte parity with the unsplit backend both ways, the round
+             trip, one dispatch, one h2d and one d2h a window, the staged
+             buffer donated, a varlen window the mesh does not divide, the
+             chunk-index gather), and AES and the GHASH tree launched on
+             every member's rows; (b) a 256 MiB segment, 4 MiB chunks,
+             encryption on, copied, read whole and in 16 seeded 1 MiB
+             ranges through an RSM whose backend splits over 4 members,
+             every byte equal to the source, and read back whole by a
+             one-member RSM over the same store; (c) CUDA-event times of one
+             16 x 4 MiB encrypt window's program at 1, 2 and 4 members and of
+             the op-level `gcm_encrypt_chunks` on the same rows, whose
+             outputs and tags must all equal the one-member window's.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -4015,6 +4032,149 @@ def fleet_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0
     return out
 
 
+#: Phase 14: the members of the drills on the one card, the segment of its
+#: RSM leg and the members its backend splits over.
+MESH_MEMBERS = (2, 4)
+MESH_SEGMENT_BYTES = 256 * MIB
+MESH_RSM_MEMBERS = 4
+
+
+def _mesh_backend(members: int) -> type:
+    """The port's CUDA backend with every window split over `members`
+    members on its one device. `transform.mesh.devices` counts distinct
+    devices, so a plan that repeats one device reaches the backend through
+    its mesh plan, as the backend's `mesh=` argument takes it."""
+    from tieredstorage_tpu_torch.parallel.mesh import MeshPlan
+    from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+
+    class MeshOnOneDevice(CudaTransformBackend):
+        _split = None
+
+        def mesh_plan(self):
+            if self._split is None:
+                self._split = MeshPlan.wrap([self.device] * members)
+            return self._split
+
+    return MeshOnOneDevice
+
+
+def _mesh_window_times(seed: int, device) -> dict:
+    """(c): one 16 x 4 MiB encrypt window's program at 1, 2 and 4 members and
+    the op-level entry point on the same rows, each checked against the
+    one-member output first, then timed with CUDA events."""
+    from tieredstorage_tpu_torch.ops import gcm
+    from tieredstorage_tpu_torch.parallel.mesh import MeshPlan, shard_rows
+
+    rng = np.random.default_rng(seed + 141)
+    rows = 16
+    ctx = gcm.make_context(rng.bytes(32), rng.bytes(32), CHUNK)
+    host = torch.from_numpy(rng.integers(0, 256, (rows, CHUNK + 16), dtype=np.uint8)).pin_memory()
+    want = gcm.gcm_window_packed(ctx, None, host.to(device), decrypt=False, donate=True)
+    staged = host.to(device)
+    out = {"rows": rows, "chunk_bytes": CHUNK}
+    out["ms_1_member"] = time_cuda(
+        lambda: gcm.gcm_window_packed(ctx, None, staged, decrypt=False, donate=True), runs=5)
+    for n in (2, 4):
+        mesh = MeshPlan.wrap([device] * n).mesh
+        got = torch.cat(gcm.gcm_window_packed(
+            ctx, None, shard_rows(mesh, host), decrypt=False, donate=True, mesh=mesh))
+        check(torch.equal(got, want), f"the {n}-member window differs from the one-member window")
+        shards = shard_rows(mesh, host)
+        out[f"ms_{n}_members"] = time_cuda(lambda: gcm.gcm_window_packed(
+            ctx, None, shards, decrypt=False, donate=True, mesh=mesh), runs=5)
+    ivs, plain = host[:, CHUNK : CHUNK + 12].to(device), host[:, :CHUNK].to(device)
+    ct, tags = gcm.gcm_encrypt_chunks(ctx, ivs, plain)
+    check(torch.equal(ct, want[:, :CHUNK]) and torch.equal(tags, want[:, CHUNK:]),
+          "gcm_encrypt_chunks differs from the window program")
+    out["ms_op_level"] = time_cuda(lambda: gcm.gcm_encrypt_chunks(ctx, ivs, plain), runs=5)
+    return out
+
+
+def mesh_phase(seed: int, work: Path, device: str = "cuda:0") -> dict:
+    """Phase 14 (see the module docstring). Returns the drill reports, the
+    RSM leg's figures, the window times and the launch counts of (a)+(b)."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.parallel.mesh import MeshPlan
+    from tieredstorage_tpu_torch.parallel.multichip import run_drill, summary_line
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    rec: dict = {"drills": {}}
+    _cuda.reset_launch_counts()
+    for n in MESH_MEMBERS:
+        before = _cuda.launch_rows()
+        t = time.perf_counter()
+        report = run_drill(n, chunk_bytes=CHUNK, window=64, plan=MeshPlan.wrap([device] * n))
+        rows = _rows_delta(before, _cuda.launch_rows())
+        check(report["ok"], f"the {n}-member drill failed: {report['failed_checks']}")
+        per_member = report["fixed"]["rows_per_device"]
+        for name in ("aes_ctr_keystream", "ghash_tree"):
+            # Each member's rows, once encrypting and once decrypting.
+            check(rows[name].get(per_member, 0) >= 2 * n,
+                  f"{name} did not launch on every member's {per_member} rows "
+                  f"in the {n}-member drill: {rows[name]}")
+        rec["drills"][n] = {
+            "s": time.perf_counter() - t, "summary": summary_line(report),
+            "checks": sorted(report["fixed"]["checks"]),
+            "varlen_pad_rows": report["varlen"]["pad_rows"],
+            "host_oracle_skipped": report.get("host_oracle_skipped"),
+            "launch_rows": {k: v for k, v in rows.items() if v},
+        }
+
+    seg_dir, store = work / "segment", work / "store"
+    seg_dir.mkdir()
+    store.mkdir()
+    md, sd, files, _ = write_segment(seg_dir, seed + 14, MESH_SEGMENT_BYTES)
+    pub, priv = generate_key_pair_pem_files(work, prefix="mesh")
+    source = files["log"].read_bytes()
+    leg: dict = {"segment_bytes": MESH_SEGMENT_BYTES, "members": MESH_RSM_MEMBERS}
+    before = _cuda.launch_rows()
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        "transform.backend.class": _mesh_backend(MESH_RSM_MEMBERS)}))
+    try:
+        t = time.perf_counter()
+        rsm.copy_log_segment_data(md, sd)
+        leg["copy_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        check(_read_range(rsm, md, 0) == source, "the 4-member RSM's whole read differs")
+        leg["fetch_s"] = time.perf_counter() - t
+        rng = np.random.default_rng(seed + 142)
+        t = time.perf_counter()
+        for off in rng.integers(0, MESH_SEGMENT_BYTES - MIB, 16):
+            off = int(off)
+            check(_read_range(rsm, md, off, off + MIB - 1) == source[off : off + MIB],
+                  f"the 4-member RSM's ranged read at {off} differs")
+        leg["ranged_16_s"] = time.perf_counter() - t
+        stats = rsm.transform_backend.dispatch_stats
+        check(stats.mesh_size == MESH_RSM_MEMBERS, f"the RSM's windows ran on {stats.mesh_size} members")
+        leg["dispatch_stats"] = stats.as_dict()
+    finally:
+        rsm.close()
+    leg["launch_rows"] = {k: v for k, v in _rows_delta(before, _cuda.launch_rows()).items() if v}
+    check(leg["launch_rows"].get("aes_ctr_keystream", {}).get(16 // MESH_RSM_MEMBERS, 0) > 0,
+          "the 4-member RSM's copy did not launch AES on a member's 4 rows")
+    rec["launches"] = _cuda.launch_counts()
+    one = RemoteStorageManager()
+    one.configure(_rsm_configs(store, pub, priv, device))
+    try:
+        check(one.transform_backend.mesh_plan().size == 1, "the one-member RSM split its windows")
+        t = time.perf_counter()
+        check(_read_range(one, md, 0) == source, "the one-member RSM's whole read differs")
+        leg["one_member_fetch_s"] = time.perf_counter() - t
+    finally:
+        one.close()
+    gib = MESH_SEGMENT_BYTES / (1 << 30)
+    leg["copy_gib_s"] = gib / leg["copy_s"]
+    leg["fetch_gib_s"] = gib / leg["fetch_s"]
+    leg["one_member_fetch_gib_s"] = gib / leg["one_member_fetch_s"]
+    leg["bytes_equal"] = True
+    rec["rsm"] = leg
+    if torch.device(device).type == "cuda":
+        rec["window"] = _mesh_window_times(seed, device)
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -4204,7 +4364,22 @@ def main(argv=None) -> int:
         "copy_gib_s", "ready_s", "card_mib_held_by_members", "card_mib_after_exit",
         "exit")}}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        t = time.perf_counter()
+        mesh = mesh_phase(args.seed, work)
+        record["mesh_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase mesh: {record['mesh_s']:.1f} s")
+    record["mesh"] = mesh
+    for n, drill in mesh["drills"].items():
+        print(f"mesh drill {n}: " + json.dumps({"card": card, **drill}))
+    print("mesh rsm: " + json.dumps({"card": card, **mesh["rsm"]}))
+    print("mesh window: " + json.dumps({"card": card, **mesh["window"]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
+    _gcm_launched(mesh["launches"], "mesh phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(fleet["launches"], "fleet phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(sidecar["launches"], "sidecar phase")
     _gcm_launched(policy["launches"], "failure policy phase", ("aes_ctr_keystream", "ghash_tree"))
@@ -4238,6 +4413,7 @@ def main(argv=None) -> int:
         entry["launches_failure_policy"] = policy["launches"].get(name, 0)
         entry["launches_sidecar"] = sidecar["launches"].get(name, 0)
         entry["launches_fleet"] = fleet["launches"].get(name, 0)
+        entry["launches_mesh"] = mesh["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -561,12 +561,13 @@ def test_single_waiter_dispatches_inline_and_feeds_the_hot_tier():
     backend = cpu_backend()
     b = backend.enable_batching(wait_ms=200)
     offered = []
-    backend.on_decrypt_window = lambda out, sizes, n_bytes: offered.append(list(sizes))
+    backend.on_decrypt_window = lambda out, sizes, n_bytes, mesh_size: offered.append(
+        (list(sizes), mesh_size))
     plain, wire = make_window(40, [900, 900])
     assert backend.detransform(list(wire), D_OPTS) == plain
     assert (b.windows_submitted, b.fast_path_windows, b.batched_windows, b.launches) == (1, 1, 0, 0)
     assert backend.dispatch_stats.dispatches == 1
-    assert offered == [[900, 900]]
+    assert offered == [([900, 900], 1)]  # one window, offered with its mesh size
     backend.close()
 
 

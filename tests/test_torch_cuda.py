@@ -1012,3 +1012,42 @@ def test_expired_deadline_is_504_at_the_wire_with_no_gcm_window(device, tmp_path
     finally:
         gw.stop()
         rsm.close()
+
+
+# ------------------------------------------------------- the split on one card
+def test_split_on_one_card_equals_the_unsplit_window(device):
+    """Four members on cuda:0, each on its own stream: the same wire bytes
+    as the one-device backend, one logical dispatch, and the keystream and
+    GHASH kernels launched once on every member's rows."""
+    from tieredstorage_tpu_torch.security.aes import DataKeyAndAAD
+    from tieredstorage_tpu_torch.transform.api import DetransformOptions, TransformOptions
+    from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+
+    rng = np.random.default_rng(14)
+    sizes = rng.integers(1000, 64 << 10, 11)
+    chunks = [rng.bytes(int(n)) for n in sizes]
+    dk = DataKeyAndAAD(bytes(range(32)), bytes(32))
+    ivs = [bytes([i]) * 12 for i in range(len(chunks))]
+    split = CudaTransformBackend(mesh=["cuda:0"] * 4)
+    plain = CudaTransformBackend(device="cuda:0")
+    _cuda.reset_launch_counts()
+    wire = split.transform(chunks, TransformOptions(encryption=dk, ivs=ivs))
+    rows = _cuda.launch_rows()
+    assert rows["aes_ctr_keystream"] == {3: 4}
+    assert sum(rows["ghash_tree"].values()) + sum(rows["ghash_level1"].values()) == 4
+    assert wire == plain.transform(chunks, TransformOptions(encryption=dk, ivs=ivs))
+    stats = split.reset_dispatch_stats()
+    assert (stats.dispatches, stats.mesh_size, stats.rows_per_device, stats.donated_buffers) == \
+        (1, 4, 3, 1)
+    assert split.detransform(wire, DetransformOptions(encryption=dk)) == chunks
+
+
+@pytest.mark.parametrize("members", [2, 4])
+def test_drill_on_one_card(device, members):
+    from tieredstorage_tpu_torch.parallel.mesh import MeshPlan
+    from tieredstorage_tpu_torch.parallel.multichip import run_drill
+
+    report = run_drill(members, chunk_bytes=64 << 10, window=16,
+                       plan=MeshPlan.wrap(["cuda:0"] * members))
+    assert report["ok"], report["failed_checks"]
+    assert report["fixed"]["mesh_size"] == members

@@ -822,9 +822,15 @@ def test_three_member_port_fleet_reads_through_owner_death(tmp_path, keys):
     second owner and the dead owner's breaker is open."""
     store = tmp_path / "store"
     store.mkdir()
+    # The survivor reads its nine chunks one forward at a time; on a loaded
+    # host that outlasts the default 5 s cooldown, the dead owner's breaker
+    # goes half-open mid-read and its probe is a second forward failure. A
+    # cooldown longer than the test keeps the breaker open for the whole
+    # read, and a long forward timeout keeps a slow owner decrypt a forward.
     extra = {"fault.injection.enabled": True, "fault.schedule": [],
              "fetch.chunk.cache.class": "tieredstorage_tpu_torch.fetch.cache.memory.MemoryChunkCache",
-             "fetch.chunk.cache.size": 4 * SEGMENT_SIZE}
+             "fetch.chunk.cache.size": 4 * SEGMENT_SIZE,
+             "fleet.peer.down.cooldown.ms": 600_000, "fleet.forward.timeout.ms": 60_000}
     rsms = {n: _member(store, keys, n, extra) for n in ("a", "b", "c")}
     gws = {n: SidecarHttpGateway(r).start() for n, r in rsms.items()}
     try:

@@ -121,6 +121,14 @@ _FLEET = (
     "tieredstorage_tpu_torch.fleet.telemetry",
 )
 
+#: Modules of the mesh: the plan, the drill and the virtual-device pin.
+_MESH = (
+    "tieredstorage_tpu_torch.parallel",
+    "tieredstorage_tpu_torch.parallel.mesh",
+    "tieredstorage_tpu_torch.parallel.multichip",
+    "tieredstorage_tpu_torch.utils.platforms",
+)
+
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
@@ -136,6 +144,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert set(_FAILURE_POLICY) <= set(names.split())
     assert set(_SIDECAR) <= set(names.split())
     assert set(_FLEET) <= set(names.split())
+    assert set(_MESH) <= set(names.split())
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -25,6 +25,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from tests.test_sidecar_http_gateway import JavaShimEncoder
 from tests.test_torch_rsm import CHUNK, SEGMENT_SIZE, _configs, _write_segment
@@ -35,7 +36,6 @@ from tieredstorage_tpu.sidecar import sidecar_pb2 as jax_pb
 from tieredstorage_tpu.sidecar.client import SidecarRsmClient as JaxSidecarRsmClient
 from tieredstorage_tpu.sidecar.server import SidecarServer as JaxSidecarServer
 from tieredstorage_tpu_torch import metadata
-from tieredstorage_tpu_torch.config.configdef import ConfigException
 from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
 from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
 from tieredstorage_tpu_torch.rsm import RemoteStorageManager
@@ -181,23 +181,17 @@ class TestContract:
 
 
 @pytest.mark.parametrize("flag", [["--fleet-peers", "a=http://127.0.0.1:1"],
-                                  ["--virtual-cpu-devices", "1"]])
+                                  ["--virtual-cpu-devices", "2"]])
 def test_unported_flags_are_refused_by_name(tmp_path, keys, flag, monkeypatch):
-    """`--virtual-cpu-devices` is still refused by name. `--fleet-peers` is
-    applied as the JAX sidecar applies it: the membership of a fleet RSM
-    (read where the gRPC server would start), and "fleet mode is not
-    enabled" without a fleet."""
+    """Both JAX flags are applied as the JAX sidecar applies them.
+    `--virtual-cpu-devices N` pins the port to the CPU before the RSM is
+    built: its transform runs on the CPU over an N-member plan (the config
+    here names no device, whose default would be cuda:0). `--fleet-peers` is
+    the membership of a fleet RSM (read where the gRPC server would start),
+    and "fleet mode is not enabled" without a fleet."""
     from tieredstorage_tpu_torch.errors import RemoteStorageException
     from tieredstorage_tpu_torch.sidecar import server as server_mod
-
-    cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps(_configs(tmp_path, keys, FS, {"transform.device": "cpu"})))
-    if flag[0] == "--virtual-cpu-devices":
-        with pytest.raises(ConfigException, match=f"{flag[0]} is not yet ported"):
-            main(["--config", str(cfg), *flag])
-        return
-    with pytest.raises(RemoteStorageException, match="fleet mode is not enabled"):
-        main(["--config", str(cfg), *flag])
+    from tieredstorage_tpu_torch.utils import platforms
 
     class Started(Exception):
         pass
@@ -207,6 +201,26 @@ def test_unported_flags_are_refused_by_name(tmp_path, keys, flag, monkeypatch):
     def server(rsm, **kwargs):
         started.append(rsm)
         raise Started
+
+    cfg = tmp_path / "cfg.json"
+    if flag[0] == "--virtual-cpu-devices":
+        monkeypatch.setattr(server_mod, "SidecarServer", server)
+        cfg.write_text(json.dumps(_configs(tmp_path, keys, FS)))
+        platforms.unpin()
+        try:
+            with pytest.raises(Started):
+                main(["--config", str(cfg), *flag])
+            backend = started[0].transform_backend
+            assert backend.device == torch.device("cpu")
+            assert backend.mesh_plan().size == int(flag[1])
+        finally:
+            for rsm in started:
+                rsm.close()
+            platforms.unpin()
+        return
+    cfg.write_text(json.dumps(_configs(tmp_path, keys, FS, {"transform.device": "cpu"})))
+    with pytest.raises(RemoteStorageException, match="fleet mode is not enabled"):
+        main(["--config", str(cfg), *flag])
 
     monkeypatch.setattr(server_mod, "SidecarServer", server)
     cfg.write_text(json.dumps(_configs(tmp_path, keys, FS, {

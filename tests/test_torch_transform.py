@@ -106,7 +106,7 @@ def test_staging_buffers_are_reused_across_windows():
 @pytest.mark.parametrize(
     "configs,match",
     [({"batch.enabled": "true", "batch.windows": 1}, "at least 2"),
-     ({"mesh.devices": 2}, "multi-GPU")],
+     ({"mesh.devices": -1}, "mesh.devices: Value must be at least 0")],
     ids=["batch", "mesh"],
 )
 def test_unported_backend_options_are_refused(configs, match):

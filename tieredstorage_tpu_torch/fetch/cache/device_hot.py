@@ -75,7 +75,7 @@ class _CaptureState:
 
     def __init__(self) -> None:
         self.armed = False
-        self.windows: list[tuple[Any, tuple[int, ...], int]] = []
+        self.windows: list[tuple[Any, tuple[int, ...], int, int]] = []
         self.opts = None
 
 
@@ -95,7 +95,7 @@ class CapturedDecrypt:
     __slots__ = ("windows", "opts")
 
     def __init__(self) -> None:
-        self.windows: list[tuple[Any, tuple[int, ...], int]] = []
+        self.windows: list[tuple[Any, tuple[int, ...], int, int]] = []
         self.opts = None
 
 
@@ -118,15 +118,17 @@ def capture_scope():
         state.armed, state.windows, state.opts = prev
 
 
-def offer_decrypt_window(device, sizes, n_bytes: int) -> None:
+def offer_decrypt_window(device, sizes, n_bytes: int, mesh_size: int = 1) -> None:
     """`CudaTransformBackend.on_decrypt_window` target: called with the
     still-device-resident packed output of a VERIFIED decrypt window
-    (``uint8[B, n_bytes+16]``). Dropped unless the calling thread armed a
+    (``uint8[B, n_bytes+16]``; under a mesh of ``mesh_size`` members, the
+    list of member outputs ``uint8[B(+pad)/mesh_size, n_bytes+16]``, each
+    on its member's device). Dropped unless the calling thread armed a
     capture scope — unrelated decrypts (index reads, sibling requests) never
     leak into a window."""
     state = getattr(_CAPTURE, "state", None)
     if state is not None and state.armed:
-        state.windows.append((device, tuple(sizes), int(n_bytes)))
+        state.windows.append((device, tuple(sizes), int(n_bytes), int(mesh_size)))
 
 
 def note_detransform(opts) -> None:
@@ -214,12 +216,23 @@ class HotWindow:
     mirror: np.ndarray            # uint8 copy of the concatenated plaintext
     offsets: tuple[int, ...]      # per-chunk start into the mirror
     lens: tuple[int, ...]
-    device: Any = None            # torch uint8[B, n_bytes+16] or None
+    device: Any = None            # torch uint8[B, n_bytes+16], the list of
+                                  # member outputs of a split window, or None
     device_nbytes: int = 0
     n_bytes: int = 0              # payload columns of the device buffer
+    mesh_size: int = 1
 
     def __post_init__(self) -> None:
         self._row = {cid: i for i, cid in enumerate(self.chunk_ids)}
+
+    def device_row(self, chunk_id: int):
+        """The retained row of `chunk_id` as a view on its device: row i of a
+        split window is row i % r of member i // r (r rows a member)."""
+        row = self._row[chunk_id]
+        if isinstance(self.device, list):
+            per = self.device[0].shape[0]
+            return self.device[row // per][row % per]
+        return self.device[row]
 
     @property
     def nbytes(self) -> int:
@@ -391,7 +404,9 @@ class DeviceHotCache(ChunkManager):
         tensors on the card), or None when any chunk lacks a device-backed
         cover. Zero GCM launches — a view of the resident tensor, no copy;
         materializing it is the CALLER's choice. A view keeps its window's
-        tensor alive after the window is evicted."""
+        tensor alive after the window is evicted. Rows of a window retained
+        from a mesh stay on their members' devices; they come back in row
+        order."""
         file = _file_of(objects_key)
         rows: list[tuple[HotWindow, int]] = []
         with self._lock:
@@ -402,8 +417,8 @@ class DeviceHotCache(ChunkManager):
                 w = self._windows[wkey]
                 if w.device is None:
                     return None
-                rows.append((w, w.row_of(cid)))
-        return [w.device[row] for w, row in rows]
+                rows.append((w, cid))
+        return [w.device_row(cid) for w, cid in rows]
 
     # ------------------------------------------------------------- admission
     def _maybe_admit(
@@ -506,21 +521,26 @@ class DeviceHotCache(ChunkManager):
         device = None
         device_nbytes = 0
         n_bytes = 0
+        mesh_size = 1
         opts = captured.opts
         if (
             len(captured.windows) == 1
             and opts is not None
             and not opts.compression
         ):
-            buffer, sizes, cap_n_bytes = captured.windows[0]
+            buffer, sizes, cap_n_bytes, cap_mesh = captured.windows[0]
             if sizes == lens:
                 device = buffer
                 n_bytes = cap_n_bytes
-                device_nbytes = int(buffer.nbytes)
+                mesh_size = cap_mesh
+                # One budget for the whole mesh: every member's rows count.
+                parts = buffer if isinstance(buffer, list) else [buffer]
+                device_nbytes = sum(int(p.nbytes) for p in parts)
         return HotWindow(
             key=wkey, file=file, chunk_ids=chunk_ids,
             mirror=mirror, offsets=tuple(offsets), lens=lens,
             device=device, device_nbytes=device_nbytes, n_bytes=n_bytes,
+            mesh_size=mesh_size,
         )
 
 

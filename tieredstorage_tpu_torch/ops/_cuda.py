@@ -180,7 +180,9 @@ def decode_shape(lanes: int) -> tuple[int, int]:
 
 def launch(name: str, *args, rows: int) -> None:
     """Launch kernel `name` on the current stream of the current device and
-    count it under its `rows`; raise if the launch was refused."""
+    count it under its `rows`; raise if the launch was refused. A split
+    window's members launch inside `parallel.mesh.DeviceMesh.member`, so
+    each launch runs on its member's device and stream and counts once."""
     lib = library()
     cname, _ = _SIGNATURES[name]
     stream = torch.cuda.current_stream().cuda_stream

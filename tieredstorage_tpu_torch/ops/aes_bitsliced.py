@@ -15,7 +15,10 @@ every shift is followed by a mask.
 the hand-written CUDA kernel (csrc/aes_ctr.cu, whose S-box is Boyar and
 Peralta's 115-gate circuit, rendered by ops/aes_circuit_gen.py); for a CPU
 tensor it runs `ctr_keystream_batch_plain`, this module's tower circuit as
-torch ops.
+torch ops. `ctr_keystream_bitsliced` (one IV) runs through the same
+wrapper; `round_key_planes` and `make_rk_planes` are the JAX module's host
+helpers (the JAX module's `pallas_aes_available` has no twin: the port has
+no preflight, a CUDA tensor launches the kernel or raises).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from tieredstorage_tpu_torch.ops.aes import _NR, _SHIFT_ROWS, _gf8_mult
+from tieredstorage_tpu_torch.ops.aes import _NR, _SHIFT_ROWS, _gf8_mult, key_expansion
 
 # ---------------------------------------------------------------------------
 # Host-side derivation of the tower-field S-box circuit (numpy, cached)
@@ -365,3 +368,35 @@ def ctr_keystream_batch(
         n_blocks, ivs.shape[0], out.data_ptr(), rows=ivs.shape[0],
     )
     return out
+
+
+def round_key_planes(round_keys: np.ndarray) -> np.ndarray:
+    """uint8[15,16] round keys → uint32[15,16,8] full-word bit masks."""
+    bits = (np.asarray(round_keys)[..., None] >> np.arange(8)) & 1
+    return (bits.astype(np.uint32) * 0xFFFFFFFF).astype(np.uint32)
+
+
+def make_rk_planes(key: bytes) -> np.ndarray:
+    return round_key_planes(key_expansion(key))
+
+
+def ctr_keystream_bitsliced(
+    rk_planes, iv, first_counter: int, n_blocks: int, *, device=None
+) -> torch.Tensor:
+    """Keystream uint8[n_blocks, 16] for one 12-byte IV, from the round keys'
+    bit planes (uint32[15, 16, 8] masks, numpy or tensor): one row of
+    `ctr_keystream_batch`, so a CUDA device launches the keystream kernel.
+    Runs on `device`, else the IV tensor's device, else `cuda:0`."""
+    from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, resolve_device
+
+    if device is None:
+        device = iv.device if isinstance(iv, torch.Tensor) else DEFAULT_DEVICE
+    device = resolve_device(device)
+    planes = rk_planes.cpu().numpy() if isinstance(rk_planes, torch.Tensor) else np.asarray(rk_planes)
+    round_keys = ((planes.astype(np.uint64) & 1) << np.arange(8, dtype=np.uint64)).sum(axis=-1)
+    ivs = iv.cpu().numpy() if isinstance(iv, torch.Tensor) else np.asarray(iv)
+    return ctr_keystream_batch(
+        torch.from_numpy(round_keys.astype(np.uint8)).to(device),
+        torch.from_numpy(ivs.astype(np.uint8).reshape(1, 12)).to(device),
+        first_counter, n_blocks,
+    )[0]

@@ -179,13 +179,16 @@ def _mod2_matmul(bits: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return ((bits.to(torch.float32) @ mat).to(torch.int32) & 1).to(torch.uint8)
 
 
-def _crc0_batch(data: torch.Tensor, levels: int) -> torch.Tensor:
+def _crc0_batch(data: torch.Tensor, levels: int, mats=None) -> torch.Tensor:
     """uint8[batch, chunk_bytes] on its device -> crc0 state bits
     uint8[batch, 32] (MSB first), through the leaf products and `levels`
-    tree levels."""
+    tree levels (`mats`: the (leaf, level matrices) to use, default this
+    device's cached ones)."""
     batch, chunk_bytes = data.shape
     n_blocks = chunk_bytes // 16
     leaf, level_mats, shifts = _device_consts(levels, data.device)
+    if mats is not None:
+        leaf, level_mats = mats
     blocks = data.reshape(batch * n_blocks, 16)
     vals = torch.empty((batch * n_blocks, 32), dtype=torch.uint8, device=data.device)
     for s in range(0, batch * n_blocks, _SLAB_BLOCKS):
@@ -226,6 +229,40 @@ def crc32c_chunks(data, device) -> np.ndarray:
     crc0_vals = (bits.to(torch.int64) * weights).sum(dim=1).cpu().numpy().astype(np.uint64)
     # crc(M) = crc0(M) ^ crc(0^len); crc(0^len) already includes init+xorout.
     return (crc0_vals ^ np.uint64(_length_offset(chunk_bytes))).astype(np.uint32)
+
+
+def crc32c_constants(chunk_bytes: int, device=None):
+    """Host-precomputed constants for `crc32c_chunks_device` at a chunk size,
+    placed on `device` (default `cuda:0`; pass "cpu" for the plain run):
+    (leaf float32[128, 32], level matrices float32[levels, 32, 32],
+    chunk_bytes, levels, the length offset as numpy uint32). The JAX
+    package's matrices are int8 for its MXU; these are the 0/1 float32
+    operands of this module's exact float matmuls."""
+    from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, resolve_device
+
+    if chunk_bytes % 16:
+        raise ValueError("chunk_bytes must be a multiple of 16")
+    levels = max(1, (chunk_bytes // 16 - 1).bit_length())
+    leaf, level_mats, _ = _device_consts(levels, resolve_device(device or DEFAULT_DEVICE))
+    return leaf, level_mats, chunk_bytes, levels, np.uint32(_length_offset(chunk_bytes))
+
+
+def crc32c_chunks_device(data, leaf_t, level_mats, chunk_bytes, levels, length_offset):
+    """Device-resident CRC32C: uint8[batch, chunk_bytes] -> int64[batch]
+    holding the uint32 CRCs, on the constants' device (unlike
+    `crc32c_chunks`, which returns them on the host). A numpy `data` is
+    copied there first."""
+    device = leaf_t.device
+    if isinstance(data, torch.Tensor):
+        rows = data.to(device)
+    else:
+        rows = torch.from_numpy(np.require(data, np.uint8, ["C", "W"])).to(device)
+    if tuple(rows.shape[1:]) != (chunk_bytes,):
+        raise ValueError(f"rows must be uint8[B, {chunk_bytes}], got {tuple(rows.shape)}")
+    bits = _crc0_batch(rows, levels, (leaf_t, level_mats))
+    weights = torch.ones(32, dtype=torch.int64, device=device) << torch.arange(
+        31, -1, -1, dtype=torch.int64, device=device)
+    return (bits.to(torch.int64) * weights).sum(dim=1) ^ int(length_offset)
 
 
 #: Below this many total bytes in a same-length group, a device launch costs

@@ -383,13 +383,14 @@ def _gcm_varlen_batch(
 
 # --- dispatch accounting ---
 
-#: Window-program launches issued by this module's packed entry points
-#: (each is keystream kernel + GHASH kernel + glue) and the payload-scale
-#: intermediates they planned. The process-wide launch total is guarded (the
+#: Window-program launches issued by this module's entry points (each is
+#: keystream kernel + GHASH kernel + glue) and the payload-scale
+#: intermediates they planned. The process-wide totals are guarded (the
 #: fetch tiers decrypt on pool threads, which would tear a bare increment);
 #: the per-thread counts are the backend's delta source, so one window never
 #: absorbs a sibling thread's launches into its own count.
 _DISPATCHES = [0]
+_ROUNDTRIPS = [0]
 _DISPATCH_MU = new_lock("gcm._DISPATCH_MU")
 _COUNTERS = threading.local()
 
@@ -406,25 +407,40 @@ def thread_dispatches() -> int:
     return getattr(_COUNTERS, "dispatches", 0)
 
 
+def device_hbm_roundtrips() -> int:
+    """Total payload-scale intermediates planned so far in this process, on
+    every thread."""
+    with _DISPATCH_MU:
+        return _ROUNDTRIPS[0]
+
+
 def thread_hbm_roundtrips() -> int:
     return getattr(_COUNTERS, "roundtrips", 0)
 
 
-def _count_dispatch(roundtrips: int) -> None:
+def _count_dispatch() -> None:
     with _DISPATCH_MU:
         _DISPATCHES[0] += 1
     _COUNTERS.dispatches = thread_dispatches() + 1
-    _COUNTERS.roundtrips = thread_hbm_roundtrips() + roundtrips
 
 
-def planned_hbm_roundtrips(ctx, rows: int) -> int:
+def _count_roundtrips(n: int) -> None:
+    with _DISPATCH_MU:
+        _ROUNDTRIPS[0] += n
+    _COUNTERS.roundtrips = thread_hbm_roundtrips() + n
+
+
+def planned_hbm_roundtrips(ctx, rows: int, *, packed: bool = True) -> int:
     """Payload-scale intermediates one window program writes to device memory
     besides its in-place output (static host logic that mirrors the branches
-    above; `rows` only decides tree eligibility):
+    above; `rows` is the rows ONE program runs — a member's rows under a
+    mesh — and only decides tree eligibility):
 
     - 1 — the keystream, written by the AES kernel and read by the XOR;
     - fixed windows: +1 for the GHASH input, copied from the packed rows
-      into the [B, G*K] layout the kernels read;
+      into the [B, G*K] layout the kernels read (``packed=False``, the
+      op-level entry points' contiguous rows, copy only to left-pad to
+      whole groups);
     - varlen windows: +2 for the assembled and the rotated sequence, and +1
       more when the sequence must be left-padded to whole groups;
     - +1 per ladder level ≥ 2 when the tree kernel does not engage (a
@@ -436,12 +452,104 @@ def planned_hbm_roundtrips(ctx, rows: int) -> int:
     count = 1
     if varlen:
         count += 2 + (1 if g * k1 != m else 0)
-    else:
+    elif packed or g * k1 != m:
         count += 1
     tree = ctx.step_mat is not None and g > 1 and use_ghash_tree(rows, g, k1 * 16)
     if not tree:
         count += len(ctx.agg_mats) - 1
     return count
+
+
+# --- op-level entry points (host arrays in, tensors out) ---
+
+
+def _op_device(array, device) -> torch.device:
+    """Where an op-level call runs: `device` when given, else a tensor
+    argument's own device, else `cuda:0` (without CUDA that raises; pass
+    device="cpu" for the plain versions)."""
+    from tieredstorage_tpu_torch.transform.api import DEFAULT_DEVICE, resolve_device
+
+    if device is None:
+        device = array.device if isinstance(array, torch.Tensor) else DEFAULT_DEVICE
+    return resolve_device(device)
+
+
+def _rows_on(array, device: torch.device) -> torch.Tensor:
+    """A fresh uint8 tensor of `array`'s rows on `device` (the programs write
+    their output in place, so the caller's array is never aliased)."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device=device, dtype=torch.uint8, copy=True)
+    return torch.from_numpy(np.array(array, dtype=np.uint8)).to(device)
+
+
+def _chunks(ctx: GcmContext, ivs, data, device, *, decrypt: bool):
+    device = _op_device(data, device)
+    rows = _rows_on(data, device)
+    if rows.dim() != 2 or rows.shape[1] != ctx.chunk_bytes:
+        raise ValueError(f"chunks must be uint8[B, {ctx.chunk_bytes}], got {tuple(rows.shape)}")
+    dc = _device_consts(ctx, device)
+    _count_dispatch()
+    _count_roundtrips(planned_hbm_roundtrips(ctx, rows.shape[0], packed=False))
+    tags = _gcm_process_batch(
+        dc, _rows_on(ivs, device), rows, chunk_bytes=ctx.chunk_bytes,
+        n_blocks=ctx.n_blocks, decrypt=decrypt,
+    )
+    return rows, tags
+
+
+def gcm_encrypt_chunks(ctx: GcmContext, ivs, plaintext, *, device=None):
+    """plaintext uint8[B, ctx.chunk_bytes], ivs uint8[B, 12] ->
+    (ciphertext uint8[B, chunk_bytes], tags uint8[B, 16]) as tensors on
+    the device the call ran on (`device`, else the input tensor's, else
+    `cuda:0`). One dispatch: the CUDA keystream and GHASH kernels."""
+    return _chunks(ctx, ivs, plaintext, device, decrypt=False)
+
+
+def gcm_decrypt_chunks(ctx: GcmContext, ivs, ciphertext, *, device=None):
+    """Returns (plaintext uint8[B, chunk_bytes], expected_tags uint8[B, 16]).
+    The caller compares expected_tags against the received tags."""
+    return _chunks(ctx, ivs, ciphertext, device, decrypt=True)
+
+
+def _host_len_blocks(ctx: GcmVarlenContext, lengths: np.ndarray) -> np.ndarray:
+    out = np.zeros((len(lengths), 16), dtype=np.uint8)
+    for i, n in enumerate(lengths):
+        out[i] = np.frombuffer(
+            ctx.aad_bit_len.to_bytes(8, "big") + (int(n) * 8).to_bytes(8, "big"),
+            dtype=np.uint8,
+        )
+    return out
+
+
+def _run_varlen(ctx: GcmVarlenContext, ivs, data, lengths, decrypt: bool, device=None):
+    device = _op_device(data, device)
+    lengths = np.asarray(
+        lengths.cpu().numpy() if isinstance(lengths, torch.Tensor) else lengths, dtype=np.int64
+    )
+    rows = _rows_on(data, device)
+    if rows.dim() != 2 or rows.shape[1] != ctx.max_bytes:
+        raise ValueError(f"rows must be uint8[B, {ctx.max_bytes}], got {tuple(rows.shape)}")
+    dc = _device_consts(ctx, device)
+    _count_dispatch()
+    _count_roundtrips(planned_hbm_roundtrips(ctx, len(lengths)))
+    tags = _gcm_varlen_batch(
+        dc, _rows_on(ivs, device), rows, torch.from_numpy(lengths).to(device),
+        torch.from_numpy(_host_len_blocks(ctx, lengths)).to(device),
+        max_bytes=ctx.max_bytes, m_max=ctx.m_max, m_a=ctx.aad_blocks.shape[0],
+        m_cap=ctx.m_cap, decrypt=decrypt,
+    )
+    return rows, tags
+
+
+def gcm_encrypt_varlen(ctx: GcmVarlenContext, ivs, plaintext, lengths, *, device=None):
+    """plaintext uint8[B, ctx.max_bytes] (rows zero-padded past their length)
+    -> (masked ciphertext, tags) as tensors (device as `gcm_encrypt_chunks`)."""
+    return _run_varlen(ctx, ivs, plaintext, lengths, decrypt=False, device=device)
+
+
+def gcm_decrypt_varlen(ctx: GcmVarlenContext, ivs, ciphertext, lengths, *, device=None):
+    """Returns (plaintext, expected_tags) — caller verifies tags."""
+    return _run_varlen(ctx, ivs, ciphertext, lengths, decrypt=True, device=device)
 
 
 # --- packed windows (the transform backend's path) ---
@@ -453,22 +561,14 @@ def _window_target(data_packed: torch.Tensor, donate: bool) -> torch.Tensor:
     return data_packed if donate else data_packed.clone()
 
 
-def gcm_window_packed(
-    ctx: GcmContext, ivs, data_packed: torch.Tensor, *, decrypt: bool,
-    donate: bool = False,
-) -> torch.Tensor:
-    """Fixed-size window: data_packed uint8[B, chunk_bytes + 16] -> packed
-    uint8[B, chunk_bytes + 16] where row i is `output_i || tag_i`. With
-    ivs=None the per-row IV is read from the tail (bytes [chunk_bytes,
-    chunk_bytes + 12)); otherwise the tail is ignored. The tag is over the
-    ciphertext in both directions (expected tag on decrypt; the caller
-    verifies). `donate=True` writes the result into data_packed itself."""
+def _fixed_window(ctx: GcmContext, ivs, data_packed: torch.Tensor, *, decrypt: bool,
+                  donate: bool) -> torch.Tensor:
+    """One fixed-size window program on one device (uncounted)."""
     n = ctx.chunk_bytes
     if data_packed.shape[1] != n + TAG_SIZE:
         raise ValueError(f"packed width {data_packed.shape[1]} != {n + TAG_SIZE}")
     device = data_packed.device
     dc = _device_consts(ctx, device)
-    _count_dispatch(planned_hbm_roundtrips(ctx, data_packed.shape[0]))
     if ivs is None:
         ivs = data_packed[:, n : n + 12].contiguous()
     else:
@@ -481,21 +581,14 @@ def gcm_window_packed(
     return target
 
 
-def gcm_varlen_window_packed(
-    ctx: GcmVarlenContext, ivs, data_packed: torch.Tensor, lengths, *,
-    decrypt: bool, donate: bool = False,
-) -> torch.Tensor:
-    """Variable-length window: data_packed uint8[B, max_bytes + 16] (rows
-    left-aligned with a ZERO payload tail — GHASH requires it) -> packed
-    `masked output || tag` rows. With ivs=None and lengths=None the per-row
-    metadata rides the tail ([iv 12 B][length u32 LE 4 B]) and the GCM
-    length blocks are rebuilt on the device."""
+def _varlen_window(ctx: GcmVarlenContext, ivs, data_packed: torch.Tensor, lengths, *,
+                   decrypt: bool, donate: bool) -> torch.Tensor:
+    """One variable-length window program on one device (uncounted)."""
     mb = ctx.max_bytes
     if data_packed.shape[1] != mb + TAG_SIZE:
         raise ValueError(f"packed width {data_packed.shape[1]} != {mb + TAG_SIZE}")
     device = data_packed.device
     dc = _device_consts(ctx, device)
-    _count_dispatch(planned_hbm_roundtrips(ctx, data_packed.shape[0]))
     if ivs is None:
         ivs = data_packed[:, mb : mb + 12].contiguous()
     else:
@@ -513,3 +606,106 @@ def gcm_varlen_window_packed(
     )
     target[:, mb:] = tags
     return target
+
+
+def _require_tail_metadata(*side_args) -> None:
+    if any(a is not None for a in side_args):
+        raise ValueError(
+            "sharded packed windows read per-row metadata from the packed "
+            "tail columns: pass ivs=None (and lengths=None) so the window "
+            "crosses the host->device link as one row-sharded buffer"
+        )
+
+
+def _sharded(mesh, ctx, program):
+    """Run `program(shard)` on every member of `mesh` over its own rows (the
+    JAX package's shard_map over the row axis). Every row is independent —
+    keystream, XOR, GHASH and tag are row-local — so no collective is
+    needed. The constants are made per device before the fan-out (members
+    on one device share them), on the caller's stream, which each member's
+    stream waits for."""
+    from tieredstorage_tpu_torch.parallel.mesh import run_on_members
+
+    def run(shards):
+        for device in dict.fromkeys(mesh.devices):
+            _device_consts(ctx, device)
+        return run_on_members(mesh, program, shards)
+
+    return run
+
+
+def _packed_fixed_sharded(mesh, ctx: GcmContext, *, decrypt: bool, donate: bool):
+    """`gcm_window_packed` fanned out over a mesh: each member's program
+    writes its output into its own staged rows, so a donated window stays
+    donated at any mesh size."""
+    return _sharded(mesh, ctx, lambda shard: _fixed_window(
+        ctx, None, shard, decrypt=decrypt, donate=donate))
+
+
+def _packed_varlen_sharded(mesh, ctx: GcmVarlenContext, *, decrypt: bool, donate: bool):
+    """Varlen counterpart of `_packed_fixed_sharded`: per-row lengths ride
+    the packed tail, so each member rebuilds its own GCM length blocks and
+    no exchange between members is needed."""
+    return _sharded(mesh, ctx, lambda shard: _varlen_window(
+        ctx, None, shard, None, decrypt=decrypt, donate=donate))
+
+
+def _mesh_shards(mesh, data_packed) -> list:
+    from tieredstorage_tpu_torch.parallel.mesh import shard_rows
+
+    if isinstance(data_packed, torch.Tensor):
+        return shard_rows(mesh, data_packed)
+    shards = list(data_packed)
+    if len(shards) != mesh.size or len({s.shape[0] for s in shards}) != 1:
+        raise ValueError(f"a split window needs {mesh.size} shards of equal rows")
+    return shards
+
+
+def gcm_window_packed(
+    ctx: GcmContext, ivs, data_packed, *, decrypt: bool, donate: bool = False,
+    mesh=None,
+):
+    """Fixed-size window: data_packed uint8[B, chunk_bytes + 16] -> packed
+    uint8[B, chunk_bytes + 16] where row i is `output_i || tag_i`. With
+    ivs=None the per-row IV is read from the tail (bytes [chunk_bytes,
+    chunk_bytes + 12)); otherwise the tail is ignored. The tag is over the
+    ciphertext in both directions (expected tag on decrypt; the caller
+    verifies). `donate=True` writes the result into data_packed itself.
+
+    With `mesh` (a `parallel.mesh.DeviceMesh`; metadata in the tail) the
+    window is row-split over the members: data_packed is the list of
+    per-member shards (`shard_rows`), or a tensor to split, and the result
+    is the list of per-member outputs in row order. It is ONE logical
+    dispatch at any mesh size; `_cuda.LAUNCHES` counts each member's
+    kernel launches."""
+    if mesh is not None:
+        _require_tail_metadata(ivs)
+        shards = _mesh_shards(mesh, data_packed)
+        _count_dispatch()
+        _count_roundtrips(planned_hbm_roundtrips(ctx, shards[0].shape[0]))
+        return _packed_fixed_sharded(mesh, ctx, decrypt=decrypt, donate=donate)(shards)
+    _count_dispatch()
+    _count_roundtrips(planned_hbm_roundtrips(ctx, data_packed.shape[0]))
+    return _fixed_window(ctx, ivs, data_packed, decrypt=decrypt, donate=donate)
+
+
+def gcm_varlen_window_packed(
+    ctx: GcmVarlenContext, ivs, data_packed, lengths, *,
+    decrypt: bool, donate: bool = False, mesh=None,
+):
+    """Variable-length window: data_packed uint8[B, max_bytes + 16] (rows
+    left-aligned with a ZERO payload tail — GHASH requires it) -> packed
+    `masked output || tag` rows. With ivs=None and lengths=None the per-row
+    metadata rides the tail ([iv 12 B][length u32 LE 4 B]) and the GCM
+    length blocks are rebuilt on the device. Same single-dispatch, donation
+    and `mesh` contract as `gcm_window_packed` (split windows require the
+    tail-metadata form)."""
+    if mesh is not None:
+        _require_tail_metadata(ivs, lengths)
+        shards = _mesh_shards(mesh, data_packed)
+        _count_dispatch()
+        _count_roundtrips(planned_hbm_roundtrips(ctx, shards[0].shape[0]))
+        return _packed_varlen_sharded(mesh, ctx, decrypt=decrypt, donate=donate)(shards)
+    _count_dispatch()
+    _count_roundtrips(planned_hbm_roundtrips(ctx, data_packed.shape[0]))
+    return _varlen_window(ctx, ivs, data_packed, lengths, decrypt=decrypt, donate=donate)

@@ -28,7 +28,6 @@ from typing import Optional
 
 import grpc
 
-from tieredstorage_tpu_torch.config.configdef import ConfigException
 from tieredstorage_tpu_torch.errors import RemoteResourceNotFoundException
 from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
 from tieredstorage_tpu_torch.metadata import LogSegmentData
@@ -284,22 +283,24 @@ def main(argv: Optional[list[str]] = None) -> None:
     )
     parser.add_argument(
         "--virtual-cpu-devices", type=int, default=None, metavar="N",
-        help="The JAX sidecar's virtual-device pin; not yet ported, so "
-             "giving it is refused.",
+        help="Pin the port to the CPU with N virtual CPU members before "
+             "serving (host-only deployments): the transform runs on the "
+             "CPU (transform.device=cpu) and its windows split over the N "
+             "members (transform.mesh.devices, default all).",
     )
     args = parser.parse_args(argv)
 
-    # The virtual-device pin has no twin in this package yet: refuse it by
-    # name rather than ignore it.
+    configs = json.loads(pathlib.Path(args.config).read_text())
     if args.virtual_cpu_devices is not None:
-        raise ConfigException(
-            "--virtual-cpu-devices is not yet ported to tieredstorage_tpu_torch"
-        )
+        from tieredstorage_tpu_torch.utils.platforms import pin_virtual_cpu
+
+        pin_virtual_cpu(args.virtual_cpu_devices)
+        configs["transform.device"] = "cpu"
 
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
 
     rsm = RemoteStorageManager()
-    rsm.configure(json.loads(pathlib.Path(args.config).read_text()))
+    rsm.configure(configs)
     if args.fleet_peers:
         from tieredstorage_tpu_torch.fleet import parse_instances
 

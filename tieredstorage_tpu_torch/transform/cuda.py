@@ -31,8 +31,21 @@ plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
 `configure`, never falls back. Cross-request batching
 (`transform.batch.enabled`) runs windows of concurrent requests through the
 work-class device scheduler (transform/batcher.py): concurrent windows that
-share a data key coalesce into one merged varlen launch. Multi-GPU meshes
-(`transform.mesh.devices` > 1) are not yet ported and are refused.
+share a data key coalesce into one merged varlen launch.
+
+A window can be split over a mesh of devices (`transform.mesh.devices`,
+parallel/mesh.py): every GPU by default, 1 for one device, n for the first
+n. Each member runs the same window program on its own rows, on its own
+stream: the rows are padded to a multiple of the mesh size on the device,
+each member's rows are copied to its device, and each member copies its
+output back into its rows of the pinned buffer; the window is ready when
+every member's event is. It stays one logical dispatch, one host→device
+and one device→host transfer in `DispatchStats`. `transform.device` is
+where a one-member plan runs; a plan of several members runs on its
+members, and `transform.device` must be its first member (else the plan's
+resolution raises, naming both keys). A caller may pass a plan whose
+members repeat one device (`CudaTransformBackend(mesh=...)`): that is how a
+split runs on one card.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ from tieredstorage_tpu_torch.ops.gcm import (
     make_context,
     make_varlen_context,
 )
+from tieredstorage_tpu_torch.parallel.mesh import MeshPlan
 from tieredstorage_tpu_torch.security.aes import IV_SIZE, TAG_SIZE
 from tieredstorage_tpu_torch.transform.api import (
     DEFAULT_DEVICE,
@@ -93,9 +107,12 @@ class DispatchStats:
     #: Payload-scale intermediates the window programs wrote to device memory
     #: (ops.gcm.planned_hbm_roundtrips).
     hbm_roundtrips: int = 0
-    #: Staged window buffers the program wrote its output into.
+    #: Staged window buffers the program wrote its output into (under a
+    #: mesh: every member's output into its own staged rows).
     donated_buffers: int = 0
-    #: Rows of the last staged window.
+    #: Mesh accounting of the LAST staged window: how many members the one
+    #: logical dispatch fanned out across, and the padded rows of each.
+    mesh_size: int = 1
     rows_per_device: int = 0
 
     @property
@@ -177,26 +194,41 @@ def _spanned(name: str, count=len, n_bytes=None):
     return deco
 
 
+class _MemberEvents:
+    """The events of a split window's device→host copies, one per CUDA
+    member: ready when every one is."""
+
+    def __init__(self, events: list) -> None:
+        self.events = events
+
+    def synchronize(self) -> None:
+        for event in self.events:
+            event.synchronize()
+
+
 @dataclasses.dataclass
 class _StagedWindow:
     ivs: np.ndarray
     sizes: list
     n_bytes: int
     host: torch.Tensor                 # staging buffer; holds the result when ready
-    out: torch.Tensor                  # device result (the staged buffer itself)
-    ready: Optional[object] = None     # torch.cuda.Event after the device→host copy
+    out: object                        # device result (the staged buffer itself;
+                                       # under a mesh, the list of member outputs)
+    ready: Optional[object] = None     # event(s) after the device→host copy
 
 
 class CudaTransformBackend(TransformBackend):
     #: Optional decrypt-retention hook (`fetch/cache/device_hot.py`'s
     #: ``offer_decrypt_window``): called on the decrypting thread with
-    #: ``(out, sizes, n_bytes)`` after each VERIFIED decrypt
+    #: ``(out, sizes, n_bytes, mesh_size)`` after each VERIFIED decrypt
     #: window, while the packed ``output || tags`` tensor is still in device
     #: memory, so the hot tier can retain it without a second decrypt. On
     #: CUDA ``out`` is the window's own staged tensor: allocated fresh per
     #: window and never pooled, so no later launch writes it. On the CPU the
     #: staged window is the pooled host staging buffer, which the next
-    #: window of the same shape overwrites, so the hook gets a copy.
+    #: window of the same shape overwrites, so the hook gets a copy. Under a
+    #: mesh ``out`` is the list of member outputs (padded rows, each on its
+    #: member's device) in row order.
     on_decrypt_window = None
 
     preferred_batch_chunks = 256
@@ -210,8 +242,17 @@ class CudaTransformBackend(TransformBackend):
     #: hands in its configured tracer.
     tracer = NOOP_TRACER
 
-    def __init__(self, device=None):
-        self._device_spec = DEFAULT_DEVICE if device is None else str(device)
+    def __init__(self, device=None, mesh=None):
+        # `mesh` takes a prebuilt plan, `DeviceMesh` or member list (tests,
+        # the drill, and a split on one card whose members repeat one
+        # device); without one a directly built backend stays on one device.
+        # `configure` instead records a `transform.mesh.devices` spec —
+        # default every local device — resolved at the first staged window.
+        self._plan: Optional[MeshPlan] = MeshPlan.wrap(mesh)
+        self._mesh_spec = None
+        if device is None:
+            device = self._plan.members[0] if self._plan.members else DEFAULT_DEVICE
+        self._device_spec = str(device)
         self._device: Optional[torch.device] = None
         self._stats_lock = new_lock("cuda.CudaTransformBackend._stats_lock")
         self.dispatch_stats = DispatchStats()
@@ -231,12 +272,13 @@ class CudaTransformBackend(TransformBackend):
         return self._device
 
     def configure(self, configs: dict) -> None:
+        configs = dict(configs)
+        spec = configs.get("mesh.devices")
+        if isinstance(spec, str) and spec.strip().lower() in ("", "all"):
+            configs["mesh.devices"] = 0  # "all" = every local device, as 0
         values = _definition().parse(configs)
-        if values["mesh.devices"] > 1:
-            raise ConfigException(
-                "transform.mesh.devices > 1: multi-GPU windows are not yet ported "
-                "to tieredstorage_tpu_torch"
-            )
+        self._mesh_spec = values["mesh.devices"]
+        self._plan = None  # resolved at the first staged window
         self.preferred_batch_chunks = values["batch.chunks"]
         self.preferred_batch_bytes = values["batch.bytes"]
         self.pipeline_depth = values["pipeline.depth"]
@@ -273,6 +315,30 @@ class CudaTransformBackend(TransformBackend):
                 **kwargs,
             ).start()
         return self.batcher
+
+    def reset_dispatch_stats(self) -> DispatchStats:
+        """Swap in fresh counters; returns the retired snapshot."""
+        with self._stats_lock:
+            retired = self.dispatch_stats
+            self.dispatch_stats = DispatchStats()
+        return retired
+
+    def mesh_plan(self) -> MeshPlan:
+        """The resolved split plan (made on first use from the
+        `transform.mesh.devices` spec, over the local devices of
+        `transform.device`'s platform). A plan of several members must have
+        `transform.device` as its first member."""
+        if self._plan is None:
+            self._plan = MeshPlan.from_spec(self._mesh_spec, platform=self.device.type)
+        plan = self._plan
+        if plan.members and plan.members[0] != self.device:
+            raise ConfigException(
+                f"transform.mesh.devices: the plan over {[str(d) for d in plan.members]} "
+                f"does not start at transform.device={self.device}; set "
+                f"transform.mesh.devices=1 to run on {self.device} alone, or "
+                f"transform.device={plan.members[0]}"
+            )
+        return plan
 
     @staticmethod
     def thread_dispatch_counters() -> tuple[int, int]:
@@ -446,46 +512,111 @@ class CudaTransformBackend(TransformBackend):
         )
         return host
 
-    def _stage_packed(self, host: torch.Tensor) -> torch.Tensor:
+    def _stage_packed(self, host: torch.Tensor, varlen: bool = True):
         """Ship one packed window to the device — the window's single
-        host→device copy (on the CPU the staging buffer is the window)."""
-        device = self.device
-        if device.type == "cuda":
-            staged = torch.empty(host.shape, dtype=torch.uint8, device=device)
-            staged.copy_(host, non_blocking=True)
+        host→device transfer (on the CPU the staging buffer is the window).
+        Under a mesh the rows are padded to a multiple of the mesh size and
+        each member's rows are copied to its device on its stream: the
+        result is the list of per-member shards. Padding rows are made on
+        the device (zero, and for varlen one 16-byte block in the length
+        tail: zero-length rows are outside the varlen contract) and never
+        reach the host buffer."""
+        plan = self.mesh_plan()
+        rows = host.shape[0]
+        if plan.mesh is None:
+            if self.device.type == "cuda":
+                staged = torch.empty(host.shape, dtype=torch.uint8, device=self.device)
+                staged.copy_(host, non_blocking=True)
+            else:
+                staged = host
         else:
-            staged = host
+            staged = self._split_rows(plan, host, varlen)
         with self._stats_lock:
             self.dispatch_stats.h2d_transfers += 1
-            self.dispatch_stats.rows_per_device = host.shape[0]
+            self.dispatch_stats.mesh_size = plan.size
+            self.dispatch_stats.rows_per_device = plan.rows_per_device(rows)
             note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return staged
 
+    @staticmethod
+    def _split_rows(plan: MeshPlan, host: torch.Tensor, varlen: bool) -> list:
+        rows, width = host.shape
+        per = plan.rows_per_device(rows)
+        shards = []
+        for i, device in enumerate(plan.members):
+            lo = i * per
+            real = max(0, min(per, rows - lo))
+            if device.type == "cpu" and real == per:
+                shards.append(host[lo : lo + per])  # a view: written in place
+                continue
+            with plan.mesh.member(i):
+                shard = torch.empty((per, width), dtype=torch.uint8, device=device)
+                if real:
+                    shard[:real].copy_(host[lo : lo + real], non_blocking=True)
+                if real < per:
+                    shard[real:] = 0
+                    if varlen:
+                        shard[real:, width - TAG_SIZE + IV_SIZE] = 16
+            shards.append(shard)
+        return shards
+
     def _launch_packed(
-        self, ctx, host: torch.Tensor, staged: torch.Tensor, varlen: bool, *,
-        decrypt: bool,
+        self, ctx, host: torch.Tensor, staged, varlen: bool, *, decrypt: bool,
     ):
         """ONE window program for a staged window, its output written into the
         staged buffer; then the device→host copy back into the staging
-        buffer and the event that marks it ready."""
+        buffer and the event that marks it ready. Under a mesh the program
+        runs on every member over its shard and each member copies its real
+        rows back on its own stream; the window is ready when every
+        member's event is."""
+        mesh = self.mesh_plan().mesh
         before = gcm_ops.thread_dispatches()
         rt_before = gcm_ops.thread_hbm_roundtrips()
         if varlen:
-            out = gcm_varlen_window_packed(ctx, None, staged, None, decrypt=decrypt, donate=True)
+            out = gcm_varlen_window_packed(
+                ctx, None, staged, None, decrypt=decrypt, donate=True, mesh=mesh)
         else:
-            out = gcm_window_packed(ctx, None, staged, decrypt=decrypt, donate=True)
+            out = gcm_window_packed(ctx, None, staged, decrypt=decrypt, donate=True, mesh=mesh)
         ready = None
-        if out.device.type == "cuda":
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(out.device))
+        if mesh is not None:
+            donated = all(o.data_ptr() == s.data_ptr() for o, s in zip(out, staged))
+            ready = self._gather_rows(mesh, host, out)
+        else:
+            donated = out.data_ptr() == staged.data_ptr()
+            if out.device.type == "cuda":
+                host.copy_(out, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(out.device))
         with self._stats_lock:
             self.dispatch_stats.dispatches += gcm_ops.thread_dispatches() - before
             self.dispatch_stats.hbm_roundtrips += gcm_ops.thread_hbm_roundtrips() - rt_before
-            if out.data_ptr() == staged.data_ptr():
+            if donated:
                 self.dispatch_stats.donated_buffers += 1
             note_mutation("cuda.CudaTransformBackend.dispatch_stats")
         return out, ready
+
+    @staticmethod
+    def _gather_rows(mesh, host: torch.Tensor, outs: list) -> Optional[_MemberEvents]:
+        """Each member's real rows back into its rows of the host buffer: a
+        CUDA member copies on its own stream and records its event; a CPU
+        member whose shard was a view already wrote them in place."""
+        rows = host.shape[0]
+        events = []
+        for i, out in enumerate(outs):
+            lo = i * out.shape[0]
+            real = max(0, min(out.shape[0], rows - lo))
+            if not real:
+                continue
+            if out.device.type == "cpu":
+                if out.data_ptr() != host[lo].data_ptr():
+                    host[lo : lo + real].copy_(out[:real])
+                continue
+            with mesh.member(i):
+                host[lo : lo + real].copy_(out[:real], non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(mesh.streams[i])
+            events.append(event)
+        return _MemberEvents(events) if events else None
 
     def _run_window(self, enc, payloads, sizes, ivs, *, decrypt: bool) -> _StagedWindow:
         varlen = len(set(sizes)) != 1
@@ -498,10 +629,10 @@ class CudaTransformBackend(TransformBackend):
         host = self._build_packed(payloads, sizes, ivs, n_bytes, varlen)
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
-                staged = self._stage_packed(host)
+                staged = self._stage_packed(host, varlen)
                 out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
         else:
-            staged = self._stage_packed(host)
+            staged = self._stage_packed(host, varlen)
             out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
         with self._stats_lock:
             self.dispatch_stats.windows += 1
@@ -624,11 +755,20 @@ class CudaTransformBackend(TransformBackend):
                 raise AuthenticationError(f"GCM tag mismatch on chunks {bad}")
             hook = self.on_decrypt_window
             if hook is not None:
-                out = staged.out if staged.out.device.type == "cuda" else staged.out.clone()
-                hook(out, sizes, n_bytes)
+                hook(_retainable(staged.out), sizes, n_bytes, self.mesh_plan().size)
             return [host[i, : sizes[i]].tobytes() for i in range(len(sizes))]
         finally:
             self._staging.release(staged.host)
+
+
+def _retainable(out):
+    """A decrypt window's output as the hot tier may keep it: CUDA tensors
+    as they are (allocated per window, never pooled); CPU ones copied, since
+    they are — or were copied back into — the pooled host staging buffer,
+    which the next window of the same shape overwrites."""
+    if isinstance(out, list):
+        return [_retainable(o) for o in out]
+    return out if out.device.type == "cuda" else out.clone()
 
 
 def _definition():
@@ -685,7 +825,12 @@ def _definition():
     d.define(ConfigKey(
         "mesh.devices", "int", default=0, validator=in_range(0, None),
         importance="medium",
-        doc="Devices one window spans: 0 or 1 = the one device above; more "
-            "is not yet ported and is refused.",
+        doc="Split every packed window's rows over a mesh of this many local "
+            "devices (GPUs, or the pinned virtual CPU members): 0 (default, "
+            "also 'all') = every local device, 1 = transform.device alone "
+            "(exactly the unsplit path), n = the first n (resolution fails "
+            "at the first window when fewer are attached). A plan of several "
+            "members must start at transform.device. One window stays ONE "
+            "logical dispatch at any mesh size.",
     ))
     return d
