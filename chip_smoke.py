@@ -241,6 +241,21 @@ Phases, in order, each printing its seconds:
              16 x 4 MiB encrypt window's program at 1, 2 and 4 members and of
              the op-level `gcm_encrypt_chunks` on the same rows, whose
              outputs and tags must all equal the one-member window's.
+15. tooling — (a) `python -m tieredstorage_tpu_torch.analysis` over the
+             checkout as a child, its JSON report under the --out directory:
+             exit 0, no unsuppressed finding, no stale suppression, the
+             drift gate's docs regenerated here (no note), non-empty
+             device-dispatch closures; (b) a child with TSTPU_LOCK_WITNESS=1
+             drives a fleet-mode RSM of one member on cuda:0 with phase 6's
+             batcher over the filesystem store: a 256 MiB segment (cut from
+             1 GiB for time) copied, read whole and in 16 seeded 1 MiB
+             ranges from 4 threads at once, all equal to the source, then
+             `fleet_ping(include_witness=True)`: no lock-order or race
+             violation, the backend's DispatchStats and the batcher's
+             mutation sites observed, AES and the GHASH tree launched, and
+             one device->host copy per window program
+             (d2h_fetches = dispatches = h2d_transfers = windows less the
+             windows that shared a merged flush).
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -4175,6 +4190,148 @@ def mesh_phase(seed: int, work: Path, device: str = "cuda:0") -> dict:
     return rec
 
 
+#: Phase 15 (b)'s segment: 256 MiB, cut from 1 GiB for time.
+TOOLING_CUT_BYTES = 256 * MIB
+
+
+def _analysis_child(out_dir: Path) -> dict:
+    """Phase 15 (a): `python -m tieredstorage_tpu_torch.analysis` over the
+    checkout, as a child: every checker, the port's suppression file, the
+    drift gate regenerating docs/torch/*.rst on this machine."""
+    from tieredstorage_tpu_torch.analysis import dispatch
+    from tieredstorage_tpu_torch.analysis.core import load_project
+
+    report = out_dir / "analysis.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "tieredstorage_tpu_torch.analysis", "--json", str(report), "-q"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t
+    check(res.returncode == 0, f"analysis: exit {res.returncode}:\n{res.stdout[-3000:]}")
+    data = json.loads(report.read_text())
+    summary = data["summary"]
+    check(summary["ok"] and summary["unsuppressed"] == 0 and summary["stale_suppressions"] == 0,
+          f"analysis: not clean: {summary}")
+    check(not any("not re-generated" in note for note in data["notes"]),
+          f"analysis: the drift gate did not regenerate the docs: {data['notes']}")
+    per_checker = dict.fromkeys(data["checkers"], 0)
+    for finding in data["findings"]:
+        per_checker[finding["checker"]] += 1
+    project = load_project(REPO)
+    closure, _ = dispatch.build_closure(project)
+    window, _ = dispatch.build_closure(project, dispatch.WINDOW_CLOSURE_ROOTS)
+    check(closure and window, "analysis: the device-dispatch closures are empty")
+    check(per_checker.get("deadline", 0) > 0, "analysis: deadline saw no request-path wait")
+    return {"seconds": seconds, "files_scanned": data["files_scanned"],
+            "findings": summary["total"], "suppressed": summary["suppressed"],
+            "findings_per_checker": per_checker, "notes": data["notes"],
+            "dispatch_closure_functions": len(closure), "window_closure_functions": len(window)}
+
+
+def _tooling_drive(seed: int, work: str, segment_bytes: int, device: str = "cuda:0") -> dict:
+    """Phase 15 (b), in a child with the witness armed: a fleet-mode RSM of
+    one member with phase 6's batcher over the filesystem store copies a
+    segment, reads it whole, makes 16 seeded 1 MiB ranged reads from 4
+    threads at once, then answers `fleet_ping(include_witness=True)`."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+    from tieredstorage_tpu_torch.utils import locks
+
+    check(locks.witness_enabled(), "tooling: the child's witness is not armed")
+    work = Path(work)
+    pub, priv = generate_key_pair_pem_files(work, prefix="tooling")
+    seg, store = work / "segment", work / "store"
+    seg.mkdir()
+    store.mkdir()
+    md, sd, files, _ = write_segment(seg, seed + 71, segment_bytes)
+    source = files["log"].read_bytes()
+    rsm = RemoteStorageManager()
+    rsm.configure(_rsm_configs(store, pub, priv, device, {
+        **SIDECAR_BATCH, "fleet.enabled": True, "fleet.instance.id": "solo"}))
+    _cuda.reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        rsm.copy_log_segment_data(md, sd)
+        copy_s = time.perf_counter() - t
+        t = time.perf_counter()
+        check(_read_range(rsm, md, 0) == source, "tooling: the whole read differs from the source")
+        fetch_s = time.perf_counter() - t
+        offsets = [int(o) for o in
+                   np.random.default_rng(seed + 73).integers(0, segment_bytes - MIB, 16)]
+        parts: dict = {}
+
+        def reader(mine):
+            for off in mine:
+                parts[off] = _read_range(rsm, md, off, off + MIB - 1)
+
+        t = time.perf_counter()
+        errors = _run_threads([lambda mine=offsets[i::4]: reader(mine) for i in range(4)])
+        ranged_s = time.perf_counter() - t
+        check(not errors, f"tooling: ranged readers failed: {errors[:1]}")
+        for off in offsets:
+            check(parts[off] == source[off : off + MIB], f"tooling: ranged read at {off} differs")
+        t = time.perf_counter()
+        ping = rsm.fleet_ping(include_witness=True)
+        ping_s = time.perf_counter() - t
+        backend = rsm.transform_backend
+        stats = backend.dispatch_stats.as_dict()
+        batcher = _batcher_counts(backend.batcher)
+    finally:
+        rsm.close()
+    return {"copy_s": copy_s, "fetch_s": fetch_s, "ranged_s": ranged_s, "ping_s": ping_s,
+            "witness": ping["witness"], "dispatch_stats": stats, "batcher": batcher,
+            "launches": _cuda.launch_counts()}
+
+
+def tooling_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") -> dict:
+    """Phase 15: (a) the static analysis over the checkout; (b) the race
+    model's runtime half judging a witnessed drive of the main path."""
+    rec = {"analysis": _analysis_child(out_dir)}
+    env = dict(os.environ, PYTHONPATH=str(REPO), TSTPU_LOCK_WITNESS="1")
+    work.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print('TOOLING ' + json.dumps("
+         "chip_smoke._tooling_drive(int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), "
+         "sys.argv[4])))", str(seed), str(work), str(TOOLING_CUT_BYTES), device],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600)
+    check(res.returncode == 0, f"tooling: the witnessed child failed:\n{res.stdout[-3000:]}")
+    drive = json.loads(next(x for x in res.stdout.splitlines() if x.startswith("TOOLING "))[8:])
+    witness = drive["witness"]
+    check(witness["enabled"], "tooling: the ping says the witness is off")
+    check(witness["lock_violations"] == [], f"tooling: lock-order violations {witness['lock_violations']}")
+    check(witness["race_violations"] == [], f"tooling: race violations {witness['race_violations']}")
+    observed = set(witness["race_sites_observed"])
+    check("cuda.CudaTransformBackend.dispatch_stats" in observed,
+          f"tooling: the backend's DispatchStats site was not observed: {sorted(observed)}")
+    check(any(site.startswith("batcher.WindowBatcher.") for site in observed),
+          f"tooling: no batcher site was observed: {sorted(observed)}")
+    _gcm_launched(drive["launches"], "tooling phase", ("aes_ctr_keystream", "ghash_tree"))
+    stats, batcher = drive["dispatch_stats"], drive["batcher"]
+    # One device->host copy a window program; a window shares its fetch
+    # only when it rode a merged flush with others.
+    shared = batcher["batched_windows"] - batcher["launches"]
+    check(stats["d2h_fetches"] == stats["dispatches"] == stats["h2d_transfers"],
+          f"tooling: copies and programs differ: {stats}")
+    check(stats["d2h_fetches"] == stats["windows"] - shared,
+          f"tooling: d2h_fetches {stats['d2h_fetches']} != windows {stats['windows']} - "
+          f"{shared} coalesced: {stats}")
+    gib = TOOLING_CUT_BYTES / (1 << 30)
+    rec["drive"] = {
+        "segment_bytes": TOOLING_CUT_BYTES, "copy_gib_s": gib / drive["copy_s"],
+        "fetch_gib_s": gib / drive["fetch_s"], "ranged_16x1mib_4_threads_s": drive["ranged_s"],
+        "ping_s": drive["ping_s"], "lock_violations": witness["lock_violations"],
+        "race_violations": witness["race_violations"],
+        "race_sites_observed": witness["race_sites_observed"],
+        "dispatch_stats": stats, "coalesced_windows": shared,
+        "fast_path_windows": batcher["fast_path_windows"], "merged_launches": batcher["launches"]}
+    rec["launches"] = drive["launches"]
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -4378,6 +4535,23 @@ def main(argv=None) -> int:
     print("mesh rsm: " + json.dumps({"card": card, **mesh["rsm"]}))
     print("mesh window: " + json.dumps({"card": card, **mesh["window"]}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tooling_"))
+    try:
+        t = time.perf_counter()
+        tooling = tooling_phase(args.seed, work, Path(args.out).resolve().parent)
+        record["tooling_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase tooling: {record['tooling_s']:.1f} s ((b) cut to {TOOLING_CUT_BYTES} "
+          "bytes from 1 GiB for time)")
+    record["tooling"] = tooling
+    print("tooling analysis: " + json.dumps({k: v for k, v in tooling["analysis"].items()
+                                             if k != "notes"}))
+    drive = tooling["drive"]
+    print("tooling witness: " + json.dumps({"card": card, **{
+        k: v for k, v in drive.items() if k != "race_sites_observed"},
+        "race_sites_observed": len(drive["race_sites_observed"])}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     _gcm_launched(mesh["launches"], "mesh phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(fleet["launches"], "fleet phase", ("aes_ctr_keystream", "ghash_tree"))
@@ -4414,6 +4588,7 @@ def main(argv=None) -> int:
         entry["launches_sidecar"] = sidecar["launches"].get(name, 0)
         entry["launches_fleet"] = fleet["launches"].get(name, 0)
         entry["launches_mesh"] = mesh["launches"].get(name, 0)
+        entry["launches_tooling"] = tooling["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -761,10 +761,10 @@ def test_rsm_wires_router_peer_tier_metrics_and_ping(tmp_path, keys):
         ping = rsm.fleet_ping()
         assert set(ping) == {"instance", "generation", "view_epoch", "ring_instances",
                              "gossip", "peer_cache", "storage_fetch_calls"}
-        # The witness half holds the lock verdict only (the JAX package's
-        # race cross-check is not ported).
+        # The witness half holds the lock verdict and the race model's
+        # cross-check, JAX's four keys.
         assert set(rsm.fleet_ping(include_witness=True)["witness"]) == \
-            {"enabled", "lock_violations"}
+            {"enabled", "lock_violations", "race_violations", "race_sites_observed"}
         rsm.set_fleet_peers({"c": "http://127.0.0.1:2"})
         assert "c" in rsm.gossip_agent.members() and "c" in rsm.fleet_router.instances
         assert rsm.start_fleet_gossip() is rsm.gossip_agent
@@ -1032,10 +1032,10 @@ def test_mixed_fleet_ping_telemetry_and_gossip_agree(mixed):
     assert pings["port"]["ring_instances"] == pings["jax"]["ring_instances"] == ["jax", "port"]
     witness = {name: json.loads(_get(port, "/fleet/ping?witness=1")[1])["witness"]
                for name, port in ports.items()}
-    # The port's witness holds the lock half only (the race model is not
-    # ported): JAX's keys less the race cross-check's.
-    assert set(witness["port"]) == set(witness["jax"]) - {"race_violations",
-                                                          "race_sites_observed"}
+    # The port's witness holds JAX's keys: the lock half and the race
+    # model's cross-check.
+    assert set(witness["port"]) == set(witness["jax"]) == {
+        "enabled", "lock_violations", "race_violations", "race_sites_observed"}
     local = {name: json.loads(_get(port, "/fleet/telemetry")[1]) for name, port in ports.items()}
     assert {name: set(p) for name, p in local.items()}["port"] == {"instance", "samples"}
     assert {n: p["instance"] for n, p in local.items()} == {"jax": "jax", "port": "port"}

@@ -26,7 +26,9 @@ acquired, the mutation sites the race witness recorded and the lock held at
 each site must be the JAX package's, with the port-only names of
 `transform/cuda.py` mapped to their `transform/tpu.py` twins. Port-only
 locks with no twin must be seen under their own names. No lock-order
-violation may be recorded.
+violation may be recorded, and each package's race model
+(`analysis.races.runtime_crosscheck`) must hold against what its witness
+saw, validating the same sites.
 """
 
 from __future__ import annotations
@@ -274,6 +276,7 @@ def drive(name, P):
         "sites": {s: v["held"] for s, v in locks.race_witness().snapshot()["sites"].items()},
         "unguarded": locks.race_witness().snapshot()["unguarded_names"],
         "violations": list(locks.witness().violations),
+        "crosscheck": mod("analysis.races").runtime_crosscheck(),
     }
 
 
@@ -356,6 +359,39 @@ def test_unguarded_names_equal_jax(witnessed):
 def test_no_lock_order_violation(witnessed):
     assert witnessed["port"]["violations"] == []
     assert witnessed["jax"]["violations"] == []
+
+
+#: Guarded sites of port-only state, which the drive never mutates: they
+#: stay unobserved in the port's cross-check and have no JAX twin.
+PORT_ONLY_UNOBSERVED = {
+    "cuda.CudaTransformBackend._pool (guard cuda.CudaTransformBackend._pool_lock)",
+    "cuda._StagingPool.allocations (guard cuda._StagingPool._lock)",
+}
+
+
+def test_runtime_crosscheck_has_no_violation(witnessed):
+    """Each package's race model holds against what its witness saw."""
+    assert witnessed["port"]["crosscheck"]["violations"] == []
+    assert witnessed["jax"]["crosscheck"]["violations"] == []
+
+
+def test_runtime_crosscheck_validates_jaxs_sites(witnessed):
+    """The port validates exactly JAX's observed sites, after the site map."""
+    from tests.test_torch_static_analysis import map_site
+
+    jax = {map_site(s) for s in witnessed["jax"]["crosscheck"]["validated"]}
+    port = set(witnessed["port"]["crosscheck"]["validated"])
+    assert port == jax
+    assert {"cuda.CudaTransformBackend.dispatch_stats", "batcher.WindowBatcher.launches",
+            "peer_cache.PeerChunkCache.forwards"} <= port
+
+
+def test_runtime_crosscheck_unobserved_is_jaxs_plus_port_only(witnessed):
+    from tests.test_torch_static_analysis import map_site
+
+    jax = {map_site(s) for s in witnessed["jax"]["crosscheck"]["unobserved"]}
+    port = set(witnessed["port"]["crosscheck"]["unobserved"])
+    assert port - jax == PORT_ONLY_UNOBSERVED and jax <= port
 
 
 _MODULE_LOCKS = r'''

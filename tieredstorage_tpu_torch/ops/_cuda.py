@@ -27,8 +27,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -126,11 +126,9 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(name)
 
-    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _obj, proc in procs]
-    for th in waiters:
-        th.start()
-    for th in waiters:
-        th.join()
+    # One waiter per source, so each source's finish time is its own.
+    with ThreadPoolExecutor(max_workers=len(procs)) as waiters:
+        list(waiters.map(wait, [name for name, _, _ in procs], [proc for _, _, proc in procs]))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
     tmp = out_dir / f".{lib.name}.{os.getpid()}"

@@ -217,6 +217,13 @@ _DEVICE_CONSTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _CONSTS_MU = new_lock("gcm._CONSTS_MU")
 
 
+def _host_tensor(array, dtype, device: torch.device) -> torch.Tensor:
+    """A host array (caller-supplied IVs or lengths, a context's numpy
+    constants) copied to `device` as a fresh tensor of numpy `dtype` (None
+    keeps the array's own)."""
+    return torch.from_numpy(np.array(array, dtype=dtype)).to(device)
+
+
 def _device_consts(ctx, device: torch.device) -> _DeviceConsts:
     key = str(device)
     with _CONSTS_MU:
@@ -225,7 +232,7 @@ def _device_consts(ctx, device: torch.device) -> _DeviceConsts:
             return per_device[key]
 
     def put(a, dtype=None):
-        t = torch.from_numpy(np.array(a)).to(device)
+        t = _host_tensor(a, None, device)
         return t if dtype is None else t.to(dtype)
 
     step = None if ctx.step_mat is None else put(ctx.step_mat)
@@ -572,7 +579,7 @@ def _fixed_window(ctx: GcmContext, ivs, data_packed: torch.Tensor, *, decrypt: b
     if ivs is None:
         ivs = data_packed[:, n : n + 12].contiguous()
     else:
-        ivs = torch.from_numpy(np.array(ivs, dtype=np.uint8)).to(device)
+        ivs = _host_tensor(ivs, np.uint8, device)
     target = _window_target(data_packed, donate)
     tags = _gcm_process_batch(
         dc, ivs, target[:, :n], chunk_bytes=n, n_blocks=ctx.n_blocks, decrypt=decrypt
@@ -592,12 +599,12 @@ def _varlen_window(ctx: GcmVarlenContext, ivs, data_packed: torch.Tensor, length
     if ivs is None:
         ivs = data_packed[:, mb : mb + 12].contiguous()
     else:
-        ivs = torch.from_numpy(np.array(ivs, dtype=np.uint8)).to(device)
+        ivs = _host_tensor(ivs, np.uint8, device)
     if lengths is None:
         lb = data_packed[:, mb + 12 : mb + 16].to(torch.int64)
         lengths = lb[:, 0] | (lb[:, 1] << 8) | (lb[:, 2] << 16) | (lb[:, 3] << 24)
     else:
-        lengths = torch.from_numpy(np.array(lengths, dtype=np.int64)).to(device)
+        lengths = _host_tensor(lengths, np.int64, device)
     target = _window_target(data_packed, donate)
     tags = _gcm_varlen_batch(
         dc, ivs, target[:, :mb], lengths, _device_len_blocks(lengths, ctx.aad_bit_len),

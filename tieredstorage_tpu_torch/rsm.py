@@ -541,9 +541,9 @@ class RemoteStorageManager:
         """Liveness/status body for the gateway's GET /fleet/ping: ring
         state, the gossip view, peer-tier counters, the store's fetch calls
         when `fault.injection.enabled` counts them, and (on request) the
-        runtime lock witness's verdict. The JAX package's witness half also
-        carries its static race model's cross-check, which this package
-        has not ported: only `enabled` and `lock_violations` are here."""
+        runtime witness's verdict: the lock-order violations, and the race
+        model's cross-check of the static guarded-by inference against the
+        mutations the race witness saw (analysis/races.py)."""
         if self.fleet_router is None:
             raise RemoteStorageException("fleet mode is not enabled")
         router = self.fleet_router
@@ -575,11 +575,15 @@ class RemoteStorageManager:
         if self._fault_schedule is not None:
             status["storage_fetch_calls"] = self._fault_schedule.calls("fetch")
         if include_witness:
+            from tieredstorage_tpu_torch.analysis import races
             from tieredstorage_tpu_torch.utils.locks import witness, witness_enabled
 
+            crosscheck = races.runtime_crosscheck()
             status["witness"] = {
                 "enabled": witness_enabled(),
                 "lock_violations": list(witness().violations),
+                "race_violations": crosscheck["violations"],
+                "race_sites_observed": crosscheck["validated"],
             }
         return status
 

@@ -48,7 +48,7 @@ disabled"):
   death.
 - ``GET /fleet/ping[?witness=1]`` — liveness + status: ring generation and
   epoch, the gossip view, peer-tier counters; ``witness=1`` adds the
-  runtime lock witness's verdict.
+  runtime lock/race witness verdicts.
 - ``GET /fleet/telemetry[?aggregate=1]`` — this member's metric samples, or
   the whole membership view merged into one fleet-wide scrape.
 """
@@ -305,8 +305,8 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, encode_chunk_frames(chunks))
 
     def _fleet_ping(self, query: str) -> None:
-        """Fleet liveness/status: ring + gossip view (+ the lock witness's
-        verdict on ``?witness=1``)."""
+        """Fleet liveness/status: ring + gossip view (+ the lock/race
+        witness verdicts on ``?witness=1``)."""
         ping = getattr(self.rsm, "fleet_ping", None)
         if ping is None or getattr(self.rsm, "fleet_router", None) is None:
             self._reply(404, b"fleet mode disabled")

@@ -570,6 +570,9 @@ class CudaTransformBackend(TransformBackend):
         rows back on its own stream; the window is ready when every
         member's event is."""
         mesh = self.mesh_plan().mesh
+        # The program writes its output into the staged buffers: after the
+        # launch they are probed by pointer only, never read.
+        shard_ptrs = None if mesh is None else [s.data_ptr() for s in staged]
         before = gcm_ops.thread_dispatches()
         rt_before = gcm_ops.thread_hbm_roundtrips()
         if varlen:
@@ -579,7 +582,7 @@ class CudaTransformBackend(TransformBackend):
             out = gcm_window_packed(ctx, None, staged, decrypt=decrypt, donate=True, mesh=mesh)
         ready = None
         if mesh is not None:
-            donated = all(o.data_ptr() == s.data_ptr() for o, s in zip(out, staged))
+            donated = [o.data_ptr() for o in out] == shard_ptrs
             ready = self._gather_rows(mesh, host, out)
         else:
             donated = out.data_ptr() == staged.data_ptr()
@@ -807,7 +810,7 @@ def _definition():
     ))
     d.define(ConfigKey(
         "batch.wait.ms", "long", default=2, validator=in_range(0, None),
-        importance="low",
+        importance="medium",
         doc="Max queue age (ms) of a latency or throughput window before its "
             "bucket flushes (read with batch.enabled).",
     ))
@@ -819,7 +822,7 @@ def _definition():
     ))
     d.define(ConfigKey(
         "batch.windows", "int", default=16, validator=in_range(2, None),
-        importance="low",
+        importance="medium",
         doc="Max windows per merged launch (read with batch.enabled).",
     ))
     d.define(ConfigKey(
