@@ -256,6 +256,28 @@ Phases, in order, each printing its seconds:
              one device->host copy per window program
              (d2h_fetches = dispatches = h2d_transfers = windows less the
              windows that shared a merged flush).
+16. gates — the system's gates, as the port's twins of the JAX package's
+             (tests/torch_e2e, tools/torch_*), on cuda:0; launch counts
+             zeroed before (a) and read after (g). (a) the Kafka broker
+             scenario in process: encryption on, compression off, 4 MiB
+             chunks, 2 partitions each rolling 3 segments of 256 MiB (cut
+             from Kafka's 1 GiB log.segment.bytes for time) and keeping a
+             local active one, 1 KiB records in 16 KiB batches (Kafka's
+             producer batch.size) made from --seed, every batch CRC32C
+             computed and checked by the port's CRC32C op on the card;
+             local retention drops every tiered segment, so each partition
+             is read from offset 0 remotely up to its active segment, every
+             record's offset, timestamp, key, value and batch CRC checked;
+             the topic delete leaves every segment DELETE_SEGMENT_FINISHED
+             and the store empty; (b) the same with tpu-huff-v1, 1 x 1
+             segment of 64 MiB; (c) the same over the port's gRPC client
+             against a `python -m tieredstorage_tpu_torch.sidecar` child, 1 x
+             2 segments of 64 MiB, the child's launches read on SIGUSR2;
+             (d) tools/torch_transform_demo.py at 16 x 4 MiB windows;
+             (e) tools/torch_hot_demo.py; (f) tools/torch_failover_demo.py;
+             (g) tools/torch_chaos_matrix.py, its 23 cells at seed 1234. Each
+             report is ok (written under the --out directory's gates/), and
+             AES, the GHASH tree, level 1 and the decoder were launched.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -4332,6 +4354,320 @@ def tooling_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") 
     return rec
 
 
+#: Phase 16 (gates): (a)'s segments, cut from Kafka's 1 GiB
+#: log.segment.bytes for time; (b)'s and (c)'s; (d)'s transform windows
+#: (the copy window, 16 x 4 MiB).
+GATES_SEGMENT_BYTES = 256 * MIB
+GATES_SMALL_SEGMENT_BYTES = 64 * MIB
+GATES_WINDOW_CHUNKS = 16
+#: 1 KiB records (a 16-byte key, a 1008-byte value), 15 to a batch: the
+#: most a producer puts in Kafka's default 16 KiB `batch.size`.
+GATES_RECORDS_PER_BATCH = 15
+GATES_KEY_BYTES = 16
+GATES_VALUE_BYTES = 1008
+#: Batches encoded (and their CRCs computed) per bulk produce call.
+GATES_PRODUCE_BLOCK = 4096
+#: Batch CRCs of the device op recomputed on the host: a seeded sample of
+#: each CRC call's batches, up to a cap for the producer's calls and another
+#: for the consumer's.
+GATES_CRC_SAMPLES_PER_CALL = 64
+GATES_CRC_SAMPLES = 256
+GATES_TOPIC = "gates-topic"
+GATES_BASE_TS = 1_700_000_000_000
+
+
+def _record_keys(offsets: np.ndarray) -> np.ndarray:
+    """uint8[..., 16]: b"key-" and the record's offset in 12 digits."""
+    digits = (offsets[..., None] // 10 ** np.arange(11, -1, -1, dtype=np.int64)) % 10 + 48
+    prefix = np.broadcast_to(np.frombuffer(b"key-", np.uint8), offsets.shape + (4,))
+    return np.concatenate([prefix, digits.astype(np.uint8)], axis=-1)
+
+
+def _batch_bytes() -> int:
+    from tests.torch_e2e.records import encode_uniform_batches
+
+    r = GATES_RECORDS_PER_BATCH
+    return encode_uniform_batches(
+        np.zeros(1, np.int64), np.zeros(1, np.int64),
+        np.zeros((1, r, GATES_KEY_BYTES), np.uint8),
+        np.zeros((1, r, GATES_VALUE_BYTES), np.uint8)).shape[1]
+
+
+def _record_values(seed, n: int) -> np.ndarray:
+    """uint8[n, 15, 1008]: the record values, `make_segment`'s Kafka-shaped
+    bytes (bench.py's generator: record scaffolding interleaved with seeded
+    noise), so tpu-huff-v1 codes them instead of storing them raw."""
+    size = n * GATES_RECORDS_PER_BATCH * GATES_VALUE_BYTES
+    chunk = next(make_segment(1, size, seed))
+    return np.frombuffer(chunk, np.uint8).reshape(n, GATES_RECORDS_PER_BATCH, GATES_VALUE_BYTES)
+
+
+def _produce_partition(broker, partition: int, seed: int, n_batches: int) -> np.ndarray:
+    """Produce `n_batches` seeded batches into one partition in bulk; returns
+    the values uint8[records, 1008] in offset order."""
+    part = broker.partitions[(GATES_TOPIC, partition)]
+    r, blocks, done, k = GATES_RECORDS_PER_BATCH, [], 0, 0
+    while done < n_batches:
+        n = min(GATES_PRODUCE_BLOCK, n_batches - done)
+        values = _record_values([seed, partition, k], n)
+        offsets = part.next_offset + np.arange(n * r, dtype=np.int64).reshape(n, r)
+        broker.produce_uniform(GATES_TOPIC, partition, GATES_BASE_TS + offsets[:, 0],
+                               _record_keys(offsets), values)
+        blocks.append(values.reshape(-1, GATES_VALUE_BYTES))
+        done += n
+        k += 1
+    return np.concatenate(blocks)
+
+
+def _host_checked(crc, seed, what: str):
+    """`crc` (the device op), with a seeded sample of each call's batches
+    recomputed by the port's host CRC32C (`GATES_CRC_SAMPLES_PER_CALL`, up
+    to `GATES_CRC_SAMPLES` in all): the producer writes, and the consumer
+    checks, CRCs that must equal an independent computation at the batch
+    payload size. `checked.samples` counts the sampled batches."""
+    from tieredstorage_tpu_torch.ops.crc32c import crc32c_host
+
+    rng = np.random.default_rng(seed)
+
+    def checked(payloads):
+        got = crc(payloads)
+        k = min(GATES_CRC_SAMPLES_PER_CALL, GATES_CRC_SAMPLES - checked.samples,
+                len(payloads))
+        for i in (rng.choice(len(payloads), k, replace=False) if k > 0 else ()):
+            check(int(got[i]) == crc32c_host(payloads[i]),
+                  f"{what}: the device CRC32C of batch {i} of a call differs from the host's")
+        checked.samples += max(k, 0)
+        return got
+
+    checked.samples = 0
+    return checked
+
+
+def _broker_leg(seed: int, work: Path, rsm, device: str, *, partitions: int, segments: int,
+                segment_bytes: int, store: Path, what: str) -> dict:
+    """The Kafka broker scenario (tests/torch_e2e) over `rsm`: produce
+    seeded 1 KiB records in 16 KiB batches (CRC32C by the port's op on
+    `device`) until each partition rolls `segments` segments and keeps a
+    local active one; tier them (local retention drops them); read every
+    partition from offset 0, every record's offset, timestamp, key, value
+    and batch CRC checked, everything below the active segment read
+    remotely; delete the topic: every segment DELETE_SEGMENT_FINISHED, the
+    store empty. A seeded sample of the batch CRCs, produced and consumed,
+    is recomputed on the host (`_host_checked`)."""
+    from tests.torch_e2e.broker import BrokerSim, SegmentState
+    from tests.torch_e2e.records import device_crc
+
+    produce_crc = _host_checked(device_crc(device), [seed, 1], what)
+    consume_crc = _host_checked(device_crc(device), [seed, 2], what)
+    broker = BrokerSim(work / "logs", rsm, segment_bytes=segment_bytes, crc=produce_crc)
+    broker.create_topic(GATES_TOPIC, partitions)
+    batch = _batch_bytes()
+    per_segment = -(-segment_bytes // batch)
+    n_batches = segments * per_segment + max(1, per_segment // 16)
+    t = time.perf_counter()
+    expected = {p: _produce_partition(broker, p, seed, n_batches) for p in range(partitions)}
+    produce_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tiered = broker.run_tiering()
+    copy_s = time.perf_counter() - t
+    check(tiered == partitions * segments, f"{what}: tiered {tiered} segments, "
+          f"expected {partitions * segments}")
+    remote = broker.tracker.remote_segments()
+    remote_bytes = sum(m.segment_size_in_bytes for m in remote)
+    check(all(p.local_log_start > 0 for p in broker.partitions.values()),
+          f"{what}: local retention dropped nothing")
+    consume_s, read_bytes, records, batches = 0.0, 0, 0, 0
+    for p in range(partitions):
+        t = time.perf_counter()
+        parts = broker.scan(GATES_TOPIC, p, 0, crc=consume_crc)
+        consume_s += time.perf_counter() - t
+        sources = [source for source, _ in parts]
+        check(sources == ["remote"] * segments + ["local"],
+              f"{what}: partition {p} read from {sources}")
+        at = 0
+        for _, cols in parts:
+            n = len(cols)
+            offsets = np.arange(at, at + n, dtype=np.int64)
+            check(cols.crc_checked == cols.batches, f"{what}: batch CRCs unchecked")
+            check(np.array_equal(cols.offsets, offsets), f"{what}: offsets differ at {at}")
+            check(np.array_equal(cols.timestamps, GATES_BASE_TS + offsets),
+                  f"{what}: timestamps differ at {at}")
+            check(np.array_equal(cols.keys, _record_keys(offsets)), f"{what}: keys differ at {at}")
+            check(np.array_equal(cols.values, expected[p][at : at + n]),
+                  f"{what}: values differ at {at}")
+            at += n
+            batches += cols.batches
+            read_bytes += cols.batches * batch
+        check(at == len(expected[p]), f"{what}: partition {p} read {at} of "
+              f"{len(expected[p])} records")
+        records += at
+    samples = {"produce": produce_crc.samples, "consume": consume_crc.samples}
+    check(min(samples.values()) >= GATES_CRC_SAMPLES_PER_CALL,
+          f"{what}: too few batch CRCs recomputed on the host: {samples}")
+    deleted = broker.delete_topic(GATES_TOPIC)
+    states = broker.tracker.states()
+    check(deleted == tiered and len(states) == tiered
+          and set(states.values()) == {SegmentState.DELETE_SEGMENT_FINISHED},
+          f"{what}: segment states after the delete: {set(states.values())}")
+    left = [f for f in store.rglob("*") if f.is_file()]
+    check(not left, f"{what}: objects left after the topic delete: {left[:3]}")
+    gib = 1 << 30
+    return {"partitions": partitions, "segments_tiered": tiered,
+            "segment_bytes": segment_bytes, "batch_bytes": batch, "records": records,
+            "batches": batches, "remote_bytes": remote_bytes, "produce_s": produce_s,
+            "copy_s": copy_s, "copy_gib_s": remote_bytes / gib / copy_s,
+            "consume_s": consume_s, "consume_gib_s": read_bytes / gib / consume_s,
+            "deleted": deleted, "crc_host_samples": samples}
+
+
+def _gates_sidecar_leg(seed: int, work: Path, pub: Path, priv: Path, device: str) -> dict:
+    """Phase 16 (c): the broker scenario over the port's gRPC client against
+    a `python -m tieredstorage_tpu_torch.sidecar` child on `device`, whose
+    launch counts are read on SIGUSR2 (`_fleet_member`)."""
+    import signal
+
+    from tieredstorage_tpu_torch.sidecar.client import SidecarRsmClient
+
+    store = work / "store"
+    store.mkdir()
+    cfg = work / "sidecar.json"
+    cfg.write_text(json.dumps(_rsm_configs(store, pub, priv, device)))
+    counts_path = work / "sidecar.counts.json"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t = time.perf_counter()
+    with open(work / "sidecar.stderr", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke._fleet_member(sys.argv.pop(1))",
+             str(counts_path), "--config", str(cfg)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    client = None
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("SIDECAR_READY port="),
+              f"gates sidecar: {line!r}\n{(work / 'sidecar.stderr').read_text()[-3000:]}")
+        ready_s = time.perf_counter() - t
+        client = SidecarRsmClient(f"127.0.0.1:{int(line.split()[1].split('=')[1])}",
+                                  timeout=600)
+        leg = _broker_leg(seed + 2, work, client, device, partitions=1, segments=2,
+                          segment_bytes=GATES_SMALL_SEGMENT_BYTES, store=store,
+                          what="gates sidecar")
+        proc.send_signal(signal.SIGUSR2)
+        deadline = time.monotonic() + 60
+        while not counts_path.exists():
+            check(time.monotonic() < deadline and proc.poll() is None,
+                  "gates sidecar: no launch counts from the child")
+            time.sleep(0.01)
+        leg["launches"] = json.loads(counts_path.read_text())["launches"]
+        leg["ready_s"] = ready_s
+    finally:
+        if client is not None:
+            client.close()
+        proc.terminate()
+        try:
+            leg_exit = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            leg_exit = proc.wait()
+        proc.stdout.close()
+    check(leg_exit == 0, f"gates sidecar: the child exited {leg_exit} on SIGTERM")
+    return leg
+
+
+def _tool(name: str):
+    """A tools/ script as a module (its `main` guarded, nothing runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"gate_{name}", REPO / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") -> dict:
+    """Phase 16: the system's gates on `device`. (a) the Kafka broker
+    scenario in process, encryption on, compression off, 2 partitions x 3
+    segments; (b) the same with tpu-huff-v1, 1 x 1 smaller segment; (c)
+    over the sidecar child over gRPC, 1 x 2 smaller segments; (d)-(g) the
+    transform, hot, failover and chaos gates' twins (tools/torch_*), their
+    reports under `out_dir`/gates. Launch counts are zeroed before (a) and
+    read after (g), (c)'s child's added."""
+    from tieredstorage_tpu_torch.ops import _cuda
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    reports = out_dir / "gates"
+    reports.mkdir(parents=True, exist_ok=True)
+    pub, priv = generate_key_pair_pem_files(work, prefix="gates")
+    rec: dict = {"seconds": {}}
+    _cuda.reset_launch_counts()
+
+    def timed(part: str, fn):
+        t = time.perf_counter()
+        out = fn()
+        rec["seconds"][part] = time.perf_counter() - t
+        return out
+
+    def in_process(part: str, partitions: int, segments: int, segment_bytes: int, extra=None):
+        leg_dir = work / part
+        store = leg_dir / "store"
+        store.mkdir(parents=True)
+        rsm = RemoteStorageManager()
+        rsm.configure(_rsm_configs(store, pub, priv, device, extra))
+        before = _cuda.launch_counts()
+        try:
+            leg = _broker_leg(seed, leg_dir, rsm, device, partitions=partitions,
+                              segments=segments, segment_bytes=segment_bytes, store=store,
+                              what=f"gates {part}")
+        finally:
+            rsm.close()
+        leg["launches"] = _counts_delta(before, _cuda.launch_counts())
+        return leg
+
+    rec["broker"] = timed("a", lambda: in_process("broker", 2, 3, GATES_SEGMENT_BYTES))
+    rec["huff"] = timed("b", lambda: in_process(
+        "huff", 1, 1, GATES_SMALL_SEGMENT_BYTES,
+        {"compression.enabled": True, "compression.codec": "tpu-huff-v1"}))
+    (work / "sidecar").mkdir()
+    rec["sidecar"] = timed("c", lambda: _gates_sidecar_leg(seed, work / "sidecar", pub, priv,
+                                                           device))
+
+    def gate(part: str, name: str, call) -> dict:
+        out = reports / f"{name}_report.json"
+        before = _cuda.launch_counts()
+        code = timed(part, lambda: call(_tool(name), out))
+        report = json.loads(out.read_text())
+        check(code == 0 and report.get("ok") is not False,
+              f"gates {name}: exit {code}, report {json.dumps(report)[:3000]}")
+        report["launches_in_gate"] = _counts_delta(before, _cuda.launch_counts())
+        return report
+
+    rec["transform"] = gate("d", "torch_transform_demo", lambda m, out: m.run(
+        out, device, CHUNK, GATES_WINDOW_CHUNKS))
+    rec["hot"] = gate("e", "torch_hot_demo", lambda m, out: m.run(out, device))
+    rec["failover"] = gate("f", "torch_failover_demo", lambda m, out: m.run(out, device))
+    rec["chaos"] = gate("g", "torch_chaos_matrix", lambda m, out: (
+        0 if m.run_matrix(out, 1234, device)["ok"] else 1))
+    launches = _cuda.launch_counts()
+    for name, n in rec["sidecar"]["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    rec["launches"] = launches
+    _gcm_launched(rec["broker"]["launches"], "gates (a) broker")
+    _gcm_launched(rec["huff"]["launches"], "gates (b) compressed broker",
+                  ("aes_ctr_keystream", "ghash_tree", "ghash_level1", "huffman_decode"))
+    _gcm_launched(rec["sidecar"]["launches"], "gates (c) sidecar broker")
+    if torch.device(device).type == "cuda":
+        check(rec["transform"]["checks"].get("kernels_launched_every_window") is True,
+              "gates (d): the transform gate's windows did not launch AES and the tree")
+    # (g)'s device cells merge 512-byte chunks: one GHASH group, level 1
+    # alone; its storage cells decode tpu-huff-v1 frames.
+    _gcm_launched(rec["chaos"]["launches_in_gate"], "gates (g) chaos matrix",
+                  ("aes_ctr_keystream", "huffman_decode"))
+    _gcm_launched(launches, "gates phase",
+                  ("aes_ctr_keystream", "ghash_tree", "ghash_level1", "huffman_decode"))
+    return rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -4552,6 +4888,42 @@ def main(argv=None) -> int:
         k: v for k, v in drive.items() if k != "race_sites_observed"},
         "race_sites_observed": len(drive["race_sites_observed"])}))
 
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_gates_"))
+    try:
+        t = time.perf_counter()
+        gates = gates_phase(args.seed, work, Path(args.out).resolve().parent)
+        record["gates_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase gates: {record['gates_s']:.1f} s (parts: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in gates["seconds"].items())
+          + f"; (a) segments cut to {GATES_SEGMENT_BYTES} bytes, (b) and (c) to "
+          f"{GATES_SMALL_SEGMENT_BYTES}, from 1 GiB, for time)")
+    record["gates"] = gates
+    for part in ("broker", "huff", "sidecar"):
+        print(f"gates {part}: " + json.dumps({"card": card, **gates[part]}))
+    tr = gates["transform"]
+    print("gates transform: " + json.dumps({"card": card, **{k: tr[k] for k in (
+        "ok", "chunk_bytes", "window_chunks", "elapsed_ms", "dispatch_stats",
+        "ladder_hbm_roundtrips_per_window", "batched_mean_occupancy", "window_path_launches",
+        "checks")}}))
+    hot = gates["hot"]
+    print("gates hot: " + json.dumps({"card": card, **{k: hot[k] for k in (
+        "ok", "cold_fetch_gibs", "hot_fetch_gibs", "hot_vs_cold", "hot_hit_rate",
+        "replay_hits", "zero_copy_serves", "budget_pressure", "checks")}}))
+    fo = gates["failover"]
+    print("gates failover: " + json.dumps({"card": card, **{k: fo[k] for k in (
+        "fetches", "failed_fetches", "payload_mismatches", "failovers", "failover_p99_ms",
+        "quorum_failures", "surviving_replica_orphans", "replicas_byte_identical")},
+        "repairs": fo["antientropy_pass1"]["repairs"],
+        "in_sync_after": fo["antientropy_pass2"]["in_sync"]}))
+    ch = gates["chaos"]
+    print("gates chaos: " + json.dumps({"card": card, "ok": ch["ok"], "seed": ch["seed"],
+                                        "cells": len(ch["cells"]),
+                                        "cells_ok": sum(c["ok"] for c in ch["cells"]),
+                                        "wall_s": gates["seconds"]["g"],
+                                        "launches": ch["launches"]}))
+
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     _gcm_launched(mesh["launches"], "mesh phase", ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(fleet["launches"], "fleet phase", ("aes_ctr_keystream", "ghash_tree"))
@@ -4589,6 +4961,7 @@ def main(argv=None) -> int:
         entry["launches_fleet"] = fleet["launches"].get(name, 0)
         entry["launches_mesh"] = mesh["launches"].get(name, 0)
         entry["launches_tooling"] = tooling["launches"].get(name, 0)
+        entry["launches_gates"] = gates["launches"].get(name, 0)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for label in ("_8_rows", "_one_row"):

@@ -387,6 +387,30 @@ def test_merged_flush_demuxes_per_caller_and_matches_jax():
     assert stats.rows_per_device == 8  # bucket_rows(6)
 
 
+@pytest.mark.parametrize("uniform", [True, False], ids=["one-size", "mixed-sizes"])
+def test_merged_launch_writes_no_more_intermediates_than_its_windows(uniform):
+    """Windows of one chunk size merge into the fixed window program, mixed
+    sizes into the varlen one; either way the merged launch writes no more
+    device intermediates than its windows would one by one, and its bytes
+    are the unbatched path's."""
+    sizes = [640, 640] if uniform else [640, 600]
+    windows = [make_window(140 + i, sizes) for i in range(3)]
+    control = cpu_backend()
+    assert [control.detransform(w, D_OPTS) for _, w in windows] == [p for p, _ in windows]
+    backend = cpu_backend()
+    b = parked(backend, wait_ms=50, max_windows=8)
+    jobs = [submit_in_thread(b, w) for _, w in windows]
+    wait_queued(b, 3)
+    assert b.flush_now() == 1
+    join_all(jobs)
+    assert [box for _, box in jobs] == [[p, None] for p, _ in windows]
+    ctx = (gcm.make_context(KEY, AAD, 640) if uniform
+           else gcm.make_varlen_context(KEY, AAD, gcm.bucket_max_bytes(640)))
+    merged = backend.dispatch_stats.hbm_roundtrips
+    assert merged == gcm.planned_hbm_roundtrips(ctx, bucket_rows(6))
+    assert merged <= control.dispatch_stats.hbm_roundtrips
+
+
 def test_per_row_error_isolation_matches_jax():
     plain_ok, wire_ok = make_window(30, [600, 600])
     _, wire_bad = make_window(31, [600, 600])

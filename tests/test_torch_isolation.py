@@ -2,7 +2,10 @@
 
 A subprocess installs a meta-path hook that refuses `jax`, `jaxlib` and
 `tieredstorage_tpu` (but not `tieredstorage_tpu_torch`), then imports every
-module of the port and chip_smoke.py.
+module of the port, chip_smoke.py, the port's e2e harness (tests/torch_e2e),
+its demo (demo/torch_run_demo.py) and its gates (tools/torch_*_demo.py,
+tools/torch_chaos_matrix.py). The gates and the demo also refuse to run
+without CUDA unless they are asked for the CPU.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 _SCRIPT = r'''
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "tieredstorage_tpu")
 
@@ -32,6 +35,10 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tests.torch_e2e.broker, tests.torch_e2e.records
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(path.replace("/", "_")[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(" ".join(names))
@@ -130,10 +137,21 @@ _MESH = (
 )
 
 
+#: The port's gates and demo, imported by path in the sweep.
+_GATES = (
+    "tools/torch_transform_demo.py",
+    "tools/torch_hot_demo.py",
+    "tools/torch_failover_demo.py",
+    "tools/torch_chaos_matrix.py",
+    "tools/torch_multichip_demo.py",
+)
+_DEMO = "demo/torch_run_demo.py"
+
+
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True, text=True,
-        timeout=120,
+        [sys.executable, "-c", _SCRIPT, *_GATES, _DEMO], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
     *_, names, count = res.stdout.strip().splitlines()
@@ -158,3 +176,35 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _no_cuda(path: str, *args: str) -> list:
+    """argv running `path` with torch told there is no CUDA."""
+    probe = (
+        "import runpy, sys, torch; torch.cuda.is_available = lambda: False; "
+        f"sys.argv = {[path, *args]!r}; runpy.run_path({path!r}, run_name='__main__')"
+    )
+    return [sys.executable, "-c", probe]
+
+
+def test_gates_and_demo_refuse_to_run_without_cuda(tmp_path):
+    """Without CUDA and without a request for the CPU, each gate and the
+    demo exit non-zero with a message and write no report."""
+    for path in (*_GATES, _DEMO):
+        out = tmp_path / (Path(path).stem + ".json")
+        args = ("--backend", "filesystem") if path == _DEMO else ("--out", str(out))
+        res = subprocess.run(_no_cuda(path, *args), cwd=REPO, capture_output=True,
+                             text=True, timeout=120)
+        assert res.returncode != 0, (path, res.stdout, res.stderr)
+        assert "CUDA is not available" in res.stderr, (path, res.stderr)
+        assert not out.exists()
+
+
+def test_demo_runs_on_the_cpu_over_the_filesystem_backend():
+    res = subprocess.run(
+        [sys.executable, _DEMO, "--transform", "cpu", "--backend", "filesystem",
+         "--codec", "zstd"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "demo complete" in res.stdout

@@ -202,10 +202,15 @@ class TestReadFailover:
 
     def test_failover_hook_fires(self):
         down = _flaky(PORT, set(range(2, 1000)))  # the upload lands, fetches fail
-        rep = ReplicatedStorageBackend([("down", down), ("ok", mem())])
+        ok = mem()
+        # Each child takes the object itself, so the replicated store has no
+        # latency history: an upload through it, slower on "down" under a
+        # loaded host, could rank "ok" first and leave no failover to hook.
+        for child in (down, ok):
+            child.upload(io.BytesIO(b"x"), KEY)
+        rep = ReplicatedStorageBackend([("down", down), ("ok", ok)])
         wins: list[float] = []
         rep.on_failover = wins.append
-        rep.upload(io.BytesIO(b"x"), KEY)
         with rep.fetch(KEY) as s:
             assert s.read() == b"x"
         assert len(wins) == 1 and wins[0] >= 0.0

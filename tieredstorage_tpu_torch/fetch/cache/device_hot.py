@@ -338,6 +338,14 @@ class DeviceHotCache(ChunkManager):
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
 
+    def window(self, objects_key, chunk_id: int) -> Optional[HotWindow]:
+        """The resident window covering (key, chunk id), if any (tests,
+        demos, and the retention probe)."""
+        file = _file_of(objects_key)
+        with self._lock:
+            wkey = self._resident.get((file, chunk_id))
+            return self._windows.get(wkey) if wkey is not None else None
+
     def close(self) -> None:
         with self._lock:
             self._windows.clear()

@@ -12,7 +12,7 @@ keyed by work class.
 A window of the fetch path is one packed launch per request; under many
 concurrent consumers that is many small launches, each paying the per-launch
 floor. `WindowBatcher` coalesces *concurrent* windows that share a data key
-into one merged varlen launch, the continuous-batching shape (Orca, OSDI
+into one merged launch, the continuous-batching shape (Orca, OSDI
 '22), with Clockwork-style (OSDI '20) work classes so every device consumer
 — fetch decrypts, encrypt windows of concurrent copies, scrub verification —
 shares the one queue under the policy of transform/scheduler.py:
@@ -26,6 +26,9 @@ shares the one queue under the policy of transform/scheduler.py:
 - Grouping is by ``(work_class, direction, data_key, aad,
   bucket_max_bytes(max_size))``; merged row counts are padded up a
   power-of-two ladder (`bucket_rows`), the JAX package's packed layout.
+  Rows of one chunk size ride the fixed window program, mixed sizes the
+  varlen one, so a merged launch writes no more device intermediates
+  (`ops.gcm.planned_hbm_roundtrips`) than its windows would alone.
   Classes (and directions) never share a merged launch: a launch failure in
   a background scrub flush wakes background waiters only.
 - The flush policy is deadline- and class-aware: a bucket flushes when its
@@ -623,7 +626,7 @@ class WindowBatcher:
 
     def _launch_once(
         self, ctx, packed: torch.Tensor, out_host: torch.Tensor, decrypt: bool,
-        work_class: str,
+        work_class: str, varlen: bool,
     ):
         """One stage + launch attempt of a merged flush, replay-safe: the
         launch reads ``packed`` and never writes it; its output lands in
@@ -633,16 +636,18 @@ class WindowBatcher:
         ``out_host`` in place)."""
         faults.fire("device.launch", work_class)
         backend = self._backend
+        # Staged as varlen either way: the fixed program ignores the length
+        # column that mesh padding rows get.
         if backend.device.type == "cuda":
             with torch.cuda.device(backend.device):
                 staged = backend._stage_packed(packed)
-                _, ready = backend._launch_packed(ctx, out_host, staged, True, decrypt=decrypt)
+                _, ready = backend._launch_packed(ctx, out_host, staged, varlen, decrypt=decrypt)
             return ready
         # The CPU launch decrypts its staged buffer in place, so stage a
         # copy: a retry then starts again from the untouched input.
         out_host.copy_(packed)
         staged = backend._stage_packed(out_host)
-        backend._launch_packed(ctx, out_host, staged, True, decrypt=decrypt)
+        backend._launch_packed(ctx, out_host, staged, varlen, decrypt=decrypt)
         return None
 
     def _flush_group(self, key: tuple, entries: list) -> None:
@@ -683,8 +688,16 @@ class WindowBatcher:
 
         backend = self._backend
         try:
-            ctx = gcm_ops.make_varlen_context(key[2], key[3], key[4])
-            n_bytes = ctx.max_bytes
+            sizes = {s for e in live for s in e.sizes}
+            varlen = len(sizes) != 1
+            if varlen:
+                ctx = gcm_ops.make_varlen_context(key[2], key[3], key[4])
+                n_bytes = ctx.max_bytes
+            else:
+                # One chunk size: the fixed window program, which writes
+                # fewer intermediates than the varlen sequence assembly.
+                ctx = gcm_ops.make_context(key[2], key[3], sizes.pop())
+                n_bytes = ctx.chunk_bytes
             rows = sum(len(e.sizes) for e in live)
             shape = (bucket_rows(rows), n_bytes + TAG_SIZE)
             pinned = backend.device.type == "cuda"
@@ -700,14 +713,17 @@ class WindowBatcher:
                     r += 1
                 pk[r - len(e.sizes) : r, n_bytes + IV_SIZE :] = (
                     np.asarray(e.sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
+                    if varlen else 0
                 )
-            # Row-ladder padding: one 16-byte zero block per dummy row
-            # (zero-length rows are excluded by the varlen contract).
+            # Row-ladder padding: zero rows, and under varlen one 16-byte
+            # zero block per dummy row (zero-length rows are excluded by
+            # the varlen contract).
             pk[rows:] = 0
-            pk[rows:, n_bytes + IV_SIZE] = 16
+            if varlen:
+                pk[rows:, n_bytes + IV_SIZE] = 16
             t0 = self._now()
             ready = call_with_retry(
-                lambda: self._launch_once(ctx, packed, out_host, decrypt, work_class),
+                lambda: self._launch_once(ctx, packed, out_host, decrypt, work_class, varlen),
                 policy=self._launch_policy,
                 site="device.launch",
                 on_retry=self._on_launch_retry,

@@ -31,7 +31,7 @@ plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
 `configure`, never falls back. Cross-request batching
 (`transform.batch.enabled`) runs windows of concurrent requests through the
 work-class device scheduler (transform/batcher.py): concurrent windows that
-share a data key coalesce into one merged varlen launch.
+share a data key coalesce into one merged launch.
 
 A window can be split over a mesh of devices (`transform.mesh.devices`,
 parallel/mesh.py): every GPU by default, 1 for one device, n for the first
