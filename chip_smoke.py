@@ -258,7 +258,7 @@ Phases, in order, each printing its seconds:
              windows that shared a merged flush).
 16. gates — the system's gates, as the port's twins of the JAX package's
              (tests/torch_e2e, tools/torch_*), on cuda:0; launch counts
-             zeroed before (a) and read after (g). (a) the Kafka broker
+             zeroed before (a) and read after (m). (a) the Kafka broker
              scenario in process: encryption on, compression off, 4 MiB
              chunks, 2 partitions each rolling 3 segments of 256 MiB (cut
              from Kafka's 1 GiB log.segment.bytes for time) and keeping a
@@ -275,9 +275,19 @@ Phases, in order, each printing its seconds:
              2 segments of 64 MiB, the child's launches read on SIGUSR2;
              (d) tools/torch_transform_demo.py at 16 x 4 MiB windows;
              (e) tools/torch_hot_demo.py; (f) tools/torch_failover_demo.py;
-             (g) tools/torch_chaos_matrix.py, its 23 cells at seed 1234. Each
-             report is ok (written under the --out directory's gates/), and
-             AES, the GHASH tree, level 1 and the decoder were launched.
+             (g) tools/torch_chaos_matrix.py, its 23 cells at seed 1234;
+             (h) tools/torch_tail_demo.py; (i) tools/torch_scrub_demo.py,
+             whose passes decode tpu-huff-v1 with the decoder kernel; (j)
+             tools/torch_trace_demo.py; (k) tools/torch_fleet_demo.py, a
+             child with TSTPU_LOCK_WITNESS=1; (l) tools/torch_fleet_soak.py,
+             its three sidecar children configured on cuda:0 (each resolves
+             the device when it starts), the card's free memory sampled
+             while they run; (m) tools/torch_timeline_export.py
+             driving its own gateway (encryption, timeline, flight records,
+             the batcher) over a 64 MiB segment, the export's launches equal
+             to the batcher's. Each report is ok (written under the --out
+             directory's gates/), and AES, the GHASH tree, level 1 and the
+             decoder were launched.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -4584,14 +4594,52 @@ def _tool(name: str):
     return module
 
 
+def _gate_child(name: str, out: Path, device: str, env: dict) -> int:
+    """Run tools/<name>.py in a child process (for a gate whose setting is
+    read when locks are made, such as the lock witness); its exit code."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / f"{name}.py"), "--out", str(out),
+         "--device", device],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), **env), capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0, f"gates {name}: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return proc.returncode
+
+
+def _with_free_memory(run, rec: dict) -> int:
+    """`run()` while a thread samples the card's free memory every 0.2 s;
+    the most it fell below the free memory at the start goes into
+    rec["soak_card_mib_held"] (what the soak's sidecar children held)."""
+    stop = threading.Event()
+    start_free = torch.cuda.mem_get_info(0)[0] if torch.cuda.is_available() else 0
+    low = [start_free]
+
+    def sample():
+        while not stop.wait(0.2):
+            low[0] = min(low[0], torch.cuda.mem_get_info(0)[0])
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if torch.cuda.is_available():
+        sampler.start()
+    try:
+        return run()
+    finally:
+        stop.set()
+        if sampler.is_alive():
+            sampler.join(timeout=5)
+        rec["soak_card_mib_held"] = (start_free - low[0]) / MIB
+
+
 def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") -> dict:
     """Phase 16: the system's gates on `device`. (a) the Kafka broker
     scenario in process, encryption on, compression off, 2 partitions x 3
     segments; (b) the same with tpu-huff-v1, 1 x 1 smaller segment; (c)
     over the sidecar child over gRPC, 1 x 2 smaller segments; (d)-(g) the
-    transform, hot, failover and chaos gates' twins (tools/torch_*), their
-    reports under `out_dir`/gates. Launch counts are zeroed before (a) and
-    read after (g), (c)'s child's added."""
+    transform, hot, failover and chaos gates' twins, (h)-(m) the tail,
+    scrub, trace, fleet demo, fleet soak and timeline export twins
+    (tools/torch_*), their reports under `out_dir`/gates. Launch counts are
+    zeroed before (a) and read after (m), (c)'s child's added."""
     from tieredstorage_tpu_torch.ops import _cuda
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
     from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
@@ -4648,6 +4696,15 @@ def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") ->
     rec["failover"] = gate("f", "torch_failover_demo", lambda m, out: m.run(out, device))
     rec["chaos"] = gate("g", "torch_chaos_matrix", lambda m, out: (
         0 if m.run_matrix(out, 1234, device)["ok"] else 1))
+    rec["tail"] = gate("h", "torch_tail_demo", lambda m, out: m.run(out, device))
+    rec["scrub"] = gate("i", "torch_scrub_demo", lambda m, out: m.run(out, device))
+    rec["trace_demo"] = gate("j", "torch_trace_demo", lambda m, out: m.run(out, device))
+    rec["fleet_demo"] = gate("k", "torch_fleet_demo", lambda m, out: _gate_child(
+        "torch_fleet_demo", out, device, {"TSTPU_LOCK_WITNESS": "1"}))
+    rec["fleet_soak"] = gate("l", "torch_fleet_soak", lambda m, out: _with_free_memory(
+        lambda: m.run(out, device), rec))
+    rec["timeline_export"] = gate("m", "torch_timeline_export", lambda m, out: m.run(
+        out, device, GATES_SMALL_SEGMENT_BYTES, CHUNK))
     launches = _cuda.launch_counts()
     for name, n in rec["sidecar"]["launches"].items():
         launches[name] = launches.get(name, 0) + n
@@ -4663,6 +4720,18 @@ def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") ->
     # alone; its storage cells decode tpu-huff-v1 frames.
     _gcm_launched(rec["chaos"]["launches_in_gate"], "gates (g) chaos matrix",
                   ("aes_ctr_keystream", "huffman_decode"))
+    _gcm_launched(rec["scrub"]["launches_in_gate"], "gates (i) scrub", ("huffman_decode",))
+    check(rec["fleet_demo"]["lock_witness"]["enabled"]
+          and rec["fleet_demo"]["lock_witness"]["violations"] == []
+          and rec["fleet_demo"]["race_witness"]["violations"] == [],
+          f"gates (k): witness {rec['fleet_demo']['lock_witness']}")
+    drive = rec["timeline_export"]["otherData"]["drive"]
+    check(drive["ok"], f"gates (m): {json.dumps(drive)}")
+    check(rec["timeline_export"]["otherData"]["launches"] == drive["batcher_launches"] > 0,
+          f"gates (m): export launches {rec['timeline_export']['otherData']['launches']}, "
+          f"batcher {drive['batcher_launches']}")
+    _gcm_launched(rec["timeline_export"]["launches_in_gate"], "gates (m) timeline export",
+                  ("aes_ctr_keystream", "ghash_tree"))
     _gcm_launched(launches, "gates phase",
                   ("aes_ctr_keystream", "ghash_tree", "ghash_level1", "huffman_decode"))
     return rec
@@ -4923,6 +4992,41 @@ def main(argv=None) -> int:
                                         "cells_ok": sum(c["ok"] for c in ch["cells"]),
                                         "wall_s": gates["seconds"]["g"],
                                         "launches": ch["launches"]}))
+    tail = gates["tail"]
+    print("gates tail: " + json.dumps({"card": card, "phases": {
+        name: {k: v for k, v in phase.items() if k != "latencies_ms"}
+        for name, phase in tail["phases"].items()}, **{k: tail[k] for k in (
+            "hedger", "shed", "deadline", "correctness_diffs")}}))
+    sc = gates["scrub"]
+    print("gates scrub: " + json.dumps({"card": card, "injected": len(sc["injected"]), **{
+        k: sc["pass1"][k] for k in ("repaired", "chunks_verified", "bytes_scanned",
+                                    "duration_s")},
+        "detected": len(sc["pass1"]["findings"]), "pass2_clean": sc["pass2"]["clean"],
+        "launches": sc["launches_in_gate"]}))
+    tr = gates["trace_demo"]
+    print("gates trace: " + json.dumps({"card": card, "events": len(tr["traceEvents"]),
+                                        "spans": sorted({e["name"] for e in tr["traceEvents"]})}))
+    fd = gates["fleet_demo"]
+    print("gates fleet demo: " + json.dumps({"card": card, "burst": fd["burst"],
+                                             "zipf": fd["zipf"], "kill": fd["kill"],
+                                             "fair_share": fd["fair_share"],
+                                             "byte_diffs": fd["byte_diffs"],
+                                             "lock_edges": fd["lock_witness"]["edges"],
+                                             "wall_s": gates["seconds"]["k"]}))
+    so = gates["fleet_soak"]
+    print("gates fleet soak: " + json.dumps({"card": card, "device": so["device"], **{
+        k: so[k] for k in ("byte_diffs", "retried_requests", "failover")},
+        "kill_convergence_periods": so["kill"]["convergence_periods"],
+        "kill_convergence_wall_s": so["kill"]["convergence_wall_s"],
+        "rejoin_convergence_periods": so["rejoin"]["convergence_periods"],
+        "orphans": so["lifecycle_drill"]["orphans_after_restart_sweep"],
+        "card_mib_held": gates["soak_card_mib_held"], "wall_s": gates["seconds"]["l"]}))
+    tl = gates["timeline_export"]["otherData"]
+    print("gates timeline export: " + json.dumps({"card": card, "launches": tl["launches"],
+                                                  "records": tl["records"], **{
+        k: v for k, v in tl["drive"].items() if k != "mismatched_reads"},
+        "events": len(gates["timeline_export"]["traceEvents"]),
+        "launches_in_gate": gates["timeline_export"]["launches_in_gate"]}))
 
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     _gcm_launched(mesh["launches"], "mesh phase", ("aes_ctr_keystream", "ghash_tree"))

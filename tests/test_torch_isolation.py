@@ -144,6 +144,12 @@ _GATES = (
     "tools/torch_failover_demo.py",
     "tools/torch_chaos_matrix.py",
     "tools/torch_multichip_demo.py",
+    "tools/torch_tail_demo.py",
+    "tools/torch_scrub_demo.py",
+    "tools/torch_trace_demo.py",
+    "tools/torch_timeline_export.py",
+    "tools/torch_fleet_demo.py",
+    "tools/torch_fleet_soak.py",
 )
 _DEMO = "demo/torch_run_demo.py"
 

@@ -24,6 +24,7 @@ import numpy as np
 
 from tieredstorage_tpu_torch.manifest.chunk import Chunk
 from tieredstorage_tpu_torch.manifest.codec import decode_chunk_sizes, encode_chunk_sizes
+from tieredstorage_tpu_torch.storage.core import BytesRange
 
 
 def _check_positive(value: int, name: str) -> None:
@@ -84,6 +85,14 @@ class ChunkIndex(abc.ABC):
             return None
         return self._chunk_at(offset // self.original_chunk_size)
 
+    def chunks_for_range(self, bytes_range: BytesRange) -> list[Chunk]:
+        if self.original_file_size == 0 or bytes_range.from_position >= self.original_file_size:
+            return []
+        first = bytes_range.from_position // self.original_chunk_size
+        last_offset = min(bytes_range.to_position, self.original_file_size - 1)
+        last = last_offset // self.original_chunk_size
+        return [self._chunk_at(i) for i in range(first, last + 1)]
+
     def chunks(self) -> list[Chunk]:
         if self.chunk_count == 0:
             return [Chunk(0, 0, 0, 0, 0)]
@@ -93,6 +102,11 @@ class ChunkIndex(abc.ABC):
     def total_transformed_size(self) -> int:
         """Bytes of the stored object (the scrubber's size check)."""
         return int(self._transformed_starts[-1])
+
+    def transformed_start_offsets(self) -> np.ndarray:
+        """int64[chunk_count+1] prefix-sum table: chunk i is stored at
+        [starts[i], starts[i+1])."""
+        return self._transformed_starts
 
 
 class FixedSizeChunkIndex(ChunkIndex):
