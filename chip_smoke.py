@@ -43,15 +43,16 @@ Phases, in order, each printing its seconds:
              (checked after phase 7);
 6. scheduler and scrub — a fresh store, the window batcher on (JAX
              defaults: 2 ms, 16 windows, 64 MiB) and the scrubber with upload
-             checksums, `scrub.rate.bytes` 512 MiB/s (cut from the 8 MiB/s
-             default, which would take about 128 s a pass), the launch
+             checksums, `scrub.rate.bytes` 256 MiB/s (cut from the 8 MiB/s
+             default, which would take about 64 s a pass), the launch
              counts zeroed before (a) and read after (d): (a) 4 threads copy
-             4 segments of 256 MiB (64 CRC32C checksums each, 8 seeded ones
-             held against the host table); (b) 8 consumers, 4 on each of 2
-             segments, read their own 64 MiB slices in 1 MiB reads, once with
+             4 segments of 128 MiB (cut from 256 MiB for time; 32 CRC32C
+             checksums each, 8 seeded ones held against the host table);
+             (b) 8 consumers, 4 on each of 2 segments, read their own 32 MiB
+             slices in 1 MiB reads, once with
              the batcher and once on an RSM without it (a merged launch of
              occupancy >= 2, AES and the tree on >= 8 rows); (c) a scrub pass
-             over the store under 2 reading consumers (clean, 256 chunks,
+             over the store under 2 reading consumers (clean, 128 chunks,
              background-class launches, no merged launch mixing classes);
              (d) one flipped byte found by CRC32C on its chunk, the segment
              quarantined, another segment still identical. Then the CRC32C
@@ -66,7 +67,8 @@ Phases, in order, each printing its seconds:
              torch.profiler (the table build's share);
              the compressed path: a fresh store, compression.codec
              tpu-huff-v1 with encryption, a 1 GiB Kafka-shaped segment
-             (--segment-mib) copied, fetched whole and read in 64
+             (--segment-mib) copied, its first 128 MiB fetched (cut from
+             the whole segment for time) and read in 64
              seeded 1 MiB ranges, every byte compared, the manifest's codec,
              the ratio, a flipped ciphertext byte that must fail with
              AuthenticationError, launch counts zeroed before the copy and
@@ -163,15 +165,16 @@ Phases, in order, each printing its seconds:
              `slo_status()`'s latency, error and shed objectives.
 
 12. sidecar — the main path's keys behind this package's sidecar, the
-             launch counts zeroed before (a) and read after (c): (a) the
-             1 GiB segment through the shim-wire gateway over loopback as
+             launch counts zeroed before (a) and read after (c), (a)-(c)
+             on a 128 MiB segment (cut from 1 GiB for time): (a) the
+             segment through the shim-wire gateway over loopback as
              the broker's shim calls it (`POST /v1/copy` with chunked
              transfer, a whole streamed `/v1/fetch`, 64 seeded 1 MiB ranges,
              every index through `/v1/fetch-index`, `/v1/delete`, then a
              404) and the same calls in process, in turns (gateway, plain,
              plain, gateway): every byte equal, AES, the tree and L1
              launched through the gateway, the gateway-over-plain ratios;
-             (b) 8 keep-alive connections read their own 64 MiB slices in
+             (b) 8 keep-alive connections read their own 16 MiB slices in
              1 MiB fetches through one gateway over the batcher at phase 6's
              settings: wall, p50/p99, merged launches, one worker for each
              connection within `sidecar.http.max.workers`; (c) admission 2 + 2 with both slots
@@ -184,7 +187,7 @@ Phases, in order, each printing its seconds:
              off; `/chunk` 404 "fleet mode disabled"; (d) `python -m
              tieredstorage_tpu_torch.sidecar --http-port 0 --metrics-port 0`
              over a config of this package's classes (the default
-             `transform.device`): a 256 MiB segment (cut for time) over the
+             `transform.device`): a 128 MiB segment (cut for time) over the
              shim wire and over gRPC, GCM windows in the child's scrape,
              the card memory the child holds and gives back, SIGTERM and
              exit 0; (e) (a)'s ranges and (b)'s fan-in at 64 MiB (cut for
@@ -285,7 +288,18 @@ Phases, in order, each printing its seconds:
              while they run; (m) tools/torch_timeline_export.py
              driving its own gateway (encryption, timeline, flight records,
              the batcher) over a 64 MiB segment, the export's launches equal
-             to the batcher's. Each report is ok (written under the --out
+             to the batcher's; (n) tools/torch_load_demo.py's capacity
+             probe (1024 streams, batched, batched under background scrub,
+             unbatched) and readahead A/B (96 segments a consumer) at the
+             JAX gate's constants, then its witness verdict, a child with
+             TSTPU_LOCK_WITNESS=1, which must launch AES and a GHASH kernel
+             (the whole gate stops at its SLO burn_rate_long check, as the
+             JAX gate does); (o) tools/torch_segment_scale_probe.py
+             on a 1 GiB tpu-huff-v1 + encrypted segment, a child (its peak
+             RSS is its own): warm < 0.9 x cold, dispatch < 0.15 x warm,
+             peak RSS growth < 2 x the segment, the warm copy < 256 MiB
+             more, 4 exact ranges, and AES, the tree, level 1 and the
+             decoder launched. Each report is ok (written under the --out
              directory's gates/), and AES, the GHASH tree, level 1 and the
              decoder were launched.
 
@@ -359,8 +373,9 @@ B1_TC_BIT_PRODUCTS_PER_S = 4.082e15
 #: the CRC32C tree's bit products are float32 matmuls with TF32 off.
 FP32_FLOPS_PER_S = 67e12
 #: Phase 6's scrub budget: `scrub.rate.bytes` cut from the 8 MiB/s default
-#: so a pass over 1 GiB takes seconds, not minutes.
-SCRUB_RATE = 512 * MIB
+#: so a pass over its 512 MiB takes seconds, not minutes; twice the pass's
+#: one-second burst, so the rate floor it is checked against stays 1 s.
+SCRUB_RATE = 256 * MIB
 #: Phase 8's object-store legs besides S3's: 256 MiB, cut from 1 GiB for time.
 STORAGE_CUT_BYTES = 256 * MIB
 REPO = Path(__file__).resolve().parent
@@ -953,8 +968,13 @@ def crc32c_timing(seed: int, device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "macs": macs, "bytes": nbytes}
 
 
+#: Phase 6's segments: 128 MiB, cut from 256 MiB (itself cut from 1 GiB)
+#: for time when phase 16 grew its parts (n) and (o).
+SCHEDULER_SEGMENT_BYTES = 128 * MIB
+
+
 def scheduler_scrub(seed: int, work: Path, device: str = "cuda:0",
-                    segment_bytes: int = 256 * MIB, segments: int = 4) -> dict:
+                    segment_bytes: int = SCHEDULER_SEGMENT_BYTES, segments: int = 4) -> dict:
     """Phase 6: the window batcher and the scrub plane on one fresh store;
     the launch counts are zeroed before (a) and read after (d)."""
     from tieredstorage_tpu_torch.fetch.chunk_manager import CorruptChunkException
@@ -1050,7 +1070,7 @@ def scheduler_scrub(seed: int, work: Path, device: str = "cuda:0",
                    "checksums_checked": 8, "batcher": copy_delta}
 
     # (b) Concurrent consumers: 8 threads (Kafka's num.io.threads), 4 on
-    # each of 2 segments, each reading its own 64 MiB slice in 1 MiB reads.
+    # each of 2 segments, each reading its own quarter in 1 MiB reads.
     slice_bytes = segment_bytes // 4
 
     def consumers(reader) -> dict:
@@ -1290,10 +1310,17 @@ def decode_kernel_phase(seed: int, device) -> dict:
     )
 
 
+#: Phase 7's compressed fetch reads the segment's first 128 MiB (cut from
+#: the whole 1 GiB for time: the fetch reads about 0.016 GiB/s, 64 s a GiB
+#: on the H100).
+CODEC_FETCH_CUT_BYTES = 128 * MIB
+
+
 def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
     """The compressed main path: the port's RSM over a filesystem store with
     compression.codec=tpu-huff-v1 and encryption, a Kafka-shaped segment:
-    copy, whole fetch, 64 seeded 1 MiB ranged reads, every byte compared, a
+    copy, a fetch of its first CODEC_FETCH_CUT_BYTES (the whole segment
+    when smaller), 64 seeded 1 MiB ranged reads, every byte compared, a
     flipped ciphertext byte that must fail with AuthenticationError, then a
     delete. Launch counts are zeroed just before the copy and read just
     after the delete."""
@@ -1326,11 +1353,13 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     rec["stored_log_bytes"] = log_obj.stat().st_size
     rec["ratio"] = rec["stored_log_bytes"] / segment_bytes
 
+    fetch_bytes = min(segment_bytes, CODEC_FETCH_CUT_BYTES)
     t = time.perf_counter()
-    with rsm.fetch_log_segment(md, 0) as stream:
+    with rsm.fetch_log_segment(md, 0, fetch_bytes - 1) as stream:
         fetched = stream.read()
     rec["fetch_s"] = time.perf_counter() - t
-    check(fetched == source, "whole compressed-segment fetch differs from the source")
+    rec["fetch_bytes"] = fetch_bytes
+    check(fetched == source[:fetch_bytes], "compressed-segment fetch differs from the source")
     del fetched
 
     rng = np.random.default_rng(seed + 2)
@@ -1371,7 +1400,7 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     rec["launch_rows"] = _cuda.launch_rows()
     gib = segment_bytes / (1 << 30)
     rec["copy_gib_s"] = gib / rec["copy_s"]
-    rec["fetch_gib_s"] = gib / rec["fetch_s"]
+    rec["fetch_gib_s"] = fetch_bytes / (1 << 30) / rec["fetch_s"]
     rec["ranged_1mib_p50_ms"] = float(np.percentile(latencies, 50))
     rec["ranged_1mib_p99_ms"] = float(np.percentile(latencies, 99))
     return rec
@@ -2919,7 +2948,13 @@ def failure_policy_phase(seed: int, segment_bytes: int, work: Path, device: str 
     return out
 
 
-SIDECAR_CUT_BYTES = 256 * MIB
+#: (d)'s segment: 128 MiB, cut from 1 GiB (256 MiB before phase 16 grew its
+#: parts (n) and (o)) for time.
+SIDECAR_CUT_BYTES = 128 * MIB
+#: (a)-(c)'s segment: 128 MiB, cut from 1 GiB for time when phase 16 grew
+#: its parts (n) and (o) (so (b)'s 8 connections read 16 MiB each, cut from
+#: 64 MiB).
+SIDECAR_SEGMENT_BYTES = 128 * MIB
 #: Phase 12 (e)'s witness children: two (witness off, on) at 64 MiB, cut
 #: from four in turns at 256 MiB so that the smoke, phase 13 included,
 #: stays near 700 s.
@@ -4384,6 +4419,8 @@ GATES_CRC_SAMPLES_PER_CALL = 64
 GATES_CRC_SAMPLES = 256
 GATES_TOPIC = "gates-topic"
 GATES_BASE_TS = 1_700_000_000_000
+#: (o)'s segment: Kafka's log.segment.bytes, as tests/test_segment_scale.py.
+GATES_SCALE_BYTES = 1024 * MIB
 
 
 def _record_keys(offsets: np.ndarray) -> np.ndarray:
@@ -4594,17 +4631,58 @@ def _tool(name: str):
     return module
 
 
-def _gate_child(name: str, out: Path, device: str, env: dict) -> int:
-    """Run tools/<name>.py in a child process (for a gate whose setting is
-    read when locks are made, such as the lock witness); its exit code."""
+def _gate_child(name: str, out: Path, device: str, env: dict, args=()) -> int:
+    """Run tools/<name>.py with `args` in a child process (for a gate whose
+    setting is read when locks are made, such as the lock witness, or whose
+    peak RSS must be its own); its exit code."""
     proc = subprocess.run(
         [sys.executable, str(REPO / "tools" / f"{name}.py"), "--out", str(out),
-         "--device", device],
+         "--device", device, *args],
         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO), **env), capture_output=True,
         text=True, timeout=600)
     check(proc.returncode == 0, f"gates {name}: exit {proc.returncode}\n"
           f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
     return proc.returncode
+
+
+#: (n)'s phases of tools/torch_load_demo.py: those its JAX gate passes. The
+#: whole gate, like the JAX one, stops at its SLO section's burn_rate_long
+#: check once the closed loop outlasts the 2.4 s window after its last cold
+#: chunk fetch.
+LOAD_PHASES = ("capacity_probe", "readahead_ab")
+
+
+def _load_gate_checks(report: dict, device: str) -> dict:
+    """(n)'s checks beyond the gate's: its phases ran, the witness armed and
+    silent, and on the card AES and a GHASH kernel launched in the child.
+    Returns which GHASH kernel ran at the probe's 4 KiB chunks and at the
+    readahead's 1 KiB chunks."""
+    check(report["phases"] == list(LOAD_PHASES), f"gates (n): phases {report['phases']}")
+    witness = report["witness"]
+    check(witness["enabled"] and witness["lock_violations"] == []
+          and witness["race_violations"] == [], f"gates (n): witness {witness}")
+    launches = report["launches"]
+    ghash = {part: [k for k in ("ghash_tree", "ghash_level1") if launches[part].get(k, 0) > 0]
+             for part in LOAD_PHASES}
+    if torch.device(device).type == "cuda":
+        check(launches["total"]["aes_ctr_keystream"] > 0
+              and launches["total"]["ghash_tree"] + launches["total"]["ghash_level1"] > 0,
+              f"gates (n): the load gate launched {launches['total']}")
+    return ghash
+
+
+def _segment_scale_checks(report: dict, device: str) -> None:
+    """(o)'s checks: every check of the report true, and on the card AES,
+    the tree and level 1 launched by the copies, AES and the decoder by the
+    ranged reads."""
+    check(all(v is True for v in report["checks"].values()),
+          f"gates (o): checks {report['checks']}")
+    if torch.device(device).type == "cuda":
+        cold, warm = (report["copies"][c]["launches"] for c in ("cold", "warm"))
+        copies = {name: cold[name] + warm[name] for name in cold}
+        _gcm_launched(copies, "gates (o) copies")
+        _gcm_launched(report["ranges_launches"], "gates (o) ranges",
+                      ("aes_ctr_keystream", "huffman_decode"))
 
 
 def _with_free_memory(run, rec: dict) -> int:
@@ -4637,9 +4715,11 @@ def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") ->
     segments; (b) the same with tpu-huff-v1, 1 x 1 smaller segment; (c)
     over the sidecar child over gRPC, 1 x 2 smaller segments; (d)-(g) the
     transform, hot, failover and chaos gates' twins, (h)-(m) the tail,
-    scrub, trace, fleet demo, fleet soak and timeline export twins
+    scrub, trace, fleet demo, fleet soak and timeline export twins, (n) the
+    load and SLO chaos gate's twin and (o) the segment-scale probe at 1 GiB
     (tools/torch_*), their reports under `out_dir`/gates. Launch counts are
-    zeroed before (a) and read after (m), (c)'s child's added."""
+    zeroed before (a) and read after (o), the children's of (c), (n) and (o)
+    added."""
     from tieredstorage_tpu_torch.ops import _cuda
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
     from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
@@ -4705,9 +4785,20 @@ def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") ->
         lambda: m.run(out, device), rec))
     rec["timeline_export"] = gate("m", "torch_timeline_export", lambda m, out: m.run(
         out, device, GATES_SMALL_SEGMENT_BYTES, CHUNK))
+    rec["load"] = gate("n", "torch_load_demo", lambda m, out: _gate_child(
+        "torch_load_demo", out, device, {"TSTPU_LOCK_WITNESS": "1"},
+        ("--phases", ",".join(LOAD_PHASES))))
+    rec["segment_scale"] = gate("o", "torch_segment_scale_probe", lambda m, out: _gate_child(
+        "torch_segment_scale_probe", out, device, {},
+        ("--mib", str(GATES_SCALE_BYTES // MIB), "--work", str(work / "segment_scale"))))
     launches = _cuda.launch_counts()
-    for name, n in rec["sidecar"]["launches"].items():
-        launches[name] = launches.get(name, 0) + n
+    children = [rec["sidecar"]["launches"], rec["load"]["launches"]["total"],
+                rec["segment_scale"]["copies"]["cold"]["launches"],
+                rec["segment_scale"]["copies"]["warm"]["launches"],
+                rec["segment_scale"]["ranges_launches"]]
+    for child in children:
+        for name, n in child.items():
+            launches[name] = launches.get(name, 0) + n
     rec["launches"] = launches
     _gcm_launched(rec["broker"]["launches"], "gates (a) broker")
     _gcm_launched(rec["huff"]["launches"], "gates (b) compressed broker",
@@ -4732,6 +4823,8 @@ def gates_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") ->
           f"batcher {drive['batcher_launches']}")
     _gcm_launched(rec["timeline_export"]["launches_in_gate"], "gates (m) timeline export",
                   ("aes_ctr_keystream", "ghash_tree"))
+    rec["load_ghash_kernels"] = _load_gate_checks(rec["load"], device)
+    _segment_scale_checks(rec["segment_scale"], device)
     _gcm_launched(launches, "gates phase",
                   ("aes_ctr_keystream", "ghash_tree", "ghash_level1", "huffman_decode"))
     return rec
@@ -4814,7 +4907,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase scheduler and scrub: {record['scheduler_s']:.1f} s "
-          f"(scrub.rate.bytes cut to {SCRUB_RATE} from 8388608 for time)")
+          f"(scrub.rate.bytes cut to {SCRUB_RATE} from 8388608, segments to "
+          f"{SCHEDULER_SEGMENT_BYTES} bytes, for time)")
     record["scheduler"] = sched
     print("scheduler copy: " + json.dumps(sched["copy"]))
     for mode in ("batched", "unbatched"):
@@ -4894,12 +4988,14 @@ def main(argv=None) -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_sidecar_"))
     try:
         t = time.perf_counter()
-        sidecar = sidecar_phase(args.seed, args.segment_mib * MIB, work)
+        sidecar = sidecar_phase(args.seed, min(args.segment_mib * MIB, SIDECAR_SEGMENT_BYTES),
+                                work)
         record["sidecar_s"] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase sidecar: {record['sidecar_s']:.1f} s ((d) cut to {SIDECAR_CUT_BYTES} bytes "
-          f"and (e) to two children of {WITNESS_CUT_BYTES} bytes, from 1 GiB, for time)")
+    print(f"phase sidecar: {record['sidecar_s']:.1f} s ((a)-(c)'s segment cut to "
+          f"{SIDECAR_SEGMENT_BYTES} bytes, (d) to {SIDECAR_CUT_BYTES} bytes and (e) to two "
+          f"children of {WITNESS_CUT_BYTES} bytes, from 1 GiB, for time)")
     record["sidecar"] = sidecar
     for part in ("turns", "fan_in", "policy", "process", "witness"):
         print(f"sidecar {part}: " + json.dumps({"card": card, **sidecar[part]}))
@@ -5027,6 +5123,39 @@ def main(argv=None) -> int:
         k: v for k, v in tl["drive"].items() if k != "mismatched_reads"},
         "events": len(gates["timeline_export"]["traceEvents"]),
         "launches_in_gate": gates["timeline_export"]["launches_in_gate"]}))
+
+    ld = gates["load"]
+    probe, ra = ld["capacity_probe"], ld["readahead_ab"]
+    print("gates load: " + json.dumps({
+        "card": card, "wall_s": gates["seconds"]["n"], "phases": ld["phases"],
+        "phase_s": {p: ld[f"{p}_s"] for p in ld["phases"]},
+        "probe_streams": probe["batched"]["streams"],
+        "probe_occupancy": probe["batched"]["batch_mean_occupancy"],
+        "probe_dispatches_per_window": probe["batched"]["dispatches_per_window"],
+        "control_dispatches_per_window": probe["unbatched_control"]["dispatches_per_window"],
+        "probe_p99_ms": {m: probe[m]["fetch_p99_ms"] for m in (
+            "batched", "batched_with_scrub", "unbatched_control")},
+        "probe_slo_ok": {m: probe[m]["slo_ok"] for m in (
+            "batched", "batched_with_scrub", "unbatched_control")},
+        "isolation": probe["isolation"],
+        "readahead_p99_ms": {"on": ra["readahead_on"]["replay_p99_ms"],
+                             "off": ra["readahead_off"]["replay_p99_ms"]},
+        "readahead_launches": {"on": ra["readahead_on"]["gcm_launches"],
+                               "off": ra["readahead_off"]["gcm_launches"]},
+        "readahead_hit_rate": ra["readahead_on"]["hit_rate"],
+        "witness": {k: ld["witness"][k] for k in ("enabled", "lock_edges",
+                                                   "race_sites_validated")},
+        "launches": ld["launches"], "ghash_kernels": gates["load_ghash_kernels"],
+        "launch_rows": ld["launch_rows"]}))
+    sc = gates["segment_scale"]
+    print("gates segment scale: " + json.dumps({
+        "card": card, "wall_s": gates["seconds"]["o"], "segment_bytes": sc["segment_bytes"],
+        "codec": sc["codec"], "cold_s": sc["copies"]["cold"]["wall_s"],
+        "warm_s": sc["copies"]["warm"]["wall_s"], "serial": sc["serial"],
+        "spans_warm": sc["copies"]["warm"]["spans"], "spans_cold": sc["copies"]["cold"]["spans"],
+        "rss": sc["rss"], "staging_pool": sc["staging_pool"], "ranges": sc["ranges"],
+        "launches": {k: sc["copies"][k]["launches"] for k in ("cold", "warm")},
+        "ranges_launches": sc["ranges_launches"], "checks": sc["checks"]}))
 
     gcm_kernels = ("aes_ctr_keystream", "ghash_tree", "ghash_level1")
     _gcm_launched(mesh["launches"], "mesh phase", ("aes_ctr_keystream", "ghash_tree"))

@@ -3,8 +3,10 @@
 A subprocess installs a meta-path hook that refuses `jax`, `jaxlib` and
 `tieredstorage_tpu` (but not `tieredstorage_tpu_torch`), then imports every
 module of the port, chip_smoke.py, the port's e2e harness (tests/torch_e2e),
-its demo (demo/torch_run_demo.py) and its gates (tools/torch_*_demo.py,
-tools/torch_chaos_matrix.py). The gates and the demo also refuse to run
+its demo (demo/torch_run_demo.py), its gates (tools/torch_*_demo.py,
+tools/torch_chaos_matrix.py, tools/torch_fleet_soak.py,
+tools/torch_timeline_export.py, tools/torch_segment_scale_probe.py) and
+tools/torch_mutation_test.py. The gates and the demo also refuse to run
 without CUDA unless they are asked for the CPU.
 """
 
@@ -150,13 +152,18 @@ _GATES = (
     "tools/torch_timeline_export.py",
     "tools/torch_fleet_demo.py",
     "tools/torch_fleet_soak.py",
+    "tools/torch_load_demo.py",
+    "tools/torch_segment_scale_probe.py",
 )
+#: The port's tools that are not gates (no device of their own), imported
+#: by path in the sweep.
+_TOOLS = ("tools/torch_mutation_test.py",)
 _DEMO = "demo/torch_run_demo.py"
 
 
 def test_port_and_chip_smoke_import_without_jax():
     res = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, *_GATES, _DEMO], cwd=REPO, capture_output=True,
+        [sys.executable, "-c", _SCRIPT, *_GATES, *_TOOLS, _DEMO], cwd=REPO, capture_output=True,
         text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr
