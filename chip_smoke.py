@@ -43,16 +43,16 @@ Phases, in order, each printing its seconds:
              (checked after phase 7);
 6. scheduler and scrub — a fresh store, the window batcher on (JAX
              defaults: 2 ms, 16 windows, 64 MiB) and the scrubber with upload
-             checksums, `scrub.rate.bytes` 256 MiB/s (cut from the 8 MiB/s
-             default, which would take about 64 s a pass), the launch
+             checksums, `scrub.rate.bytes` 128 MiB/s (cut from the 8 MiB/s
+             default, which would take about 32 s a pass), the launch
              counts zeroed before (a) and read after (d): (a) 4 threads copy
-             4 segments of 128 MiB (cut from 256 MiB for time; 32 CRC32C
+             4 segments of 64 MiB (cut from 256 MiB for time; 16 CRC32C
              checksums each, 8 seeded ones held against the host table);
-             (b) 8 consumers, 4 on each of 2 segments, read their own 32 MiB
+             (b) 8 consumers, 4 on each of 2 segments, read their own 16 MiB
              slices in 1 MiB reads, once with
              the batcher and once on an RSM without it (a merged launch of
              occupancy >= 2, AES and the tree on >= 8 rows); (c) a scrub pass
-             over the store under 2 reading consumers (clean, 128 chunks,
+             over the store under 2 reading consumers (clean, 64 chunks,
              background-class launches, no merged launch mixing classes);
              (d) one flipped byte found by CRC32C on its chunk, the segment
              quarantined, another segment still identical. Then the CRC32C
@@ -68,7 +68,8 @@ Phases, in order, each printing its seconds:
              the compressed path: a fresh store, compression.codec
              tpu-huff-v1 with encryption, a 1 GiB Kafka-shaped segment
              (--segment-mib) copied, its first 128 MiB fetched (cut from
-             the whole segment for time) and read in 64
+             the whole segment for time), each chunk the ranges touch read
+             once untimed, and read in 64
              seeded 1 MiB ranges, every byte compared, the manifest's codec,
              the ratio, a flipped ciphertext byte that must fail with
              AuthenticationError, launch counts zeroed before the copy and
@@ -97,7 +98,8 @@ Phases, in order, each printing its seconds:
 9. lifecycle, repair and faults — the main path's keys on a fresh store,
              the launch counts zeroed before (a) and read after (d): (a) with
              the upload intent journal (`lifecycle.*`, a 1 s grace), a copy of
-             the 1 GiB segment killed at its third upload (the manifest) by a
+             a 256 MiB segment (cut from 1 GiB for time) killed at its third
+             upload (the manifest) by a
              BaseException that escapes the rollback; a fresh RSM over the
              same journal and store, whose startup sweep must delete exactly
              the two stranded objects; the retried copy, a whole fetch, a
@@ -115,8 +117,8 @@ Phases, in order, each printing its seconds:
 10. observability — the main path's keys on fresh stores, the launch
              counts zeroed before (a) and read after (c): (a) a plain RSM and
              one with `tracing.enabled`, `flight.enabled`, `timeline.enabled`
-             and `tracing.export.path` copy and fetch the 1 GiB segment in
-             turns (plain, observed, observed, plain; the cost is mean
+             and `tracing.export.path` copy and fetch a 256 MiB segment (cut
+             from 1 GiB for time) in turns (plain, observed, observed, plain; the cost is mean
              observed / mean plain - 1), then 64 seeded 1 MiB ranged reads on
              the observed RSM, each inside a flight record: the wall time of
              each `fetch_log_segment` call against the `remote-fetch-time`
@@ -373,9 +375,9 @@ B1_TC_BIT_PRODUCTS_PER_S = 4.082e15
 #: the CRC32C tree's bit products are float32 matmuls with TF32 off.
 FP32_FLOPS_PER_S = 67e12
 #: Phase 6's scrub budget: `scrub.rate.bytes` cut from the 8 MiB/s default
-#: so a pass over its 512 MiB takes seconds, not minutes; twice the pass's
-#: one-second burst, so the rate floor it is checked against stays 1 s.
-SCRUB_RATE = 256 * MIB
+#: so a pass over its 256 MiB takes seconds, not minutes; half the bytes of
+#: the pass, so the rate floor it is checked against stays 1 s.
+SCRUB_RATE = 128 * MIB
 #: Phase 8's object-store legs besides S3's: 256 MiB, cut from 1 GiB for time.
 STORAGE_CUT_BYTES = 256 * MIB
 REPO = Path(__file__).resolve().parent
@@ -968,9 +970,12 @@ def crc32c_timing(seed: int, device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "macs": macs, "bytes": nbytes}
 
 
-#: Phase 6's segments: 128 MiB, cut from 256 MiB (itself cut from 1 GiB)
+#: Phase 6's segments: 64 MiB, cut from 256 MiB (itself cut from 1 GiB)
 #: for time when phase 16 grew its parts (n) and (o).
-SCHEDULER_SEGMENT_BYTES = 128 * MIB
+SCHEDULER_SEGMENT_BYTES = 64 * MIB
+#: Phases 9 and 10's segment: 256 MiB, cut from 1 GiB for time when phase
+#: 16 grew its parts (n) and (o).
+LIFECYCLE_CUT_BYTES = OBSERVABILITY_CUT_BYTES = 256 * MIB
 
 
 def scheduler_scrub(seed: int, work: Path, device: str = "cuda:0",
@@ -1320,7 +1325,8 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     """The compressed main path: the port's RSM over a filesystem store with
     compression.codec=tpu-huff-v1 and encryption, a Kafka-shaped segment:
     copy, a fetch of its first CODEC_FETCH_CUT_BYTES (the whole segment
-    when smaller), 64 seeded 1 MiB ranged reads, every byte compared, a
+    when smaller), one untimed read of each chunk the ranged reads touch,
+    64 seeded 1 MiB ranged reads, every byte compared, a
     flipped ciphertext byte that must fail with AuthenticationError, then a
     delete. Launch counts are zeroed just before the copy and read just
     after the delete."""
@@ -1363,9 +1369,20 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     del fetched
 
     rng = np.random.default_rng(seed + 2)
+    offsets = [int(off) for off in rng.integers(0, segment_bytes - MIB, 64)]
+    # Untimed, one read of each chunk the timed reads touch: they then find
+    # the GCM contexts of those chunks' sizes built (one a compressed size),
+    # as they did after the whole-segment fetch before it was cut.
+    touched = sorted({c for off in offsets for c in range(off // CHUNK, (off + MIB - 1) // CHUNK + 1)})
+    t = time.perf_counter()
+    for c in touched:
+        start, end = c * CHUNK, min(segment_bytes, (c + 1) * CHUNK) - 1
+        with rsm.fetch_log_segment(md, start, end) as stream:
+            check(stream.read() == source[start : end + 1], f"compressed chunk {c} differs")
+    rec["ranged_warm_chunks"] = len(touched)
+    rec["ranged_warm_s"] = time.perf_counter() - t
     latencies = []
-    for off in rng.integers(0, segment_bytes - MIB, 64):
-        off = int(off)
+    for off in offsets:
         t = time.perf_counter()
         with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
             part = stream.read()
@@ -4939,12 +4956,13 @@ def main(argv=None) -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
     try:
         t = time.perf_counter()
-        life = lifecycle_phase(args.seed, args.segment_mib * MIB, work)
+        life = lifecycle_phase(args.seed, min(args.segment_mib * MIB, LIFECYCLE_CUT_BYTES), work)
         record["lifecycle_s"] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase lifecycle, repair and faults: {record['lifecycle_s']:.1f} s "
-          "(replication.antientropy.rate.bytes unthrottled, cut from 8388608 for time)")
+          f"(segment cut to {LIFECYCLE_CUT_BYTES} bytes from 1 GiB, "
+          "replication.antientropy.rate.bytes unthrottled, cut from 8388608, for time)")
     record["lifecycle"] = life
     sweep = life["sweep"]
     print("lifecycle sweep: " + json.dumps({"card": card, **{k: sweep[k] for k in (
@@ -4962,11 +4980,13 @@ def main(argv=None) -> int:
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_observability_"))
     try:
         t = time.perf_counter()
-        obs = observability_phase(args.seed, args.segment_mib * MIB, work)
+        obs = observability_phase(
+            args.seed, min(args.segment_mib * MIB, OBSERVABILITY_CUT_BYTES), work)
         record["observability_s"] = time.perf_counter() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase observability: {record['observability_s']:.1f} s")
+    print(f"phase observability: {record['observability_s']:.1f} s (segment cut to "
+          f"{OBSERVABILITY_CUT_BYTES} bytes from 1 GiB for time)")
     record["observability"] = obs
     for part in ("cost", "ranged", "flight", "scrape", "timeline", "profile"):
         print(f"observability {part}: " + json.dumps({"card": card, **obs[part]}))

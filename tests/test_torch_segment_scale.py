@@ -10,7 +10,8 @@ the counterpart of tests/test_segment_scale.py.
   test's bounds leave room for the XLA CPU arena, here they leave it for
   the port's pinned staging pool. Runs, as in JAX, only under
   TSTPU_SEGMENT_SCALE=1 (TSTPU_SEGMENT_SCALE_MIB, default 1024), on cuda:0
-  when there is a card, else on the CPU.
+  when there is a card, else on the CPU, with the probe as a child, so
+  that the high-water mark it reads is its own.
 - `test_small_segment_matches_the_jax_probe` (always): a 2 MiB segment in
   256 KiB chunks on the CPU. The twin's stored warm segment reads back byte
   for byte through the JAX package's RSM; each copy's span names equal
@@ -26,6 +27,7 @@ runs where JAX is not installed (`--noconftest`).
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import re
 import subprocess
@@ -56,7 +58,16 @@ def _probe():
 def test_one_gib_segment_streams_through_the_card(tmp_path):
     total = int(os.environ.get("TSTPU_SEGMENT_SCALE_MIB", 1024)) << 20
     device = "cuda:0" if torch.cuda.is_available() else "cpu"
-    report = _probe().run(total, tmp_path, device)
+    out = tmp_path / "report.json"
+    # A process of its own: its high-water mark is the probe's alone.
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_segment_scale_probe.py"),
+         "--mib", str(total >> 20), "--out", str(out), "--work", str(tmp_path / "work"),
+         "--device", device],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=1800)
+    assert proc.returncode in (0, 1) and out.exists(), proc.stdout[-2000:] + proc.stderr[-3000:]
+    report = json.loads(out.read_text())
     checks, copies = report["checks"], report["copies"]
     cold_s, warm_s = copies["cold"]["wall_s"], copies["warm"]["wall_s"]
     assert checks["warm_faster"], f"warm copy {warm_s:.1f}s vs cold {cold_s:.1f}s"

@@ -35,8 +35,9 @@ REPORT as JSON:
   the SLO section's `fetch-latency` `burn_rate_long` check, which both
   gates fail once the closed loop outlasts the long window after its last
   cold chunk fetch, and the timeline phase's exemplar search, which finds
-  no request that both forwarded a chunk and rode a merged launch when a
-  loaded host serialises the burst. The report as it stood then is written
+  no request that both forwarded a chunk and rode a merged launch when
+  its burst, whose segment the origin owns, forwards nothing and the
+  closed loop left no such record. The report as it stood then is written
   with `"stopped_at"` naming the check and its message as `"verdict"`. Any
   other failure fails the run.
 

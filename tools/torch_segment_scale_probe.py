@@ -8,8 +8,8 @@ tests/test_segment_scale.py, over `tieredstorage_tpu_torch` on `cuda:0`
 (or the CPU with `--device cpu`). The same segment builder
 (`build_segment`, a copy of the JAX test's `_build_segment`: semi-
 compressible, written in 16 MiB pieces, a v2 batch header first), 4 MiB
-chunks, compression (`tpu-huff-v1` unless `SSP_CODEC` or `--codec` says
-otherwise; the card has no zstd route) and encryption on,
+chunks, compression (`tpu-huff-v1` unless `SSP_CODEC` says otherwise; the
+card has no zstd route) and encryption on,
 `upload.rate.limit.bytes.per.second` 1 GiB/s, tracing on. It copies the
 segment twice (cold, then warm) with each copy's spans summed by name,
 times a serial baseline over two windows of `transform()`, reads 4
@@ -26,18 +26,28 @@ the JAX test; the baseline follows them):
   block the pipeline thread;
 - constant host memory: peak-RSS growth over both copies < 2 x the
   segment when the segment is >= 1 GiB, and the warm copy adds
-  < max(segment / 4, 192 MiB). The resident set is sampled every 10 ms
-  during each copy (/proc/self/statm) against its size before the
-  copies: the high-water mark the JAX test reads (`ru_maxrss`) can start
-  at the peak of the process this one was forked from. In JAX the slack in these bounds is the
-  XLA CPU runtime's arena; here it is the port's pinned staging pool
-  (`transform/cuda.py` `_StagingPool`: up to 4 host buffers a window
-  shape, pinned on the card, kept across copies), which the report
-  lists by shape with its bytes;
+  < max(segment / 4, 192 MiB). A copy's peak is the high-water mark
+  (`VmHWM`, /proc/self/status) where the copy raised it, else the largest
+  resident set (/proc/self/statm) sampled every 10 ms during the copy;
+  the growth is against the resident set before the copies. The mark
+  alone does not do: not every kernel writes VmHWM (the H100 hosts of
+  chip_smoke.py do not), and `ru_maxrss` there starts in a child of the
+  smoke at the smoke's own peak (~20 GB), which a copy does not reach.
+  The samples miss only a rise and fall inside 10 ms, less than the host
+  can fault in that time. In JAX the
+  slack in these bounds is the XLA CPU runtime's arena; here it is the
+  CUDA context with the kernel library, and the port's pinned staging
+  pool (`transform/cuda.py` `_StagingPool`: up to 4 host buffers a window
+  shape, pinned on the card, kept across copies). The report splits the
+  growth: the resident set before and after each copy, what a CUDA
+  context and the kernel library add to a fresh process (measured after
+  the copies, in a child of this one, so that the cold copy still pays
+  them), and the staging pool by shape with its bytes and the pinned-host
+  allocator under it;
 - the ranges read back byte for byte.
 
 The report (`--out`, JSON) holds the times, the spans by name of each
-copy, the RSS deltas, the staging pool, the ranges, the launches of each
+copy, the resident set and its deltas, the staging pool, the ranges, the launches of each
 CUDA kernel by copy and by the reads (`ops/_cuda.launch_counts()`), and
 `checks`. The JAX probe slices its tracer's span ring (`_spans[n0:]`, a
 deque, which fails); this one reads `tracer.spans()`.
@@ -55,9 +65,9 @@ import json
 import os
 import pathlib
 import random
-import resource
 import shutil
 import struct
+import subprocess
 import sys
 import tempfile
 import threading
@@ -139,54 +149,78 @@ def rsm_configs(root: pathlib.Path, pub: pathlib.Path, priv: pathlib.Path, chunk
     }
 
 
-def _rss_now():
-    """This process's resident set in bytes (/proc/self/statm), or None."""
-    try:
-        pages = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
-    except (OSError, ValueError, IndexError):
-        return None
-    return pages * os.sysconf("SC_PAGE_SIZE")
-
-
-def _high_water() -> int:
-    """This process's peak RSS in bytes: `VmHWM` where /proc has it, else
-    `ru_maxrss`. Both can start above this process image's own use: on
-    some hosts `ru_maxrss` keeps the peak of the process a child was
-    forked from, so the copies' growth is measured by sampling."""
-    try:
-        for line in pathlib.Path("/proc/self/status").read_text().splitlines():
-            if line.startswith("VmHWM:"):
-                return int(line.split()[1]) * 1024
-    except OSError:
-        pass
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+def _memory() -> dict:
+    """This process's resident set in bytes (`rss`, /proc/self/statm), with
+    its high-water mark (`VmHWM`) where /proc/self/status has it."""
+    pages = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
+    out = {"rss": pages * os.sysconf("SC_PAGE_SIZE")}
+    for line in pathlib.Path("/proc/self/status").read_text().splitlines():
+        name, _, value = line.partition(":")
+        if name == "VmHWM":
+            out[name] = int(value.split()[0]) * 1024
+    return out
 
 
 class _RssPeak:
-    """Samples the resident set every 10 ms while open; `peak` is the
-    largest sample (the high-water mark where /proc has no statm)."""
+    """A block's peak resident set: the high-water mark where the block
+    raised it, else the largest resident set sampled every 10 ms while the
+    block ran; `source` says which."""
 
     def __init__(self) -> None:
-        self.peak = 0
+        self.sampled = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._sample, daemon=True)
 
     def _sample(self) -> None:
         while True:
-            now = _rss_now()
-            self.peak = max(self.peak, now if now is not None else _high_water())
+            self.sampled = max(self.sampled, _memory()["rss"])
             if self._stop.wait(0.01):
                 return
 
     def __enter__(self) -> "_RssPeak":
+        self._mark = _memory().get("VmHWM")
         self._thread.start()
         return self
 
     def __exit__(self, *exc) -> None:
         self._stop.set()
         self._thread.join()
-        now = _rss_now()
-        self.peak = max(self.peak, now if now is not None else _high_water())
+        now = _memory()
+        self.sampled = max(self.sampled, now["rss"])
+        moved = self._mark is not None and now["VmHWM"] > self._mark
+        self.peak = now["VmHWM"] if moved else self.sampled
+        self.source = "VmHWM" if moved else "rss samples"
+
+
+#: Run in a fresh process: the resident set a CUDA context and the port's
+#: kernel library add (argv: the device, the tools directory).
+_CONTEXT_CHILD = r"""
+import json, sys
+import torch
+from tieredstorage_tpu_torch.ops import _cuda
+sys.path.insert(0, sys.argv[2])
+from torch_segment_scale_probe import _memory
+
+before = _memory()
+torch.zeros(1, device=sys.argv[1])
+torch.cuda.synchronize()
+_cuda.library()
+after = _memory()
+print(json.dumps({"rss": after["rss"] - before["rss"]}))
+"""
+
+
+def _context_memory(device: str):
+    """What a CUDA context and the kernel library add to a fresh process's
+    resident set (None on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    proc = subprocess.run(
+        [sys.executable, "-c", _CONTEXT_CHILD, device, str(REPO_ROOT / "tools")],
+        cwd=REPO_ROOT,
+        env=dict(os.environ, PYTHONPATH=str(REPO_ROOT)), capture_output=True, text=True,
+        timeout=300, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _launches() -> dict:
@@ -221,8 +255,14 @@ def _staging_pool(backend) -> dict:
     with pool._lock:
         held = {f"{s[0]}x{s[1]}": len(b) for s, b in pool._free.items() if b}
         held_bytes = sum(buf.numel() for bufs in pool._free.values() for buf in bufs)
+    pinned = backend.device.type == "cuda"
+    # The caching pinned-host allocator under the pool: what it holds, freed
+    # blocks included.
+    host = torch.cuda.host_memory_stats() if pinned else {}
     return {"allocations": pool.allocations, "held_buffers_by_shape": held,
-            "held_bytes": held_bytes, "pinned": backend.device.type == "cuda"}
+            "held_bytes": held_bytes, "pinned": pinned,
+            "host_allocator": {k: v for k, v in host.items()
+                               if k.split(".")[-1] in ("current", "peak")}}
 
 
 def run(total: int, work: pathlib.Path, device: str = "cuda:0", chunk: int = CHUNK,
@@ -265,11 +305,8 @@ def run(total: int, work: pathlib.Path, device: str = "cuda:0", chunk: int = CHU
     try:
         backend = rsm._transform_backend
         copies = {}
-        rss_before = _rss_now()
-        rss_source = "statm samples" if rss_before is not None else "high-water mark"
-        rss_before = rss_before if rss_before is not None else _high_water()
-        high_water_before = _high_water()
-        rss_after = {}
+        memory = {"before": _memory()}
+        peaks = {}
         for label, seg_id in (("cold", COLD_ID), ("warm", WARM_ID)):
             md = segment_metadata(metadata, seg_id, total)
             n0, dropped0 = rsm.tracer.recorded_spans, rsm.tracer.dropped_spans
@@ -278,7 +315,8 @@ def run(total: int, work: pathlib.Path, device: str = "cuda:0", chunk: int = CHU
             with _RssPeak() as peak:
                 rsm.copy_log_segment_data(md, data)
             wall = time.monotonic() - t0
-            rss_after[label] = max(peak.peak, rss_after.get("cold", rss_before))
+            memory[f"after_{label}"] = _memory()
+            peaks[label] = {"peak": peak.peak, "source": peak.source, "sampled": peak.sampled}
             copies[label] = {"wall_s": wall,
                              "spans": _by_name(_new_spans(rsm.tracer, n0, dropped0)),
                              "launches": _delta(launches0, _launches())}
@@ -286,13 +324,14 @@ def run(total: int, work: pathlib.Path, device: str = "cuda:0", chunk: int = CHU
         cold_s, warm_s = copies["cold"]["wall_s"], copies["warm"]["wall_s"]
         dispatch_s = copies["warm"]["spans"].get("transform.encrypt_dispatch",
                                                  {"total_s": 0.0})["total_s"]
-        rss_peak_delta = rss_after["warm"] - rss_before
-        rss_warm_delta = rss_after["warm"] - rss_after["cold"]
-        report["rss"] = {"source": rss_source, "before": rss_before,
-                         "peak_delta": rss_peak_delta, "warm_delta": rss_warm_delta,
-                         "cold_delta": rss_after["cold"] - rss_before,
-                         "high_water_before": high_water_before,
-                         "high_water_after": _high_water()}
+        rss_before = memory["before"]["rss"]
+        cold_peak = peaks["cold"]["peak"]
+        warm_peak = max(cold_peak, peaks["warm"]["peak"])
+        rss_peak_delta = warm_peak - rss_before
+        rss_warm_delta = warm_peak - cold_peak
+        report["rss"] = {"before": rss_before, "peak_delta": rss_peak_delta,
+                         "warm_delta": rss_warm_delta, "cold_delta": cold_peak - rss_before,
+                         "peaks": peaks, "status": memory}
         report["staging_pool"] = _staging_pool(backend)
         report["windows"] = -(-total // backend.preferred_batch_bytes)
 
@@ -332,6 +371,7 @@ def run(total: int, work: pathlib.Path, device: str = "cuda:0", chunk: int = CHU
                                "seconds": time.monotonic() - t0, "exact": got == expect})
         report["ranges"] = ranges
         report["ranges_launches"] = _delta(launches0, _launches())
+        report["rss"]["context"] = _context_memory(device)
     finally:
         rsm.close()
 
@@ -354,7 +394,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--mib", type=int, default=1024, help="segment size in MiB")
     parser.add_argument("--chunk-bytes", type=int, default=CHUNK)
-    parser.add_argument("--codec", default=CODEC)
     parser.add_argument("--out", help="JSON report path")
     parser.add_argument("--work", help="keep the segment, store and keys here")
     parser.add_argument("--device", default="cuda:0",
@@ -368,7 +407,7 @@ def main(argv=None) -> int:
         tempfile.mkdtemp(prefix="torch-segment-scale-"))
     work.mkdir(parents=True, exist_ok=True)
     try:
-        report = run(args.mib << 20, work, args.device, args.chunk_bytes, args.codec)
+        report = run(args.mib << 20, work, args.device, args.chunk_bytes)
     finally:
         if not args.work:
             shutil.rmtree(work, ignore_errors=True)
