@@ -38,9 +38,9 @@ Phases, in order, each printing its seconds:
              twice, which must load the manifest and each index from storage
              once;
 5. counts  — every GCM kernel must have launched on the main path and on
-             the fetch plane, AES and the GHASH tree in phase 6, and AES, the
-             tree and the Huffman decoder on phase 7's compressed path
-             (checked after phase 7);
+             the fetch plane, AES and the GHASH tree in phase 6, AES, the
+             tree and the Huffman decoder on phase 7's tpu-huff-v1 path, and
+             AES and a GHASH kernel on its zstd path (checked after phase 7);
 6. scheduler and scrub — a fresh store, the window batcher on (JAX
              defaults: 2 ms, 16 windows, 64 MiB) and the scrubber with upload
              checksums, `scrub.rate.bytes` 128 MiB/s (cut from the 8 MiB/s
@@ -59,24 +59,34 @@ Phases, in order, each printing its seconds:
              program on 16 x (4 MiB + 28 B) alone: device time, peak memory
              and its bound.
 
-7. codec — the native host library's build and load status; the Huffman
-             decode kernel (csrc/huffman.cu) against its plain version at 16
-             rows and one row of 4 MiB Kafka-shaped chunks (bench.py's
-             generator), bit for bit, timed, the plain version timed once,
-             with its launch shape and its two kernels' device time under
-             torch.profiler (the table build's share);
-             the compressed path: a fresh store, compression.codec
-             tpu-huff-v1 with encryption, a 1 GiB Kafka-shaped segment
-             (--segment-mib) copied, its first 128 MiB fetched (cut from
-             the whole segment for time), each chunk the ranges touch read
-             once untimed, and read in 64
+7. codec — the native host library (tieredstorage_tpu_torch/csrc/
+             transform_host.cpp, which opens libzstd.so.1 and libcrypto with
+             dlopen) built here and loaded: the phase fails when it does
+             not load; the Huffman decode kernel (csrc/huffman.cu) against
+             its plain version at 16 rows and one row of 4 MiB Kafka-shaped
+             chunks (bench.py's generator), bit for bit, timed, the plain
+             version timed once, with its launch shape and its two kernels'
+             device time under torch.profiler (the table build's share);
+             the compressed path twice, compression.codec tpu-huff-v1 and
+             then zstd (the reference's codec, level 3, on the host through
+             the native library), each with encryption on a fresh store: a
+             1 GiB Kafka-shaped segment (--segment-mib) copied, its first
+             128 MiB fetched (cut from the whole segment for time), each
+             chunk the ranges touch read once untimed, and read in 64
              seeded 1 MiB ranges, every byte compared, the manifest's codec,
              the ratio, a flipped ciphertext byte that must fail with
              AuthenticationError, launch counts zeroed before the copy and
              read after the delete (AES, the GHASH tree and the decoder must
-             launch); a 256 MiB zstd leg through the native library when it
-             loaded (else a line that says why); and tpu-lzhuff-v1 on two
-             4 MiB chunks with the LZ analysis of one row timed alone.
+             launch on tpu-huff-v1, AES and a GHASH kernel on zstd); for
+             zstd also each stored frame's declared content size against its
+             chunk's, and the libzstd.so.1 resolved and its version; the
+             host backend: 256 MiB (cut from 1 GiB for time) copied through
+             an RSM with NativeTransformBackend (zstd and AES-256-GCM on the
+             host) and read back whole, then read by an RSM on the card, and
+             a segment that RSM copied read by the native one; and
+             tpu-lzhuff-v1 on two 4 MiB chunks, its expansion through the
+             native expander held against the numpy one, with the LZ
+             analysis of one row timed alone.
 8. storage — the main path's keys (encryption on, 4 MiB chunks,
              compression off) through the object-store backends, each store
              one of the repo's emulators (tests/emulators/) in a child
@@ -168,7 +178,7 @@ Phases, in order, each printing its seconds:
 
 12. sidecar — the main path's keys behind this package's sidecar, the
              launch counts zeroed before (a) and read after (c), (a)-(c)
-             on a 128 MiB segment (cut from 1 GiB for time): (a) the
+             on a 64 MiB segment (cut from 1 GiB for time): (a) the
              segment through the shim-wire gateway over loopback as
              the broker's shim calls it (`POST /v1/copy` with chunked
              transfer, a whole streamed `/v1/fetch`, 64 seeded 1 MiB ranges,
@@ -176,7 +186,7 @@ Phases, in order, each printing its seconds:
              404) and the same calls in process, in turns (gateway, plain,
              plain, gateway): every byte equal, AES, the tree and L1
              launched through the gateway, the gateway-over-plain ratios;
-             (b) 8 keep-alive connections read their own 16 MiB slices in
+             (b) 8 keep-alive connections read their own 8 MiB slices in
              1 MiB fetches through one gateway over the batcher at phase 6's
              settings: wall, p50/p99, merged launches, one worker for each
              connection within `sidecar.http.max.workers`; (c) admission 2 + 2 with both slots
@@ -189,7 +199,7 @@ Phases, in order, each printing its seconds:
              off; `/chunk` 404 "fleet mode disabled"; (d) `python -m
              tieredstorage_tpu_torch.sidecar --http-port 0 --metrics-port 0`
              over a config of this package's classes (the default
-             `transform.device`): a 128 MiB segment (cut for time) over the
+             `transform.device`): a 64 MiB segment (cut for time) over the
              shim wire and over gRPC, GCM windows in the child's scrape,
              the card memory the child holds and gives back, SIGTERM and
              exit 0; (e) (a)'s ranges and (b)'s fan-in at 64 MiB (cut for
@@ -224,7 +234,13 @@ Phases, in order, each printing its seconds:
              through a survivor equal the source, fail over to the second
              owner and open the dead owner's breaker, and gossip declares
              it suspect, then dead within 3 + 3 + 1 periods of the last
-             heartbeat each survivor heard, with a new view epoch; (d) a
+             heartbeat each survivor heard, with a new view epoch; each
+             read's server (the second owner, a new view's owner or the
+             survivor itself), the survivor's view epoch and both members'
+             flight records of its trace are recorded (the failover is the
+             second owner's first decrypt: each member made its CUDA
+             context, kernel library and staging before it said it was
+             ready, `warm_up_device`); (d) a
              survivor's `GET /fleet/telemetry?aggregate=1` at that quiet
              moment: every summed series equals the members' own payloads
              and the dead member is unreachable; the card memory the
@@ -265,7 +281,7 @@ Phases, in order, each printing its seconds:
              (tests/torch_e2e, tools/torch_*), on cuda:0; launch counts
              zeroed before (a) and read after (m). (a) the Kafka broker
              scenario in process: encryption on, compression off, 4 MiB
-             chunks, 2 partitions each rolling 3 segments of 256 MiB (cut
+             chunks, 2 partitions each rolling 3 segments of 64 MiB (cut
              from Kafka's 1 GiB log.segment.bytes for time) and keeping a
              local active one, 1 KiB records in 16 KiB batches (Kafka's
              producer batch.size) made from --seed, every batch CRC32C
@@ -297,13 +313,15 @@ Phases, in order, each printing its seconds:
              TSTPU_LOCK_WITNESS=1, which must launch AES and a GHASH kernel
              (the whole gate stops at its SLO burn_rate_long check, as the
              JAX gate does); (o) tools/torch_segment_scale_probe.py
-             on a 1 GiB tpu-huff-v1 + encrypted segment, a child (its peak
-             RSS is its own): warm < 0.9 x cold, dispatch < 0.15 x warm,
-             peak RSS growth < 2 x the segment, the warm copy < 256 MiB
-             more, 4 exact ranges, and AES, the tree, level 1 and the
-             decoder launched. Each report is ok (written under the --out
-             directory's gates/), and AES, the GHASH tree, level 1 and the
-             decoder were launched.
+             on a 1 GiB zstd + encrypted segment (the JAX test's codec),
+             a child (its peak RSS is its own): warm < 0.9 x cold,
+             dispatch < 0.15 x warm, peak RSS growth < 2 x the segment, the
+             warm copy < 256 MiB more, 4 exact ranges, AES, the tree and
+             level 1 launched by the copies, AES and a GHASH kernel by the
+             ranges (and the decoder, were the codec tpu-huff-v1).
+             Each report is ok (written under the --out directory's
+             gates/), and AES, the GHASH tree, level 1 and the decoder were
+             launched.
 
 The last three lines are the card (`nvidia-smi` name, power limit), one JSON
 object with the per-kernel numbers, and `{"ok": true, "device": ...}`. Any
@@ -1321,15 +1339,41 @@ def decode_kernel_phase(seed: int, device) -> dict:
 CODEC_FETCH_CUT_BYTES = 128 * MIB
 
 
-def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
+def _stored_frame_sizes(rsm, md, log_obj: Path) -> list:
+    """The content size that each stored zstd frame declares, read by the
+    port's header parser (`native.frame_content_size`), against its chunk's
+    original size: (declared, original) a chunk. The frame's first 32 bytes
+    are decrypted on the host with the port's AES (`ops.aes.encrypt_block`,
+    GCM counter blocks 2 and 3 of the chunk's IV), so no kernel launches."""
+    from tieredstorage_tpu_torch import native
+    from tieredstorage_tpu_torch.ops import aes
+
+    manifest = rsm.fetch_segment_manifest(md)
+    round_keys = aes.key_expansion(manifest.encryption.data_key)
+    out = []
+    with open(log_obj, "rb") as f:
+        for chunk in manifest.chunk_index.chunks():
+            f.seek(chunk.transformed_position)
+            head = f.read(12 + 32)
+            iv, ct = head[:12], head[12:]
+            keystream = b"".join(aes.encrypt_block(round_keys, iv + n.to_bytes(4, "big"))
+                                 for n in (2, 3))
+            frame = bytes(a ^ b for a, b in zip(ct, keystream))
+            out.append((native.frame_content_size(frame), chunk.original_size))
+    return out
+
+
+def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0",
+               codec: str = "tpu-huff-v1") -> dict:
     """The compressed main path: the port's RSM over a filesystem store with
-    compression.codec=tpu-huff-v1 and encryption, a Kafka-shaped segment:
-    copy, a fetch of its first CODEC_FETCH_CUT_BYTES (the whole segment
-    when smaller), one untimed read of each chunk the ranged reads touch,
-    64 seeded 1 MiB ranged reads, every byte compared, a
-    flipped ciphertext byte that must fail with AuthenticationError, then a
-    delete. Launch counts are zeroed just before the copy and read just
-    after the delete."""
+    compression.codec=`codec` and encryption, a Kafka-shaped segment: copy,
+    a fetch of its first CODEC_FETCH_CUT_BYTES (the whole segment when
+    smaller), one untimed read of each chunk the ranged reads touch, 64
+    seeded 1 MiB ranged reads, every byte compared, a flipped ciphertext
+    byte that must fail with AuthenticationError, then a delete. For zstd
+    also each stored frame's declared content size against its chunk's
+    size. Launch counts are zeroed just before the copy and read just after
+    the delete."""
     from tieredstorage_tpu_torch.ops import _cuda
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
     from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
@@ -1342,9 +1386,9 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     pub, priv = generate_key_pair_pem_files(work, prefix="codec")
     rsm = RemoteStorageManager()
     rsm.configure(_rsm_configs(store, pub, priv, device, {
-        "compression.enabled": True, "compression.codec": "tpu-huff-v1"}))
+        "compression.enabled": True, "compression.codec": codec}))
     source = files["log"].read_bytes()
-    rec: dict = {"segment_bytes": segment_bytes, "chunk_bytes": CHUNK, "codec": "tpu-huff-v1"}
+    rec: dict = {"segment_bytes": segment_bytes, "chunk_bytes": CHUNK, "codec": codec}
 
     _cuda.reset_launch_counts()
     t = time.perf_counter()
@@ -1352,12 +1396,18 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     rec["copy_s"] = time.perf_counter() - t
     [manifest] = store.rglob("*.rsm-manifest")
     manifest = json.loads(manifest.read_text())
-    rec["manifest_codec"] = manifest.get("compressionCodec")
-    check(manifest.get("compression") is True and rec["manifest_codec"] == "tpu-huff-v1",
-          f"the manifest records {rec['manifest_codec']!r}, not tpu-huff-v1")
+    # An absent codec id reads as zstd (the reference's manifests carry none).
+    rec["manifest_codec"] = manifest.get("compressionCodec") or "zstd"
+    check(manifest.get("compression") is True and rec["manifest_codec"] == codec,
+          f"the manifest records {rec['manifest_codec']!r}, not {codec}")
     [log_obj] = store.rglob("*.log")
     rec["stored_log_bytes"] = log_obj.stat().st_size
     rec["ratio"] = rec["stored_log_bytes"] / segment_bytes
+    if codec == "zstd":
+        sizes = _stored_frame_sizes(rsm, md, log_obj)
+        wrong = [(i, d, o) for i, (d, o) in enumerate(sizes) if d != o]
+        check(not wrong, f"zstd frames declare sizes other than their chunks': {wrong[:4]}")
+        rec["frames_checked"] = len(sizes)
 
     fetch_bytes = min(segment_bytes, CODEC_FETCH_CUT_BYTES)
     t = time.perf_counter()
@@ -1365,7 +1415,7 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
         fetched = stream.read()
     rec["fetch_s"] = time.perf_counter() - t
     rec["fetch_bytes"] = fetch_bytes
-    check(fetched == source[:fetch_bytes], "compressed-segment fetch differs from the source")
+    check(fetched == source[:fetch_bytes], f"{codec} segment fetch differs from the source")
     del fetched
 
     rng = np.random.default_rng(seed + 2)
@@ -1378,7 +1428,7 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     for c in touched:
         start, end = c * CHUNK, min(segment_bytes, (c + 1) * CHUNK) - 1
         with rsm.fetch_log_segment(md, start, end) as stream:
-            check(stream.read() == source[start : end + 1], f"compressed chunk {c} differs")
+            check(stream.read() == source[start : end + 1], f"{codec} chunk {c} differs")
     rec["ranged_warm_chunks"] = len(touched)
     rec["ranged_warm_s"] = time.perf_counter() - t
     latencies = []
@@ -1387,7 +1437,8 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
         with rsm.fetch_log_segment(md, off, off + MIB - 1) as stream:
             part = stream.read()
         latencies.append((time.perf_counter() - t) * 1e3)
-        check(part == source[off : off + MIB], f"compressed ranged read at {off} differs")
+        check(part == source[off : off + MIB], f"{codec} ranged read at {off} differs")
+    rec["ranged_reads"] = len(offsets)
 
     # Flip one ciphertext byte of chunk 0 on disk (after its 12-byte IV).
     with open(log_obj, "r+b") as f:
@@ -1398,7 +1449,7 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     try:
         with rsm.fetch_log_segment(md, 0, 99) as stream:
             stream.read()
-        raise SmokeFailure("a tampered compressed chunk was served")
+        raise SmokeFailure(f"a tampered {codec} chunk was served")
     except SmokeFailure:
         raise
     except Exception as e:
@@ -1407,7 +1458,7 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
             chain.append(cur)
             cur = cur.__cause__ or cur.__context__
         check(any(isinstance(c, AuthenticationError) for c in chain),
-              f"tampered compressed fetch failed without AuthenticationError: {e!r}")
+              f"tampered {codec} fetch failed without AuthenticationError: {e!r}")
     rec["tamper_rejected"] = True
     rsm.delete_log_segment_data(md)
     left = [p for p in store.rglob("*") if p.is_file()]
@@ -1423,46 +1474,96 @@ def codec_path(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0"
     return rec
 
 
-def zstd_leg(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
-    """zstd through the native host library, when it loaded: a Kafka-shaped
-    segment copied and fetched whole with compression.codec=zstd and
-    encryption, every byte compared. When the library did not load, the
-    record says why (the JAX package's semantics: native when it loads)."""
-    from tieredstorage_tpu_torch import native
+def _libzstd() -> dict:
+    """The libzstd.so.1 this process resolves and its ZSTD_versionNumber(),
+    read through ctypes here (the package only opens it)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libzstd.so.1")
+    lib.ZSTD_versionNumber.restype = ctypes.c_uint
+    version = lib.ZSTD_versionNumber()
+    with open("/proc/self/maps") as maps:
+        paths = sorted({line.split()[-1] for line in maps if "libzstd.so" in line})
+    return {"libzstd": paths, "zstd_version": f"{version // 10000}.{version // 100 % 100}."
+            f"{version % 100}"}
+
+
+#: The host-backend leg's segment: 256 MiB a backend (cut from 1 GiB for
+#: time).
+HOST_BACKEND_BYTES = 256 * MIB
+
+
+def host_backend_leg(seed: int, work: Path, device: str = "cuda:0",
+                     segment_bytes: int = HOST_BACKEND_BYTES) -> dict:
+    """The host pipeline the reference's zstd-jni and JDK crypto stand for:
+    an RSM with transform.backend.class NativeTransformBackend (the port's
+    library: zstd through libzstd.so.1, AES-256-GCM through libcrypto),
+    zstd and encryption, over the same store and key pair as an RSM on the
+    card (CudaTransformBackend). Each copies a Kafka-shaped segment of its
+    own; the native RSM reads its own whole, and each reads the other's
+    whole, byte for byte."""
     from tieredstorage_tpu_torch.rsm import RemoteStorageManager
     from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
 
-    if native.load() is None:
-        return {"ran": False, "why": f"native library did not load: {native.load_error()}"}
-    seg_dir, store = work / "segment", work / "store"
-    seg_dir.mkdir()
+    store = work / "store"
     store.mkdir()
-    md, sd, files, _ = write_segment(seg_dir, seed + 3, segment_bytes, kafka_shaped=True)
-    pub, priv = generate_key_pair_pem_files(work, prefix="zstd")
-    rsm = RemoteStorageManager()
-    rsm.configure(_rsm_configs(store, pub, priv, device, {
-        "compression.enabled": True, "compression.codec": "zstd"}))
-    source = files["log"].read_bytes()
-    t = time.perf_counter()
-    rsm.copy_log_segment_data(md, sd)
-    copy_s = time.perf_counter() - t
-    [log_obj] = store.rglob("*.log")
-    stored = log_obj.stat().st_size
-    t = time.perf_counter()
-    with rsm.fetch_log_segment(md, 0) as stream:
-        fetched = stream.read()
-    fetch_s = time.perf_counter() - t
-    check(fetched == source, "zstd segment fetch differs from the source")
-    rsm.delete_log_segment_data(md)
-    rsm.close()
-    gib = segment_bytes / (1 << 30)
-    return {"ran": True, "segment_bytes": segment_bytes, "copy_gib_s": gib / copy_s,
-            "fetch_gib_s": gib / fetch_s, "ratio": stored / segment_bytes}
+    pub, priv = generate_key_pair_pem_files(work, prefix="host")
+    zstd_keys = {"compression.enabled": True, "compression.codec": "zstd"}
+    configs = {
+        "native": _rsm_configs(store, pub, priv, "cpu", {
+            **zstd_keys, "transform.backend.class":
+                "tieredstorage_tpu_torch.transform.native_backend.NativeTransformBackend"}),
+        "cuda": _rsm_configs(store, pub, priv, device, zstd_keys),
+    }
+    rsms, segments, rec = {}, {}, {"segment_bytes": segment_bytes}
+    for i, name in enumerate(configs):
+        rsm = rsms[name] = RemoteStorageManager()
+        rsm.configure(configs[name])
+        seg_dir = work / f"segment_{name}"
+        seg_dir.mkdir()
+        md, sd, files, _ = write_segment(seg_dir, seed + 5 + i, segment_bytes, kafka_shaped=True)
+        segments[name] = (md, files["log"].read_bytes())
+        t = time.perf_counter()
+        rsm.copy_log_segment_data(md, sd)
+        rec[f"{name}_copy_gib_s"] = segment_bytes / (1 << 30) / (time.perf_counter() - t)
+    rec["backends"] = {n: type(r.transform_backend).__name__ for n, r in rsms.items()}
+    for reader, writer in (("native", "native"), ("cuda", "native"), ("native", "cuda")):
+        md, source = segments[writer]
+        t = time.perf_counter()
+        with rsms[reader].fetch_log_segment(md, 0) as stream:
+            got = stream.read()
+        took = time.perf_counter() - t
+        check(got == source, f"host backend: {reader} reads {writer}'s segment wrong")
+        key = f"{reader}_fetch_gib_s" if reader == writer else f"{reader}_reads_{writer}_gib_s"
+        rec[key] = segment_bytes / (1 << 30) / took
+    for name, rsm in rsms.items():
+        rsm.delete_log_segment_data(segments[name][0])
+        rsm.close()
+    left = [p for p in store.rglob("*") if p.is_file()]
+    check(not left, f"host backend: delete left {len(left)} objects")
+    return rec
+
+
+@contextlib.contextmanager
+def _numpy_expander():
+    """tpu-lzhuff-v1's expansion on its numpy route: `native.lz_expand`
+    answering None, as it does where the library is absent."""
+    from tieredstorage_tpu_torch import native
+
+    native_expand = native.lz_expand
+    native.lz_expand = lambda *args: None
+    try:
+        yield
+    finally:
+        native.lz_expand = native_expand
 
 
 def lzhuff_leg(seed: int, device: str = "cuda:0", chunk: int = CHUNK) -> dict:
     """tpu-lzhuff-v1 (deprecated) on two Kafka-shaped chunks: compress and
-    read back with their wall times, and the LZ analysis alone on one row."""
+    read back with their wall times, the expansion on the native route
+    (`native.lz_expand`) held against the numpy `_expand` on the same
+    frames, and the LZ analysis alone on one row."""
+    from tieredstorage_tpu_torch import native
     from tieredstorage_tpu_torch.ops import lz
     from tieredstorage_tpu_torch.transform import lzhuff
 
@@ -1478,28 +1579,40 @@ def lzhuff_leg(seed: int, device: str = "cuda:0", chunk: int = CHUNK) -> dict:
     t = time.perf_counter()
     frames = lzhuff.compress_batch(chunks, device=device)
     compress_s = time.perf_counter() - t
+    route = "native" if native.load() is not None else "numpy"
     t = time.perf_counter()
     back = lzhuff.decompress_batch(frames, max_original_chunk_size=chunk, device=device)
     decompress_s = time.perf_counter() - t
     check(back == chunks, "tpu-lzhuff-v1 round trip differs")
-    return {"chunks": 2, "chunk_bytes": chunk, "analyze_one_row_s": analyze_s,
-            "compress_s": compress_s, "decompress_s": decompress_s,
+    with _numpy_expander():
+        t = time.perf_counter()
+        plain = lzhuff.decompress_batch(frames, max_original_chunk_size=chunk, device=device)
+        numpy_s = time.perf_counter() - t
+    check(plain == back, "tpu-lzhuff-v1: the native expander disagrees with the numpy one")
+    return {"chunks": 2, "chunk_bytes": chunk, "expander": route,
+            "analyze_one_row_s": analyze_s, "compress_s": compress_s,
+            "decompress_s": decompress_s, "decompress_numpy_expander_s": numpy_s,
             "ratio": sum(map(len, frames)) / (2 * chunk)}
 
 
 def codec_phase(seed: int, segment_bytes: int, device, card: str) -> dict:
     """Phase 7: the native library's status, the Huffman decode kernel
-    against its plain version, the compressed path, the zstd leg and the
-    tpu-lzhuff-v1 leg, each printed on a line of its own with the card."""
+    against its plain version, the compressed path with tpu-huff-v1 and then
+    zstd, the host backend against the card's, and the tpu-lzhuff-v1 leg,
+    each printed on a line of its own with the card. The phase fails when
+    the native library does not load."""
     from tieredstorage_tpu_torch import native
 
     t0 = time.perf_counter()
     t = time.perf_counter()
     lib = native.load()
     status = {"loaded": lib is not None, "build_and_load_s": time.perf_counter() - t,
+              "zstd": bool(lib is not None and lib.ts_zstd_available() == 1),
               "crypto": bool(lib is not None and lib.ts_crypto_available() == 1),
-              "error": native.load_error(), "so": str(native.so_path())}
-    print("codec native: " + json.dumps(status))
+              "error": native.load_error(), "so": str(native.so_path()),
+              "source": str(native._SOURCE.relative_to(REPO))}
+    print("codec native: " + json.dumps({"card": card, **status}))
+    check(lib is not None, f"the native library did not load: {native.load_error()}")
     out: dict = {"native": status, "card": card}
 
     decode = decode_kernel_phase(seed, device)
@@ -1509,12 +1622,16 @@ def codec_phase(seed: int, segment_bytes: int, device, card: str) -> dict:
         if k.startswith(("ms", "plain_ms", "bound", "max_abs", "lanes", "table", "threads", "blocks"))
     }}))
 
-    for name, fn, size in (("path", codec_path, segment_bytes),
-                           ("zstd", zstd_leg, 256 * MIB)):
-        work = Path(tempfile.mkdtemp(prefix=f"chip_smoke_codec_{name}_"))
+    legs = (("path", lambda w: codec_path(seed, segment_bytes, w, codec="tpu-huff-v1")),
+            ("zstd", lambda w: {**codec_path(seed, segment_bytes, w, codec="zstd"), **_libzstd(),
+                                "native_build_and_load_s": status["build_and_load_s"]}))
+    check(status["crypto"], "the native library found no libcrypto: the host backend cannot run")
+    legs += (("host backend", lambda w: host_backend_leg(seed, w)),)
+    for name, fn in legs:
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_codec_"))
         try:
             t = time.perf_counter()
-            out[name] = fn(seed, size, work)
+            out[name] = fn(work)
             out[name]["phase_s"] = time.perf_counter() - t
         finally:
             shutil.rmtree(work, ignore_errors=True)
@@ -2965,13 +3082,13 @@ def failure_policy_phase(seed: int, segment_bytes: int, work: Path, device: str 
     return out
 
 
-#: (d)'s segment: 128 MiB, cut from 1 GiB (256 MiB before phase 16 grew its
-#: parts (n) and (o)) for time.
-SIDECAR_CUT_BYTES = 128 * MIB
-#: (a)-(c)'s segment: 128 MiB, cut from 1 GiB for time when phase 16 grew
-#: its parts (n) and (o) (so (b)'s 8 connections read 16 MiB each, cut from
+#: (d)'s segment: 64 MiB, cut from 1 GiB for time (256 MiB before phase 16
+#: grew its parts (n) and (o), 128 MiB before phase 7 grew its zstd path).
+SIDECAR_CUT_BYTES = 64 * MIB
+#: (a)-(c)'s segment: 64 MiB, cut from 1 GiB for time (128 MiB before phase
+#: 7 grew its zstd path; so (b)'s 8 connections read 8 MiB each, cut from
 #: 64 MiB).
-SIDECAR_SEGMENT_BYTES = 128 * MIB
+SIDECAR_SEGMENT_BYTES = 64 * MIB
 #: Phase 12 (e)'s witness children: two (witness off, on) at 64 MiB, cut
 #: from four in turns at 256 MiB so that the smoke, phase 13 included,
 #: stays near 700 s.
@@ -3051,7 +3168,8 @@ def _shim_client(plan: dict) -> dict:
     "turn" copies, reads whole, reads `offsets` in 1 MiB ranges, fetches
     every index, deletes and gets the 404; "ranged" reads the ranges;
     "fan_in" reads `consumers` slices at once, each on one keep-alive
-    connection. Every byte is compared with the files of the plan."""
+    connection, all of them open before any reads past its first 1 MiB.
+    Every byte is compared with the files of the plan."""
     from tieredstorage_tpu_torch.sidecar import shimwire
 
     port, md_frame = plan["port"], bytes.fromhex(plan["md"])
@@ -3093,6 +3211,9 @@ def _shim_client(plan: dict) -> dict:
     else:
         latencies: list = []
         slice_bytes = plan["slice_bytes"]
+        # Each connection waits here after its first read, so that all of
+        # them are open at once however fast a slice is served.
+        together = threading.Barrier(plan["consumers"])
 
         def consumer(i: int) -> None:
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
@@ -3102,6 +3223,11 @@ def _shim_client(plan: dict) -> dict:
                     part = _gateway_fetch(port, md_frame, off, off + MIB - 1, conn=conn)
                     latencies.append((time.perf_counter() - t) * 1e3)
                     check(part == source[off:off + MIB], f"sidecar fan-in: range at {off} differs")
+                    if off == i * slice_bytes:
+                        together.wait(timeout=300)
+            except BaseException:
+                together.abort()
+                raise
             finally:
                 conn.close()
 
@@ -3745,7 +3871,7 @@ def _fleet_layout(n_chunks: int) -> dict:
     """Which chunks each leg reads, so that every timed read is cold where
     it is served: the herd's (64 MiB at full size), the owner's and the
     forwarded 1 MiB ranges (64 chunks each), the reads after the kill, the
-    traced burst's, and a warm-up chunk. Each member's chunk cache holds
+    traced burst's and a warm-up chunk. Each member's chunk cache holds
     an eighth of the segment (32 chunks at full size): the herd's windows
     fit, and a whole-segment scan leaves no earlier chunk warm."""
     taken = 0
@@ -3760,7 +3886,7 @@ def _fleet_layout(n_chunks: int) -> dict:
               "forwarded_ranged": take(ranged), "death": take(max(1, n_chunks // 32)),
               "trace": take(min(32, n_chunks // 8)), "warm": n_chunks - 1,
               "cache_chunks": max(2 * max(1, n_chunks // 16), n_chunks // 8)}
-    check(taken < n_chunks - 1, f"fleet: {n_chunks} chunks are too few for the legs")
+    check(taken < n_chunks - 2, f"fleet: {n_chunks} chunks are too few for the legs")
     return layout
 
 
@@ -3839,6 +3965,42 @@ def _telemetry_sums(members: list, aggregate_on) -> dict:
             "fetch_requests": scrape["fleet"][needed[1]]["count"],
             "requested_bytes": scrape["fleet"][needed[0]]["value"],
             "forwards": scrape["fleet"][needed[2]]["value"]}
+
+
+def _trace_records(member, trace_id: str) -> dict:
+    """`member`'s retained flight records of one trace: the HTTP status of
+    `/debug/requests?trace=` (404: none retained) and each record's name,
+    milliseconds, error and tier counters."""
+    status, body = _shim_get(member.port, f"/debug/requests?trace={trace_id}")
+    records = json.loads(body)["slowest"] if status == 200 else []
+    return {"status": status, "records": [
+        {k: r[k] for k in ("name", "duration_ms", "error", "tiers", "stages")}
+        | {"counters": {k: v for k, v in r["counters"].items()
+                        if k.startswith(("peer.", "breaker."))}}
+        for r in records]}
+
+
+def _death_reads(reads: list, before: dict, non_owner, second) -> list:
+    """(c)'s reads after the kill, one entry each: which member served it
+    (the non-owner's peer-cache counters moved by the read: a failover hit
+    is the second owner, a peer hit at rank 0 the first owner of a new
+    view, neither a local serve), the non-owner's view epoch and ring after
+    it, and both members' flight records of its trace, the second owner's
+    being its `/chunk` serve."""
+    out, last = [], before
+    for r in reads:
+        cache = r["ping"]["peer_cache"]
+        moved = {k: cache[k] - last[k] for k in (
+            "forwards", "forward_failures", "failover_hits", "peer_hits")}
+        last = cache
+        served = ("second owner" if moved["failover_hits"] else
+                  "new view's owner" if moved["peer_hits"] else "local")
+        out.append({"chunk": r["chunk"], "ms": r["ms"], "served_by": served, **moved,
+                    "view_epoch": r["ping"]["view_epoch"],
+                    "ring": sorted(r["ping"]["ring_instances"]),
+                    "non_owner_records": _trace_records(non_owner, r["trace_id"]),
+                    "second_owner_chunk": _trace_records(second, r["trace_id"])})
+    return out
 
 
 def fleet_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0") -> dict:
@@ -3935,7 +4097,10 @@ def fleet_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0
             return took
 
         # Untimed warm-up: each member's connections, manifest and the owner's
-        # GCM context, on a chunk no timed leg reads.
+        # GCM context, on a chunk no timed leg reads. The second owner
+        # decrypts nothing before (c): its failover serve is its process's
+        # first decrypt, which the sidecar's start-up warm-up
+        # (`warm_up_device`) keeps inside the 2 s `fleet.forward.timeout.ms`.
         warm = range_of(layout["warm"])
         for m in (O, N, S):
             read(m, *warm)
@@ -4060,15 +4225,23 @@ def fleet_phase(seed: int, segment_bytes: int, work: Path, device: str = "cuda:0
             t_kill = time.perf_counter()
             O.signal(signal.SIGKILL)
             O.wait(60)
+            death_reads = []
             for i, chunk in enumerate(layout["death"]):
-                read(N, *range_of(chunk))
+                trace_id = f"{seed:08x}{0xdead:08x}{i:016x}"
+                t = time.perf_counter()
+                read(N, *range_of(chunk), headers={"traceparent": _traceparent(trace_id)})
                 if i == 0:
                     death["kill_to_first_good_read_s"] = time.perf_counter() - t_kill
+                death_reads.append({"chunk": chunk, "trace_id": trace_id,
+                                    "ms": (time.perf_counter() - t) * 1e3,
+                                    "ping": N.get("/fleet/ping")})
             after_death = N.get("/fleet/ping")["peer_cache"]
             death["non_owner_peer_cache"] = after_death
+            death["reads"] = _death_reads(death_reads, before_death, N, S)
             check(after_death["failover_hits"] > before_death["failover_hits"]
                   and after_death["forward_failures"] > before_death["forward_failures"],
-                  f"fleet death: no failover to the second owner: {after_death}")
+                  f"fleet death: no failover to the second owner: {after_death}; "
+                  f"reads: {json.dumps(death['reads'][:2])}")
             local = {key: s["value"] for key, s in _series(N.get("/fleet/telemetry")).items()
                      if s["kind"] == "value"}
             death["peers_down"] = local["fleet-metrics:fleet-peers-down"]
@@ -4417,9 +4590,10 @@ def tooling_phase(seed: int, work: Path, out_dir: Path, device: str = "cuda:0") 
 
 
 #: Phase 16 (gates): (a)'s segments, cut from Kafka's 1 GiB
-#: log.segment.bytes for time; (b)'s and (c)'s; (d)'s transform windows
-#: (the copy window, 16 x 4 MiB).
-GATES_SEGMENT_BYTES = 256 * MIB
+#: log.segment.bytes for time (256 MiB before phase 7 grew its zstd path;
+#: the 128 MiB of a first cut saved 10 s, too little);
+#: (b)'s and (c)'s; (d)'s transform windows (the copy window, 16 x 4 MiB).
+GATES_SEGMENT_BYTES = 64 * MIB
 GATES_SMALL_SEGMENT_BYTES = 64 * MIB
 GATES_WINDOW_CHUNKS = 16
 #: 1 KiB records (a 16-byte key, a 1008-byte value), 15 to a batch: the
@@ -4611,18 +4785,26 @@ def _gates_sidecar_leg(seed: int, work: Path, pub: Path, priv: Path, device: str
         check(line.startswith("SIDECAR_READY port="),
               f"gates sidecar: {line!r}\n{(work / 'sidecar.stderr').read_text()[-3000:]}")
         ready_s = time.perf_counter() - t
+
+        def launches() -> dict:
+            counts_path.unlink(missing_ok=True)
+            proc.send_signal(signal.SIGUSR2)
+            deadline = time.monotonic() + 60
+            while not counts_path.exists():
+                check(time.monotonic() < deadline and proc.poll() is None,
+                      "gates sidecar: no launch counts from the child")
+                time.sleep(0.01)
+            return json.loads(counts_path.read_text())["launches"]
+
+        # The child's start-up warm-up (`warm_up_device`) launched before
+        # it was ready; the leg's launches are those after.
+        at_ready = launches()
         client = SidecarRsmClient(f"127.0.0.1:{int(line.split()[1].split('=')[1])}",
                                   timeout=600)
         leg = _broker_leg(seed + 2, work, client, device, partitions=1, segments=2,
                           segment_bytes=GATES_SMALL_SEGMENT_BYTES, store=store,
                           what="gates sidecar")
-        proc.send_signal(signal.SIGUSR2)
-        deadline = time.monotonic() + 60
-        while not counts_path.exists():
-            check(time.monotonic() < deadline and proc.poll() is None,
-                  "gates sidecar: no launch counts from the child")
-            time.sleep(0.01)
-        leg["launches"] = json.loads(counts_path.read_text())["launches"]
+        leg["launches"] = _counts_delta(at_ready, launches())
         leg["ready_s"] = ready_s
     finally:
         if client is not None:
@@ -4690,16 +4872,19 @@ def _load_gate_checks(report: dict, device: str) -> dict:
 
 def _segment_scale_checks(report: dict, device: str) -> None:
     """(o)'s checks: every check of the report true, and on the card AES,
-    the tree and level 1 launched by the copies, AES and the decoder by the
-    ranged reads."""
+    the tree and level 1 launched by the copies, AES and a GHASH kernel by
+    the ranged reads (and the decoder, when the codec is tpu-huff-v1)."""
     check(all(v is True for v in report["checks"].values()),
           f"gates (o): checks {report['checks']}")
     if torch.device(device).type == "cuda":
         cold, warm = (report["copies"][c]["launches"] for c in ("cold", "warm"))
         copies = {name: cold[name] + warm[name] for name in cold}
         _gcm_launched(copies, "gates (o) copies")
-        _gcm_launched(report["ranges_launches"], "gates (o) ranges",
-                      ("aes_ctr_keystream", "huffman_decode"))
+        ranges = report["ranges_launches"]
+        check(ranges.get("ghash_tree", 0) + ranges.get("ghash_level1", 0) > 0,
+              f"gates (o) ranges: no GHASH kernel launched: {ranges}")
+        _gcm_launched(ranges, "gates (o) ranges", ("aes_ctr_keystream",) + (
+            ("huffman_decode",) if report["codec"] == "tpu-huff-v1" else ()))
 
 
 def _with_free_memory(run, rec: dict) -> int:
@@ -5035,7 +5220,14 @@ def main(argv=None) -> int:
         "owner_launches": fleet["reads"]["launches"][roles["owner"]],
         "non_owner_launches": fleet["reads"]["launches"][roles["non_owner"]]}))
     print("fleet herd: " + json.dumps({"card": card, **fleet["herd"]}))
-    print("fleet death: " + json.dumps({"card": card, **fleet["death"]}))
+    death = fleet["death"]
+    print("fleet death: " + json.dumps({"card": card, **{
+        k: v for k, v in death.items() if k != "reads"},
+        "second_owner_ready_s": fleet["ready_s"][fleet["roles"]["second"]],
+        "served_by": [r["served_by"] for r in death["reads"]],
+        "read_ms": [round(r["ms"], 3) for r in death["reads"]],
+        "second_owner_chunk_ms": [[c["duration_ms"] for c in r["second_owner_chunk"]["records"]]
+                                  for r in death["reads"]]}))
     print("fleet telemetry: " + json.dumps({"card": card, **fleet["telemetry"]}))
     print("fleet trace: " + json.dumps({"card": card, **fleet["trace"]}))
     print("fleet members: " + json.dumps({"card": card, **{k: fleet[k] for k in (
@@ -5196,6 +5388,10 @@ def main(argv=None) -> int:
     missing = [name for name in ("aes_ctr_keystream", "ghash_tree", "huffman_decode")
                if codec_launches.get(name, 0) <= 0]
     check(not missing, f"kernels never launched on the compressed path: {missing}")
+    zstd_launches = codec["zstd"]["launches"]
+    check(zstd_launches.get("aes_ctr_keystream", 0) > 0
+          and zstd_launches.get("ghash_tree", 0) + zstd_launches.get("ghash_level1", 0) > 0,
+          f"AES or GHASH never launched on the zstd path: {zstd_launches}")
     line = {"kernels": []}
     for name, rec in kernels.items():
         entry = {k: rec[k] for k in (
@@ -5206,6 +5402,7 @@ def main(argv=None) -> int:
         entry["launches_fetch_plane"] = plane["launches"][name]
         entry["launches_scheduler"] = sched["launches"][name]
         entry["launches_codec"] = codec_launches[name]
+        entry["launches_codec_zstd"] = zstd_launches.get(name, 0)
         entry["launches_storage"] = store["launches"][name]
         entry["launches_lifecycle"] = life["launches"][name]
         entry["launches_observability"] = obs["launches"][name]

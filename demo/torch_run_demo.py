@@ -19,10 +19,10 @@ tier, consume remote + local, delete the topic) and prints what happened.
 on `cuda:0` and exits non-zero, with a message, when CUDA is not available:
 nothing falls back to the CPU. `cpu` (the port's host CpuTransformBackend)
 and `native` are host transforms; with either, every torch op of the RSM
-(codecs, checksums) runs on the CPU. The default codec is tpu-huff-v1 (the
-JAX demo's is zstd): zstd needs `zstandard` or the native library built
-against `zstd.h`, and raises ModuleNotFoundError where neither is (the card
-machine has neither). There is no JAX platform pin; the port's own
+(codecs, checksums) runs on the CPU. The default codec is zstd, as in the
+JAX demo: the port's native host library resolves `libzstd.so.1` at run
+time (`zstandard` is the other route), and raises ModuleNotFoundError where
+neither is. There is no JAX platform pin; the port's own
 (`utils/platforms.py`) is not needed for one device.
 """
 
@@ -55,7 +55,7 @@ def main(argv=None) -> int:
         help="transform.backend.class to use (cuda runs on cuda:0 and needs a GPU)",
     )
     parser.add_argument(
-        "--codec", choices=["zstd", "tpu-huff-v1", "tpu-lzhuff-v1"], default="tpu-huff-v1",
+        "--codec", choices=["zstd", "tpu-huff-v1", "tpu-lzhuff-v1"], default="zstd",
         help="compression.codec (tpu-*-v1 run the port's device codecs)",
     )
     parser.add_argument("--records", type=int, default=3000)

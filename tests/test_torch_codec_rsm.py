@@ -1,11 +1,14 @@
-"""RSM segments compressed with the device codecs cross-read between the
-packages, both ways, byte for byte.
+"""RSM segments compressed with the device codecs, and with zstd, cross-read
+between the packages, both ways, byte for byte.
 
 A JAX RSM writes a log-shaped segment (text records, so the codecs code
-every chunk rather than RAW-framing it) with `tpu-huff-v1` + encryption and
-with `tpu-lzhuff-v1`; the port's RSM (transform.device=cpu) fetches both
-whole and in ranges, and every index; then the port writes and the JAX RSM
-reads. The manifests record the codec.
+every chunk rather than RAW-framing it) with `tpu-huff-v1` + encryption,
+with `tpu-lzhuff-v1`, and with `zstd` + encryption on its native route
+(its NativeTransformBackend); the port's RSM (the CUDA backend class,
+transform.device=cpu, whose zstd runs through the port's own native
+library) fetches each whole and in ranges, and every index; then the port
+writes and the JAX RSM reads. The manifests record the codec (zstd as the
+reference does, by leaving the id out).
 """
 
 from __future__ import annotations
@@ -97,6 +100,10 @@ def _configs(store: Path, keys, backend: str, codec: str, encryption: bool, extr
     return configs
 
 
+#: The JAX RSM's zstd runs on its native route (its host library).
+JAX_NATIVE_BACKEND = "tieredstorage_tpu.transform.native_backend.NativeTransformBackend"
+
+
 def _rsm(kind: str, store: Path, keys, codec: str, encryption: bool):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)  # tpu-lzhuff-v1
@@ -109,16 +116,18 @@ def _rsm(kind: str, store: Path, keys, codec: str, encryption: bool):
             rsm = JaxRemoteStorageManager()
             rsm.configure(_configs(
                 store, keys, "tieredstorage_tpu.storage.filesystem.FileSystemStorage",
-                codec, encryption))
+                codec, encryption,
+                {"transform.backend.class": JAX_NATIVE_BACKEND} if codec == "zstd" else None))
     return rsm
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
-@pytest.mark.parametrize("codec,encryption", [("tpu-huff-v1", True), ("tpu-lzhuff-v1", False)])
+@pytest.mark.parametrize("codec,encryption", [
+    ("tpu-huff-v1", True), ("tpu-lzhuff-v1", False), ("zstd", True)])
 def test_codec_segments_cross_read_between_packages(tmp_path, keys, writer, codec, encryption):
     store = tmp_path / "store"
     store.mkdir()
-    seed = 3 if codec == "tpu-huff-v1" else 4
+    seed = {"tpu-huff-v1": 3, "tpu-lzhuff-v1": 4, "zstd": 5}[codec]
     md_port, sd_port, contents = _write_segment(tmp_path, metadata, seed)
     md_jax, sd_jax, _ = _write_segment(tmp_path, jax_metadata, seed)
     reader_kind = "port" if writer == "jax" else "jax"
@@ -130,7 +139,8 @@ def test_codec_segments_cross_read_between_packages(tmp_path, keys, writer, code
         md, index_type = md_jax, JaxIndexType
     [manifest_path] = store.rglob("*.rsm-manifest")
     manifest = json.loads(manifest_path.read_text())
-    assert manifest["compression"] is True and manifest["compressionCodec"] == codec
+    assert manifest["compression"] is True
+    assert manifest.get("compressionCodec", "zstd") == codec
     assert ("encryption" in manifest and manifest["encryption"] is not None) == encryption
     [log_obj] = store.rglob("*.log")
     assert log_obj.stat().st_size < 0.9 * SEGMENT_SIZE  # the codec coded the chunks

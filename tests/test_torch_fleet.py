@@ -354,9 +354,10 @@ class _Delegate:
 
 class _StubPeer:
     """An owner's gateway answering ``GET /chunk`` with a scripted status
-    and chunk list; records each request's path and headers."""
+    and chunk list, after `delay` seconds; records each request's path and
+    headers."""
 
-    def __init__(self, status=200, chunks=(b"peer-" * 4,)):
+    def __init__(self, status=200, chunks=(b"peer-" * 4,), delay=0.0):
         stub = self
         self.status, self.chunks, self.requests = status, list(chunks), []
 
@@ -366,6 +367,7 @@ class _StubPeer:
 
             def do_GET(self):
                 stub.requests.append((self.path, {k.lower(): v for k, v in self.headers.items()}))
+                time.sleep(delay)
                 body = (port_fleet.encode_chunk_frames(stub.chunks)
                         if stub.status == 200 else b"nope")
                 self.send_response(stub.status)
@@ -416,6 +418,11 @@ SCENARIOS = {
     "failover at R=2": ({"o1": "dead", "o2": (200, [b"replica" * 3])}, 2, [
         ("read", [0]), ("read", [1]), ("clock", 6.0), ("read", [2])]),
     "both owners down": ({"o1": "dead", "o2": "dead"}, 2, [("read", [3]), ("read", [4])]),
+    # The owner killed and the second owner slower than the 2 s forward
+    # timeout on its first serve: both forwards fail, both breakers open and
+    # the window is served locally; the next read skips both owners.
+    "second owner past the forward timeout": (
+        {"o1": "dead", "o2": (200, [b"late" * 4], 2.3)}, 2, [("read", [0]), ("read", [1])]),
     "R=1 ignores the second owner": ({"o1": "dead", "o2": (200, [b"never"])}, 1, [
         ("read", [2])]),
     "deadline and trace headers": ({"o1": (200, [b"x"])}, 1, [
@@ -510,6 +517,12 @@ def test_peer_tier_equals_jax(scenario):
                 assert path.startswith(f"/chunk?key={quote(KEY, safe='')}&chunks=")
                 if "x-deadline-ms" in headers:
                     assert 0 < int(headers["x-deadline-ms"]) <= 5000
+    if scenario == "second owner past the forward timeout":
+        (_, _, forwards, hits, _, failures, failovers, down, states, *_), second = (
+            got["port"]["trace"])
+        assert (forwards, hits, failures, failovers, down) == (2, 0, 2, 0, 2)
+        assert states == {"o1": "OPEN", "o2": "OPEN"}
+        assert second[2] == 2 and second[10] == [(KEY, (0,)), (KEY, (1,))]
     if scenario == "deadline and trace headers":
         for name in PACKAGES:
             first, second, third = (h for _, h in requests[name]["o1"])

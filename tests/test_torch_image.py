@@ -2,8 +2,9 @@
 
 Nothing is built or pulled: the Dockerfile is parsed into its
 instructions and the compose file as YAML, and held to what the image must
-be. It copies the port (with its CUDA sources) and never the JAX package;
-it installs every third-party module the port imports and no jax; it
+be. It copies the port (with its CUDA sources and its host library's
+source) and nothing else; it installs every third-party module the port
+imports and no jax, and the runtime libzstd, not its headers; it
 builds the kernels into a `TSTORCH_BUILD_DIR` the runtime user owns; its
 entry point is the port's sidecar, every flag of its command one that the
 sidecar's argument parser takes. The compose file builds that image,
@@ -70,7 +71,8 @@ def test_image_copies_the_port_and_never_the_jax_package():
     assert (REPO / "tieredstorage_tpu_torch" / "csrc" / "aes_ctr.cu").exists()
     assert not any(s == "tieredstorage_tpu" or s.startswith("tieredstorage_tpu/")
                    or s in (".", "pyproject.toml") for s in copied), copied
-    assert copied <= {"tieredstorage_tpu_torch", "native"}, copied
+    # The host library's source is the port's own (csrc/transform_host.cpp).
+    assert copied == {"tieredstorage_tpu_torch"}, copied
 
 
 def test_image_installs_what_the_port_imports_and_no_jax():
@@ -84,6 +86,20 @@ def test_image_installs_what_the_port_imports_and_no_jax():
     assert needed <= installs, needed - installs
     base = _all("ARG")[0]
     assert re.fullmatch(r"BASE=pytorch/pytorch:[\w.]+-cuda[\d.]+-cudnn\d+-devel", base), base
+
+
+def test_image_installs_the_runtime_libzstd_and_not_its_headers():
+    """The host library opens libzstd.so.1 with dlopen and includes no
+    zstd.h, so the image needs Debian's runtime package alone."""
+    from tieredstorage_tpu_torch import native
+
+    packages = set()
+    for match in re.finditer(r"apt-get install ([^&]*)", " ".join(_all("RUN"))):
+        packages.update(w for w in match.group(1).split() if not w.startswith("-"))
+    assert "libzstd1" in packages and "libzstd-dev" not in packages, packages
+    assert "g++" in packages, packages  # the host library is compiled at image build
+    assert native.ZSTD_LIBRARY == "libzstd.so.1"
+    assert "-lzstd" not in native.LDFLAGS
 
 
 def test_kernels_are_built_at_image_build_into_a_dir_the_user_owns():

@@ -7,11 +7,17 @@ its demo (demo/torch_run_demo.py), its gates (tools/torch_*_demo.py,
 tools/torch_chaos_matrix.py, tools/torch_fleet_soak.py,
 tools/torch_timeline_export.py, tools/torch_segment_scale_probe.py) and
 tools/torch_mutation_test.py. The gates and the demo also refuse to run
-without CUDA unless they are asked for the CPU.
+without CUDA unless they are asked for the CPU. No file of the port names
+a path under the repo's `native/` or `tieredstorage_tpu/` (it keeps its own
+copy of what it needs), and the demo and its sidecar configs take the JAX
+demo's codec.
 """
 
 from __future__ import annotations
 
+import ast
+import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -221,3 +227,61 @@ def test_demo_runs_on_the_cpu_over_the_filesystem_backend():
     )
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     assert "demo complete" in res.stdout
+
+
+#: A path under the repo's native/ or the JAX package: the word as a path
+#: component (`tieredstorage_tpu_torch/...` is the port's own).
+_JAX_PATH = re.compile(r"(^|[^\w.])(native|tieredstorage_tpu)(/|$)")
+
+
+def _docstrings(tree: ast.AST) -> set:
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
+def _jax_paths(path: Path) -> list:
+    """Strings of a module (docstrings aside) that name a path under
+    `native/` or `tieredstorage_tpu/`, with their lines."""
+    tree = ast.parse(path.read_text())
+    docs = _docstrings(tree)
+    return [f"{path.relative_to(REPO)}:{node.lineno} {node.value[:60]!r}"
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs and _JAX_PATH.search(node.value)]
+
+
+def test_no_port_file_names_a_path_under_native_or_the_jax_package():
+    """Code of the port never reaches into the JAX side's files: no string
+    of a module (docstrings aside, which name their JAX counterparts) is a
+    path under `native/` or `tieredstorage_tpu/` or such a path's component
+    in a join, and no source under csrc/ includes one."""
+    port = REPO / "tieredstorage_tpu_torch"
+    found = [hit for path in sorted(port.rglob("*.py")) for hit in _jax_paths(path)]
+    for path in sorted((port / "csrc").iterdir()):
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            if line.lstrip().startswith("#include") and _JAX_PATH.search(line.split(None, 1)[1]):
+                found.append(f"{path.relative_to(REPO)}:{n} {line.strip()}")
+    assert not found, found
+    # The check bites: the JAX package's loader joins the repo's native/.
+    assert _jax_paths(REPO / "tieredstorage_tpu" / "native" / "__init__.py")
+
+
+def _codec_default(demo: str) -> str:
+    """The `--codec` argument's default in a demo script."""
+    for node in ast.walk(ast.parse((REPO / demo).read_text())):
+        if (isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant)
+                and node.args[0].value == "--codec"):
+            return next(k.value.value for k in node.keywords if k.arg == "default")
+    raise AssertionError(f"{demo} has no --codec")
+
+
+def test_demo_and_sidecar_configs_take_the_jax_demos_codec():
+    assert _codec_default(_DEMO) == _codec_default("demo/run_demo.py") == "zstd"
+    for name in ("sidecar-local-fs.json", "sidecar-s3-minio.json"):
+        jax = json.loads((REPO / "demo" / name).read_text())
+        ours = json.loads((REPO / "demo" / f"torch-{name}").read_text())
+        assert ours["compression.enabled"] == jax["compression.enabled"]
+        assert ours.get("compression.codec", "zstd") == jax.get("compression.codec", "zstd")

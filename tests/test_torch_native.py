@@ -1,9 +1,16 @@
 """The port's native host library, its zstd route and the host backends,
 held against the JAX package's twins on the same seeded inputs.
 
-- zstd frames: with both packages on the native route (the system libzstd
-  through native/transform_host.cpp), the port's frames equal JAX's byte
-  for byte, through the backends as through the library.
+- the library's independence: it is built from the port's own
+  csrc/transform_host.cpp, which includes no zstd.h; the built .so needs
+  no libzstd at link time and leaves no ZSTD_* symbol undefined (it opens
+  libzstd.so.1 with dlopen); and where libzstd.so.1 cannot be opened,
+  `load()` is None, `load_error()` names it, and the zstd codec raises
+  the JAX package's ModuleNotFoundError.
+- zstd frames: with both packages on the native route (the same system
+  libzstd.so.1: the port's library opens it, JAX's links it), the port's
+  frames equal JAX's byte for byte, through the backends as through the
+  library.
 - the decompression guard: the cases of tests/test_decompress_guard.py on
   the port, which raises its own NativeTransformError (a RuntimeError) with
   JAX's message word for word, the 1 GiB ceiling included.
@@ -13,6 +20,11 @@ held against the JAX package's twins on the same seeded inputs.
 """
 
 from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -76,6 +88,105 @@ def _port_backend() -> CudaTransformBackend:
 @pytest.fixture(scope="module")
 def jax_tpu_backend():
     return TpuTransformBackend()
+
+
+# ------------------------------------------- the port's own host library
+REPO = Path(__file__).resolve().parent.parent
+JAX_SOURCE = REPO / "native" / "transform_host.cpp"
+
+
+def test_library_source_is_the_ports_own():
+    package = Path(native.__file__).resolve().parent.parent
+    assert package.name == "tieredstorage_tpu_torch"
+    assert native._SOURCE == package / "csrc" / "transform_host.cpp"
+    assert native._SOURCE.is_file()
+    assert "-lzstd" not in native.LDFLAGS and native.ZSTD_LIBRARY == "libzstd.so.1"
+
+
+def _headers(source: Path) -> list[str]:
+    """Every header the preprocessor opens for `source` (`g++ -E -H`)."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no C++ compiler")
+    res = subprocess.run([cxx, "-std=c++17", "-E", "-H", str(source), "-o", os.devnull],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    return [line.lstrip(". ") for line in res.stderr.splitlines() if line.startswith(".")]
+
+
+def test_library_source_includes_no_zstd_header():
+    ours = _headers(native._SOURCE)
+    assert ours and not [h for h in ours if Path(h).name == "zstd.h"]
+    # The check bites: the JAX package's source includes it.
+    assert [h for h in _headers(JAX_SOURCE) if Path(h).name == "zstd.h"]
+
+
+def _elf(tool: str, *args: str) -> str:
+    if shutil.which(tool) is None:
+        pytest.skip(f"{tool} not found")
+    res = subprocess.run([tool, *args], capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    return res.stdout
+
+
+def test_built_library_needs_no_libzstd_and_leaves_no_zstd_symbol_undefined():
+    so = str(native.so_path())
+    needed = [line for line in _elf("readelf", "-d", so).splitlines() if "(NEEDED)" in line]
+    assert needed and not [line for line in needed if "zstd" in line], needed
+    undefined = _elf("nm", "-D", "-u", so).split()
+    assert not [sym for sym in undefined if sym.startswith("ZSTD_")]
+    # The checks bite: the JAX package's library links libzstd.
+    jax_so = str(jax_native._SO_PATH)
+    assert "libzstd" in _elf("readelf", "-d", jax_so)
+    assert "ZSTD_compress" in _elf("nm", "-D", "-u", jax_so).split()
+
+
+def test_zstd_and_crypto_resolve_at_run_time():
+    lib = native.load()
+    assert lib.ts_zstd_available() == 1
+    assert lib.ts_crypto_available() == jax_native.load().ts_crypto_available()
+    assert native.load_error() is None
+
+
+def test_without_libzstd_the_library_does_not_load_and_zstd_raises_jaxs_error(monkeypatch):
+    """A host where dlopen finds no libzstd.so.1: `load()` is None and says
+    why, and with no `zstandard` either the zstd codec raises the JAX
+    backend's ModuleNotFoundError on the same host (no new fallback)."""
+    from tieredstorage_tpu.transform import tpu as jax_tpu
+    from tieredstorage_tpu_torch.transform import cuda
+
+    bind = native._bind
+
+    class NoZstd:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def ts_zstd_available(self):
+            return 0
+
+    monkeypatch.setattr(native, "_bind", lambda lib: NoZstd(bind(lib)))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_error", None)
+    assert native.load() is None and native.lz_expand(1, b"", b"x") is None
+    assert "libzstd.so.1" in native.load_error()
+    assert not CudaTransformBackend._use_native()
+    monkeypatch.setattr(cuda, "zstandard", None)
+    monkeypatch.setattr(jax_tpu, "zstandard", None)
+    monkeypatch.setattr(jax_native, "load", lambda: None)
+    with pytest.raises(ModuleNotFoundError) as ours:
+        _port_backend().transform([b"abc" * 100], TransformOptions(compression=True))
+    with pytest.raises(ModuleNotFoundError) as theirs:
+        TpuTransformBackend().transform([b"abc" * 100], JaxTransformOptions(compression=True))
+    assert str(ours.value) == str(theirs.value)
+    frame = _frame(300)
+    with pytest.raises(ModuleNotFoundError) as ours:
+        _port_backend().detransform([frame], DetransformOptions(compression=True))
+    with pytest.raises(ModuleNotFoundError) as theirs:
+        TpuTransformBackend().detransform([frame], JaxDetransformOptions(compression=True))
+    assert str(ours.value) == str(theirs.value)
 
 
 # ------------------------------------------------------------ F1: zstd frames
@@ -414,3 +525,62 @@ def test_host_backends_load_through_transform_backend_class(backends, tmp_path, 
         assert stream.read() == contents["log"][100:20_001]
     rsm.delete_log_segment_data(md)
     rsm.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_native_backend_segments_cross_read_with_jax(backends, tmp_path, writer):
+    """A zstd + encrypted segment written through the port's
+    NativeTransformBackend reads back byte for byte through the JAX RSM on
+    its native route, and one the JAX RSM wrote reads back through the
+    port's: whole, in ranges across chunk edges, and every index."""
+    from tests.test_torch_codec_rsm import CHUNK as SEGMENT_CHUNK
+    from tests.test_torch_codec_rsm import (
+        INDEXES,
+        JAX_NATIVE_BACKEND,
+        SEGMENT_SIZE,
+        _configs,
+        _write_segment,
+    )
+    from tieredstorage_tpu import metadata as jax_metadata
+    from tieredstorage_tpu.manifest.segment_indexes import IndexType as JaxIndexType
+    from tieredstorage_tpu.rsm import RemoteStorageManager as JaxRemoteStorageManager
+    from tieredstorage_tpu_torch import metadata
+    from tieredstorage_tpu_torch.manifest.segment_indexes import IndexType
+    from tieredstorage_tpu_torch.rsm import RemoteStorageManager
+    from tieredstorage_tpu_torch.security.rsa import generate_key_pair_pem_files
+
+    store = tmp_path / "store"
+    store.mkdir()
+    keys = generate_key_pair_pem_files(tmp_path, prefix="native")
+    md_port, sd_port, contents = _write_segment(tmp_path, metadata, 6)
+    md_jax, sd_jax, _ = _write_segment(tmp_path, jax_metadata, 6)
+    port = RemoteStorageManager()
+    port.configure(_configs(
+        store, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage", "zstd",
+        True, {"transform.backend.class":
+               "tieredstorage_tpu_torch.transform.native_backend.NativeTransformBackend"}))
+    jax = JaxRemoteStorageManager()
+    jax.configure(_configs(
+        store, keys, "tieredstorage_tpu.storage.filesystem.FileSystemStorage", "zstd", True,
+        {"transform.backend.class": JAX_NATIVE_BACKEND}))
+    assert type(port.transform_backend).__name__ == "NativeTransformBackend"
+    if writer == "jax":
+        jax.copy_log_segment_data(md_jax, sd_jax)
+        reader, md, index_type = port, md_port, IndexType
+    else:
+        port.copy_log_segment_data(md_port, sd_port)
+        reader, md, index_type = jax, md_jax, JaxIndexType
+    [log_obj] = store.rglob("*.log")
+    assert log_obj.stat().st_size < 0.9 * SEGMENT_SIZE  # zstd coded the chunks
+    log = contents["log"]
+    for start, end in ((0, None), (0, 99), (SEGMENT_CHUNK - 5, 2 * SEGMENT_CHUNK + 10),
+                       (SEGMENT_SIZE - 300, None)):
+        with reader.fetch_log_segment(md, start, end) as stream:
+            stop = SEGMENT_SIZE if end is None else end + 1
+            assert stream.read() == log[start:stop]
+    for name, enum_name in INDEXES.items():
+        assert reader.fetch_index(md, getattr(index_type, enum_name)).read() == contents[name]
+    reader.delete_log_segment_data(md)
+    assert [p for p in store.rglob("*") if p.is_file()] == []
+    port.close()
+    jax.close()

@@ -557,6 +557,22 @@ def _assert_contexts_equal(ours, theirs):
         assert np.array_equal(getattr(ours, field), getattr(theirs, field)), field
 
 
+@pytest.mark.parametrize("element", ["zero", "one", "h", "top"])
+def test_mult_matrix_equals_jax(element):
+    """The multiply-by-c matrix, its columns unpacked in one call, is the
+    JAX package's bit for bit, and applies as a field product."""
+    rng = _rng(len(element))
+    c = {"zero": 0, "one": 1 << 127, "h": int.from_bytes(rng.bytes(16), "big"),
+         "top": 1}[element]
+    ours = gf128.mult_matrix(c)
+    theirs = jax_gf128.mult_matrix(c)
+    assert ours.dtype == theirs.dtype and ours.flags.c_contiguous
+    assert np.array_equal(ours, theirs)
+    a = int.from_bytes(rng.bytes(16), "big")
+    product = (ours.astype(np.int64) @ gf128.int_to_bitvec(a)) % 2
+    assert gf128.bitvec_to_int(product) == gf128.gcm_mult(a, c)
+
+
 @pytest.mark.parametrize("chunk_bytes", [1, 100, 2048, 4096 + 7])
 def test_fixed_context_field_by_field(chunk_bytes):
     rng = _rng(chunk_bytes)

@@ -336,6 +336,32 @@ def test_custom_metadata_keeps_fetches_working_after_a_prefix_change(tmp_path, k
         reader.fetch_segment_manifest(md)  # without the fields, the new prefix misses
 
 
+@pytest.mark.parametrize("on_cuda,encrypted,warms", [
+    (True, True, True), (False, True, False), (True, False, False)],
+    ids=["cuda", "cpu", "unencrypted"])
+def test_warm_up_device_warms_a_cuda_backend_that_encrypts(tmp_path, keys, on_cuda,
+                                                            encrypted, warms):
+    """The sidecar's start-up warm-up: one chunk through the backend's
+    `warm_up` where encryption is on and the device is a CUDA one, else
+    nothing (the CUDA case takes the backend's device as a card's)."""
+    rsm = RemoteStorageManager()
+    rsm.configure(_configs(
+        tmp_path, keys, "tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage",
+        {"transform.device": "cpu", "encryption.enabled": encrypted},
+    ))
+    backend = rsm.transform_backend
+    calls: list = []
+    backend.warm_up = calls.append
+    if on_cuda:
+        backend._device = torch.device("cuda", 0)
+    try:
+        assert rsm.warm_up_device() is warms
+    finally:
+        backend._device = torch.device("cpu")
+        rsm.close()
+    assert calls == ([CHUNK] if warms else [])
+
+
 def test_unencrypted_copy_round_trips(tmp_path, keys):
     store = tmp_path / "store"
     store.mkdir()

@@ -1,17 +1,17 @@
 """Segment-scale streaming proof of the port (tools/torch_segment_scale_probe.py),
 the counterpart of tests/test_segment_scale.py.
 
-- `test_one_gib_segment_streams_through_the_card`: a 1 GiB segment,
-  tpu-huff-v1 and encryption on, copied cold then warm through the port's
-  RSM and read back in 4 seeded ranges, held to the JAX test's checks
-  (warm < 0.9 x cold; the warm copy's `transform.encrypt_dispatch` spans <
-  0.15 x its wall; peak-RSS growth < 2 x the segment at >= 1 GiB; the warm
-  copy adds < max(segment / 4, 192 MiB); the ranges exact). Where the JAX
-  test's bounds leave room for the XLA CPU arena, here they leave it for
-  the port's pinned staging pool. Runs, as in JAX, only under
-  TSTPU_SEGMENT_SCALE=1 (TSTPU_SEGMENT_SCALE_MIB, default 1024), on cuda:0
-  when there is a card, else on the CPU, with the probe as a child, so
-  that the high-water mark it reads is its own.
+- `test_one_gib_segment_streams_through_the_card`: a 1 GiB segment, zstd
+  (the JAX test's codec) and encryption on, copied cold then warm through
+  the port's RSM and read back in 4 seeded ranges, held to the JAX test's
+  checks (warm < 0.9 x cold; the warm copy's `transform.encrypt_dispatch`
+  spans < 0.15 x its wall; peak-RSS growth < 2 x the segment at >= 1 GiB;
+  the warm copy adds < max(segment / 4, 192 MiB); the ranges exact).
+  Where the JAX test's bounds leave room for the XLA CPU arena, here they
+  leave it for the port's pinned staging pool. Runs, as
+  in JAX, only under TSTPU_SEGMENT_SCALE=1 (TSTPU_SEGMENT_SCALE_MIB,
+  default 1024), on cuda:0 when there is a card, else on the CPU, with the
+  probe as a child, so that the high-water mark it reads is its own.
 - `test_small_segment_matches_the_jax_probe` (always): a 2 MiB segment in
   256 KiB chunks on the CPU. The twin's stored warm segment reads back byte
   for byte through the JAX package's RSM; each copy's span names equal
@@ -42,7 +42,7 @@ from tests.torch_gates import XLA_ONE_THREAD
 REPO = Path(__file__).resolve().parent.parent
 SMALL_MIB = 2
 SMALL_CHUNK = 256 << 10
-CODEC = "tpu-huff-v1"
+CODEC = "zstd"
 
 
 def _probe():

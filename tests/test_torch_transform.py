@@ -103,6 +103,24 @@ def test_staging_buffers_are_reused_across_windows():
     assert first <= ours.pipeline_depth + 1
 
 
+def test_warm_up_pools_a_chunk_buffer_and_leaves_the_stats_as_they_were():
+    key, aad, chunks, ivs = _inputs(12, [4096] * 3)
+    ours = _cpu_backend(**{"batch.enabled": "true"})
+    enc = DataKeyAndAAD(key, aad)
+    stored = ours.transform(chunks, TransformOptions(encryption=enc, ivs=ivs))
+    before, allocations = ours.dispatch_stats.as_dict(), ours._staging.allocations
+    submitted = ours.batcher.windows_submitted
+    ours.warm_up(4096)
+    assert ours.dispatch_stats.as_dict() == before
+    assert ours.batcher.windows_submitted == submitted  # the direct path
+    assert ours._staging.allocations == allocations + 1
+    assert len(ours._staging._free[(1, 4096 + 16)]) == 1
+    ours.warm_up(4096)
+    assert ours._staging.allocations == allocations + 1  # pooled
+    assert ours.detransform(stored, DetransformOptions(encryption=enc)) == chunks
+    ours.close()
+
+
 @pytest.mark.parametrize(
     "configs,match",
     [({"batch.enabled": "true", "batch.windows": 1}, "at least 2"),

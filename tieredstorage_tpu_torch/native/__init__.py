@@ -1,13 +1,16 @@
 """ctypes bindings for the native host transform library.
 
-Counterpart of tieredstorage_tpu/native/__init__.py. The library is the
-repo's `native/transform_host.cpp` (batched zstd through the system libzstd,
-AES-256-GCM through libcrypto resolved with dlopen, the tpu-lzhuff-v1
-sequence expander), compiled at first use with the flags of
-`native/Makefile` into this package's build directory
-(`$TSTORCH_BUILD_DIR`, else `tieredstorage_tpu_torch/_build/`). `native/`
-itself is never written. Whole chunk windows cross the Python boundary once
-and run on the library's C++ thread pool.
+Counterpart of tieredstorage_tpu/native/__init__.py. The library is this
+package's own `csrc/transform_host.cpp` (batched zstd, AES-256-GCM and the
+tpu-lzhuff-v1 sequence expander), compiled at first use into this
+package's build directory (`$TSTORCH_BUILD_DIR`, else
+`tieredstorage_tpu_torch/_build/`). It resolves `libzstd.so.1` and
+libcrypto with dlopen at run time, so it builds with a C++ compiler alone:
+no `zstd.h`, no OpenSSL headers and no link-time dependency on either. A
+host without `libzstd.so.1` builds it but does not load it: `load()` is
+None and `load_error()` says so, the meaning the JAX package gives an
+unloaded library (its zstd route is absent). Whole chunk windows cross the
+Python boundary once and run on the library's C++ thread pool.
 
 The zstd frame's content size is read by this module's own header parser
 (RFC 8878 §3.1.1.1), so the decompression guard needs no `zstandard`.
@@ -26,11 +29,12 @@ import numpy as np
 
 from tieredstorage_tpu_torch.utils.locks import new_lock
 
-_REPO_ROOT = Path(__file__).resolve().parent.parent.parent
-_SOURCE = _REPO_ROOT / "native" / "transform_host.cpp"
-#: native/Makefile's CXXFLAGS and LDFLAGS.
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "transform_host.cpp"
 CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra")
-LDFLAGS = ("-shared", "-lzstd", "-ldl", "-lpthread")
+#: libzstd and libcrypto are opened at run time, so only dl and pthread link.
+LDFLAGS = ("-shared", "-ldl", "-lpthread")
+#: The zstd library the source opens (`dlopen` in `zstd()`).
+ZSTD_LIBRARY = "libzstd.so.1"
 
 _lock = new_lock("native._lock")
 _lib: Optional[ctypes.CDLL] = None
@@ -67,6 +71,7 @@ def _build(out: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ts_crypto_available.restype = ctypes.c_int
+    lib.ts_zstd_available.restype = ctypes.c_int
     lib.ts_zstd_bound.restype = ctypes.c_size_t
     lib.ts_zstd_bound.argtypes = [ctypes.c_size_t]
     common_zstd = [_u8p, _u64p, _u64p, ctypes.c_int]
@@ -100,7 +105,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the native library; None when unavailable
-    (no compiler, no zstd headers or library). The reason is `load_error()`."""
+    (no compiler, or no `libzstd.so.1` to resolve at run time). The reason
+    is `load_error()`."""
     global _lib, _load_error
     with _lock:
         if _lib is not None:
@@ -115,7 +121,11 @@ def load() -> Optional[ctypes.CDLL]:
                 # Source newer than the .so → rebuild; a built .so with no
                 # source alongside is used as it is.
                 _build(path)
-            _lib = _bind(ctypes.CDLL(str(path)))
+            lib = _bind(ctypes.CDLL(str(path)))
+            if lib.ts_zstd_available() != 1:
+                _load_error = f"{ZSTD_LIBRARY} could not be opened (dlopen): no zstd route"
+                return None
+            _lib = lib
             return _lib
         except subprocess.CalledProcessError as e:
             _load_error = f"{e}: {(e.stderr or '').strip()[-2000:]}"

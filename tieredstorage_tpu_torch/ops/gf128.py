@@ -78,14 +78,17 @@ def mult_matrix(c: int) -> np.ndarray:
 
     Column i is c * x^i, built incrementally with 128 shift-reduce steps
     (c * x^(i+1) = (c * x^i) * x), so matrix construction is O(128) field
-    steps, not O(128) full multiplications.
+    steps, not O(128) full multiplications. The 128 columns are unpacked
+    to bits in one call: a context build makes a few hundred of these
+    matrices, on the window dispatch path of every new segment key.
     """
-    m = np.zeros((128, 128), dtype=np.uint8)
+    cols = []
     col = c
-    for i in range(128):
-        m[:, i] = int_to_bitvec(col)
+    for _ in range(128):
+        cols.append(col.to_bytes(16, "big"))
         col = mult_by_x(col)
-    return m
+    rows = np.frombuffer(b"".join(cols), dtype=np.uint8).reshape(128, 16)
+    return np.ascontiguousarray(np.unpackbits(rows, axis=1).T)
 
 
 def ghash_agg_plan(m: int, max_k: int = 128) -> list[tuple[int, int]]:

@@ -521,6 +521,25 @@ class RemoteStorageManager:
         if self._gossip is not None:
             self._gossip.seed(peers)
 
+    def warm_up_device(self) -> bool:
+        """Make the transform backend's device ready before the first
+        request (`CudaTransformBackend.warm_up`: the CUDA context, the
+        kernel library, allocator blocks and a staging buffer of one
+        chunk), where encryption is on and the backend runs on a CUDA
+        device; else nothing. Without it a process's first decrypt pays for
+        them, seconds on the card: past a fleet peer's
+        `fleet.forward.timeout.ms` when that decrypt is a failover's. The
+        sidecar CLI calls it before SIDECAR_READY. Returns whether it
+        warmed."""
+        backend = self._transform_backend
+        warm_up = getattr(backend, "warm_up", None)
+        if warm_up is None or not self._config.encryption_enabled:
+            return False
+        if backend.device.type != "cuda":
+            return False
+        warm_up(self._config.chunk_size)
+        return True
+
     def start_fleet_gossip(self) -> Optional[GossipAgent]:
         """Start the gossip membership daemon (`fleet.gossip.enabled`).
         Called once the HTTP gateway is bound — the sidecar CLI does this

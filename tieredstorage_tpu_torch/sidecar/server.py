@@ -12,7 +12,9 @@ clients can distinguish missing segments (NOT_FOUND) from bad requests
 
 Start standalone:  python -m tieredstorage_tpu_torch.sidecar --config cfg.json
 (`--port 0` picks a free port; the bound port is printed as
-`SIDECAR_READY port=<n>` for supervising processes to scrape.) The config
+`SIDECAR_READY port=<n>` for supervising processes to scrape; on a CUDA
+device with encryption on, the line comes after `warm_up_device` has made
+the device's context, kernels and one chunk's buffers.) The config
 names this package's classes (``storage.backend.class`` =
 ``tieredstorage_tpu_torch.storage.filesystem.FileSystemStorage``, ...).
 """
@@ -305,6 +307,9 @@ def main(argv: Optional[list[str]] = None) -> None:
         from tieredstorage_tpu_torch.fleet import parse_instances
 
         rsm.set_fleet_peers(parse_instances(args.fleet_peers.split(",")))
+    # Ready means ready to serve within a peer's forward timeout: the
+    # device's start-up is paid here, not by the first request.
+    rsm.warm_up_device()
     exporter = None
     if args.metrics_port is not None:
         from tieredstorage_tpu_torch.metrics.prometheus import PrometheusExporter

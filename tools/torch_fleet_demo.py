@@ -76,6 +76,7 @@ from tieredstorage_tpu_torch.sidecar import shimwire  # noqa: E402
 from tieredstorage_tpu_torch.sidecar.http_gateway import SidecarHttpGateway  # noqa: E402
 from tieredstorage_tpu_torch.storage.core import ObjectKey  # noqa: E402
 from tieredstorage_tpu_torch.storage.filesystem import FileSystemStorage  # noqa: E402
+from tieredstorage_tpu_torch.utils import flightrecorder as flight  # noqa: E402
 
 CHUNK = 4096
 CHUNKS_PER_SEGMENT = 8
@@ -173,6 +174,42 @@ def make_rsm(name: str, store: pathlib.Path, device: str, *, fault_schedule=None
     return rsm
 
 
+def tally_forward_serves(rsms: dict) -> list:
+    """Count what each forwarded `/chunk` serve did in the chunk cache: its
+    chunks joined to an in-flight load (`tier.inflight_join`), served from
+    the cache (`tier.chunk_cache`) and loaded (the rest). Each serve runs
+    under the gateway's request record, else one of its own, on which the
+    chunk cache notes them. A forward is not a client request: it is how a
+    non-owner's leader reaches the owner, so the burst's client joins and
+    leaders are the totals less these. Appends (joined, loaded) per serve
+    to the returned list until `untally_forward_serves`."""
+    serves: list = []
+    for rsm in rsms.values():
+        inner = rsm.fleet_fetch_chunks
+
+        def serve(object_key_value, first, last, _inner=inner):
+            record = flight.current_record() or flight.RequestRecord(
+                "fleet.chunk", "", time.perf_counter())
+            before = dict(record.counters)
+            with flight.bound(record):
+                try:
+                    return _inner(object_key_value, first, last)
+                finally:
+                    moved = {k: record.counters.get(k, 0.0) - before.get(k, 0.0)
+                             for k in ("tier.inflight_join", "tier.chunk_cache")}
+                    joined = int(moved["tier.inflight_join"])
+                    serves.append((joined, last - first + 1 - joined
+                                   - int(moved["tier.chunk_cache"])))
+
+        rsm.fleet_fetch_chunks = serve
+    return serves
+
+
+def untally_forward_serves(rsms: dict) -> None:
+    for rsm in rsms.values():
+        del rsm.fleet_fetch_chunks  # the class's method again
+
+
 def http_fetch(port: int, metadata, start: int, end, *, headers=None):
     body = shimwire.encode_metadata(metadata) + shimwire.encode_fetch_tail(start, end)
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
@@ -256,6 +293,7 @@ def run(out_path: pathlib.Path, device: str = "cuda:0") -> int:
         # ---------------------------------------------- phase 1: cold burst
         hot_md, _, hot_payload = segments[hot_idx]
         expected_hot = hot_payload[:CHUNK]
+        forward_serves = tally_forward_serves(rsms)
         barrier = threading.Barrier(BURST_CLIENTS)
         results: list = [None] * BURST_CLIENTS
 
@@ -269,6 +307,7 @@ def run(out_path: pathlib.Path, device: str = "cuda:0") -> int:
             t.start()
         for t in threads:
             t.join(timeout=60)
+        untally_forward_serves(rsms)
         for status, payload in results:
             assert status == 200, f"burst fetch failed: {status}"
             if payload != expected_hot:
@@ -306,6 +345,11 @@ def run(out_path: pathlib.Path, device: str = "cuda:0") -> int:
             "cache_inflight_joins": cache_joins,
             "coalesced_fetches": coalesced,
             "coalescing_ratio": round(coalesced / BURST_CLIENTS, 3),
+            # What the forwarded serves at the owner added to the counts
+            # above (tally_forward_serves): their joins, and their loads,
+            # which made leaders.
+            "forward_inflight_joins": sum(j for j, _ in forward_serves),
+            "forward_loads": sum(n for _, n in forward_serves),
         }
         assert coalesced > 0, "burst produced no coalesced fetches"
 

@@ -8,8 +8,8 @@ tests/test_segment_scale.py, over `tieredstorage_tpu_torch` on `cuda:0`
 (or the CPU with `--device cpu`). The same segment builder
 (`build_segment`, a copy of the JAX test's `_build_segment`: semi-
 compressible, written in 16 MiB pieces, a v2 batch header first), 4 MiB
-chunks, compression (`tpu-huff-v1` unless `SSP_CODEC` says otherwise; the
-card has no zstd route) and encryption on,
+chunks, compression (`zstd`, the JAX probe's default, unless `SSP_CODEC`
+says otherwise) and encryption on,
 `upload.rate.limit.bytes.per.second` 1 GiB/s, tracing on. It copies the
 segment twice (cold, then warm) with each copy's spans summed by name,
 times a serial baseline over two windows of `transform()`, reads 4
@@ -80,7 +80,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 CHUNK = 4 << 20
-CODEC = os.environ.get("SSP_CODEC", "tpu-huff-v1")
+CODEC = os.environ.get("SSP_CODEC", "zstd")
 #: The JAX test's segment identity: topic "big", partition 0, offsets 99 to
 #: 100 000; the cold copy's segment id is 0x04 * 16, the warm copy's 0x05.
 TOPIC_ID = b"\x03" * 16
