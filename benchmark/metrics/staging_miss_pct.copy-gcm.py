@@ -1,0 +1,6 @@
+"""`staging_miss_pct.copy` in a cell that reports no `copy_GiBps` end to end, where
+it moves `stored_ratio`: the same reader."""
+
+from benchmark import harness
+
+read = harness.load_module("metrics", "staging_miss_pct.copy").read

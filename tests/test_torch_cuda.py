@@ -746,6 +746,90 @@ def test_profiler_ranges_enclose_the_kernel_launches(device, tmp_path):
             assert lo <= at["ts"] and at["ts"] + at["dur"] <= hi, needle
 
 
+def test_merged_profile_puts_worker_launches_inside_their_spans(device, tmp_path):
+    """A copy on a thread started before the profiler session, as a
+    broker's copier pool is: its spans reach the profile only through
+    `merge_profiler_trace`. Every AES launch call of the copy, joined to its
+    kernel by correlation id, then lies inside a `transform.launch` span on
+    the copier's track, every such span holds one, and each kernel starts
+    after its span opened: spans and kernels are on one clock."""
+    import json
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tieredstorage_tpu_torch.utils.tracing import merge_profiler_trace
+
+    rsm, md, log, _ = _observed_rsm(tmp_path, device, {"tracing.enabled": True})
+    seg = tmp_path / "seg"
+    tip = md.remote_log_segment_id.topic_id_partition
+    md2 = metadata.RemoteLogSegmentMetadata(
+        remote_log_segment_id=metadata.RemoteLogSegmentId(tip, metadata.KafkaUuid(b"\x07" * 16)),
+        start_offset=0, end_offset=99, segment_size_in_bytes=len(log),
+    )
+    sd2 = metadata.LogSegmentData(
+        log_segment=seg / "00000000000000000000.log",
+        offset_index=seg / "00000000000000000000.index",
+        time_index=seg / "00000000000000000000.timeindex",
+        producer_snapshot_index=seg / "00000000000000000000.index",
+        transaction_index=None, leader_epoch_index=b"0\n1\n0 0\n",
+    )
+    go = threading.Event()
+    box: dict = {}
+
+    def copier():
+        if not go.wait(timeout=120):
+            return
+        box["tid"] = threading.get_native_id()
+        try:
+            rsm.copy_log_segment_data(md2, sd2)
+        except BaseException as exc:  # noqa: BLE001 - asserted below
+            box["error"] = exc
+
+    worker = threading.Thread(target=copier, name="copier-0")
+    worker.start()
+    try:
+        rsm.tracer.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            go.set()
+            worker.join(timeout=300)
+            torch.cuda.synchronize()
+        assert not worker.is_alive() and "error" not in box, box
+        path = tmp_path / "profile.json"
+        prof.export_chrome_trace(str(path))
+        merged = merge_profiler_trace(path, rsm.tracer)
+    finally:
+        go.set()
+        rsm.close()
+    assert "transform.launch" not in {
+        e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    events = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "tieredstorage" and e["name"] == "transform.launch"]
+    assert spans and {s["tid"] for s in spans} == {box["tid"]}
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel" and "aes_ctr_kernel" in e["name"]]
+    # The copy's launches are those on the copier's track; another thread of
+    # the process (an earlier test's daemon) may launch in the window too.
+    launched = []
+    for k in kernels:
+        call = calls.get(k["args"].get("correlation"))
+        assert call is not None, "no launch call joined by correlation id"
+        if call["tid"] == box["tid"]:
+            launched.append((call, k))
+    assert launched
+    covered = set()
+    for call, k in launched:
+        around = [i for i, s in enumerate(spans) if s["ts"] <= call["ts"]
+                  and call["ts"] + call["dur"] <= s["ts"] + s["dur"]]
+        assert len(around) == 1, (call["ts"], call["dur"])
+        assert k["ts"] >= spans[around[0]]["ts"]
+        covered.add(around[0])
+    # Every window of the copy launched AES: each span holds a launch call,
+    # so none of the copy's calls stayed off its track.
+    assert covered == set(range(len(spans)))
+
+
 def test_scrape_does_not_wait_for_an_in_flight_launch(device, tmp_path):
     """A scrape runs every gauge on the exporter's thread; none may touch
     the device. With the default stream held by a sleep kernel and a

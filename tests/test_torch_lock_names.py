@@ -50,7 +50,7 @@ PORT_TO_JAX = {
 }
 #: Locks of port-only code (no JAX twin) and the drive that reaches them.
 PORT_ONLY = ("cuda._StagingPool._lock", "cuda.CudaTransformBackend._pool_lock",
-             "gcm._CONSTS_MU", "crc32c._CONSTS_MU", "_cuda._LOCK")
+             "gcm._CONSTS_MU", "gcm._ContextCache._lock", "crc32c._CONSTS_MU", "_cuda._LOCK")
 #: The modules whose plain locks became witnessed ones (module stems of the
 #: names; the port's `cuda` is compared as the JAX `tpu`).
 MODULES = ("caching", "ratelimit", "batcher", "chunk_manager", "manifest_cache",

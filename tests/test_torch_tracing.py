@@ -3,14 +3,22 @@
 Span and trace ids are random, so trees compare after renumbering: each
 span by its position in the ring, each trace by its first appearance.
 Under one fake `time.perf_counter`/`time.monotonic` the durations, the
-summaries and the Chrome export (timestamps included) are equal too. The
-port forwards spans into `torch.profiler` where the JAX package forwards
-into `jax.profiler`.
+summaries and the Chrome export (timestamps included) are equal too: the
+port exports wall-clock timestamps and native thread ids, so the fake
+clock is also the port tracer's wall clock, and the native thread id reads
+`threading.get_ident()`, the JAX export's `tid`. The port forwards spans
+into `torch.profiler` where the JAX package forwards into `jax.profiler`.
+
+The port's own: per-span CPU time (`thread_cpu`), and the merge of its
+spans and of the scheduler timeline into a `torch.profiler` export on the
+profile's axis (`merge_profiler_trace`).
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import threading
 import time
 import types
 
@@ -37,6 +45,9 @@ def clock(monkeypatch):
     fake = FakeClock()
     monkeypatch.setattr(time, "perf_counter", fake)
     monkeypatch.setattr(time, "monotonic", fake)
+    monkeypatch.setattr(port_tracing, "Tracer",
+                        functools.partial(port_tracing.Tracer, wall_clock=fake))
+    monkeypatch.setattr(threading, "get_native_id", threading.get_ident)
     return fake
 
 
@@ -246,3 +257,202 @@ def test_disabled_tracer_does_no_work(m, monkeypatch):
             with tracer.continue_trace(m.tracing.format_traceparent("12" * 16, "34" * 8)):
                 assert tracer.current_traceparent() is None
     assert tracer.dropped_spans == 0
+
+
+# ------------------------------------------------------- the port's own
+def _busy(seconds: float) -> None:
+    end = time.perf_counter() + seconds
+    n = 0
+    while time.perf_counter() < end:
+        n += 1
+
+
+@pytest.mark.parametrize("work", ["busy", "sleep"])
+def test_thread_cpu_records_the_threads_cpu_time(work):
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("op", thread_cpu=True, a=1) as span:
+        _busy(0.05) if work == "busy" else time.sleep(0.05)
+    cpu = span.attributes["cpu_s"]
+    assert span.attributes["a"] == 1
+    if work == "busy":
+        assert 0.5 * span.duration_s < cpu <= span.duration_s + 0.01
+    else:
+        assert 0.0 <= cpu < 0.2 * span.duration_s
+
+
+def test_plain_spans_and_events_record_no_cpu_time():
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("op", a=1):
+        tracer.event("e")
+    assert [s.attributes for s in tracer.spans()] == [{}, {"a": 1}]
+
+
+def test_disabled_tracer_reads_no_clock_with_thread_cpu(monkeypatch):
+    """`thread_cpu` on a disabled tracer reaches neither the ring's lock nor
+    the thread clock nor the native thread id."""
+
+    def refuse(*args):
+        raise AssertionError("a disabled tracer read a clock")
+
+    tracer = port_tracing.Tracer(enabled=False)
+    tracer._lock = _Poison()
+    monkeypatch.setattr(time, "thread_time", refuse)
+    monkeypatch.setattr(threading, "get_native_id", refuse)
+    for _ in range(3):
+        with tracer.span("op", thread_cpu=True, a=1) as s:
+            assert s is None
+    assert tracer.dropped_spans == 0
+
+
+def test_export_is_on_the_wall_clock_with_native_thread_ids():
+    tracer = port_tracing.Tracer(enabled=True)
+    seen = {}
+
+    def work():
+        seen["native"] = threading.get_native_id()
+        with tracer.span("worker.op"):
+            pass
+
+    before = time.time() * 1e6
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    after = time.time() * 1e6
+    (event,) = tracer.chrome_trace_events()
+    assert event["tid"] == seen["native"] != threading.get_native_id()
+    assert before - 1e3 <= event["ts"] <= after + 1e3
+
+
+def test_tracer_and_timeline_share_one_wall_axis():
+    """A span and a timeline launch at the same monotonic instants export
+    the same `ts` (both epochs are wall-clock pins of that clock)."""
+    from tieredstorage_tpu_torch.metrics.timeline import TimelineRecorder
+
+    timeline = TimelineRecorder(enabled=True)
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("op") as span:
+        pass
+    epoch = timeline.epoch()
+    assert timeline.ts_us(span.start_s) == port_tracing.wall_ts_us(
+        span.start_s, epoch["wall_s"], epoch["mono_s"])
+    (event,) = tracer.chrome_trace_events()
+    assert abs(event["ts"] - timeline.ts_us(span.start_s)) < 2e3
+
+
+def _profiled(tmp_path, body) -> dict:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        body()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())
+
+
+def test_merged_profile_puts_a_span_around_its_profiler_range(tmp_path):
+    """A main-thread span forwarded into the profiler lands, after the
+    merge, around its own `record_function` range: within 0.5 ms at each
+    edge and on the same track."""
+    tracer = port_tracing.Tracer(enabled=True, use_jax_profiler=True)
+
+    def body():
+        with tracer.span("rsm.fetch_log_segment"):
+            torch.ones(1024).sum()
+            time.sleep(0.005)
+
+    profile = _profiled(tmp_path, body)
+    merged = port_tracing.merge_profiler_trace(tmp_path / "profile.json", tracer)
+    assert merged["baseTimeNanoseconds"] == profile["baseTimeNanoseconds"]
+    assert len(merged["traceEvents"]) == len(profile["traceEvents"]) + 1
+    (rng,) = [e for e in merged["traceEvents"]
+              if e.get("cat") == "user_annotation" and e["name"] == "rsm.fetch_log_segment"]
+    (span,) = [e for e in merged["traceEvents"] if e.get("cat") == "tieredstorage"]
+    assert span["tid"] == rng["tid"] and span["pid"] == rng["pid"]
+    assert abs(span["ts"] - rng["ts"]) <= 500.0
+    assert abs((span["ts"] + span["dur"]) - (rng["ts"] + rng["dur"])) <= 500.0
+
+
+def test_merged_profile_holds_spans_of_threads_the_profiler_never_saw(tmp_path):
+    """A thread started before the profiler session: its forwarded range is
+    missing from the profile, and the merge puts its span on its own track,
+    between the main thread's ranges before and after it."""
+    tracer = port_tracing.Tracer(enabled=True, use_jax_profiler=True)
+    go, done = threading.Event(), threading.Event()
+    native = {}
+
+    def worker():
+        go.wait(timeout=30)
+        native["tid"] = threading.get_native_id()
+        with tracer.span("rsm.copy_log_segment_data", thread_cpu=True):
+            time.sleep(0.003)
+        done.set()
+
+    t = threading.Thread(target=worker)
+    t.start()
+
+    def body():
+        with torch.profiler.record_function("main.before"):
+            time.sleep(0.002)
+        go.set()
+        assert done.wait(timeout=30)
+        with torch.profiler.record_function("main.after"):
+            time.sleep(0.002)
+
+    try:
+        profile = _profiled(tmp_path, body)
+    finally:
+        go.set()
+        t.join(timeout=30)
+    assert not t.is_alive()
+    assert "rsm.copy_log_segment_data" not in {e.get("name") for e in profile["traceEvents"]}
+    merged = port_tracing.merge_profiler_trace(profile, tracer)
+    ranges = {e["name"]: e for e in merged["traceEvents"] if e.get("cat") == "user_annotation"}
+    (span,) = [e for e in merged["traceEvents"] if e.get("cat") == "tieredstorage"]
+    assert span["tid"] == native["tid"]
+    assert float(span["args"]["cpu_s"]) >= 0.0
+    before, after = ranges["main.before"], ranges["main.after"]
+    assert before["ts"] + before["dur"] <= span["ts"]
+    assert span["ts"] + span["dur"] <= after["ts"]
+
+
+def test_merge_rebases_spans_and_timeline_events_to_the_profile_base():
+    from tieredstorage_tpu_torch.metrics.timeline import TimelineRecorder
+
+    tracer = port_tracing.Tracer(enabled=True)
+    timeline = TimelineRecorder(enabled=True)
+    with tracer.span("op") as span:
+        pass
+    timeline.record_flush(
+        batch_id=1, work_class="latency", decrypt=True, bucket_bytes=1024, rows=2,
+        n_bytes=2048, occupancy=2, queued_age_ms=0.5, begin_s=span.start_s, end_s=span.end_s)
+    exported = timeline.export_chrome_trace()["traceEvents"]
+    base_ns = 1_700_000_000 * 10**9
+    profile = {"baseTimeNanoseconds": base_ns, "traceEvents": [{"name": "k", "ph": "X"}]}
+    merged = port_tracing.merge_profiler_trace(profile, tracer, exported)
+    assert profile["traceEvents"] == [{"name": "k", "ph": "X"}]  # the input is left as it was
+    events = merged["traceEvents"]
+    assert events[0] == {"name": "k", "ph": "X"}
+    (ours,) = [e for e in events if e.get("cat") == "tieredstorage"]
+    assert ours["ts"] == pytest.approx(tracer.chrome_trace_events()[0]["ts"] - base_ns / 1e3)
+    slices = [e for e in events if e.get("cat") == "device-scheduler"]
+    assert [e["ts"] for e in slices] == pytest.approx(
+        [e["ts"] - base_ns / 1e3 for e in exported if e.get("cat") == "device-scheduler"])
+    assert abs(slices[0]["ts"] - ours["ts"]) < 2e3
+
+
+def test_merge_moves_cuda_calls_onto_the_native_track_of_a_traced_thread():
+    """Kineto writes a CUDA runtime call's `tid` as CUPTI's 32-bit
+    `pthread_self()`: the merge moves the calls of a thread the tracer saw
+    onto that thread's native track, and leaves every other event as is."""
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("transform.launch"):
+        pass
+    cupti_tid = threading.get_ident() & 0xFFFFFFFF
+    other = {"name": "cudaMemcpyAsync", "cat": "cuda_runtime", "ph": "X", "ts": 1.0,
+             "dur": 1.0, "pid": 1, "tid": cupti_tid + 1}
+    call = {**other, "name": "cudaLaunchKernel", "tid": cupti_tid}
+    op = {**other, "name": "aten::copy_", "cat": "cpu_op", "tid": cupti_tid}
+    merged = port_tracing.merge_profiler_trace(
+        {"baseTimeNanoseconds": 0, "traceEvents": [call, other, op]}, tracer)
+    moved, kept, cpu, span = merged["traceEvents"]
+    assert moved == {**call, "tid": threading.get_native_id()} and span["tid"] == moved["tid"]
+    assert (kept, cpu) == (other, op)

@@ -7,8 +7,10 @@ device="cpu", where every kernel wrapper takes its plain PyTorch version.
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -29,6 +31,7 @@ from tieredstorage_tpu_torch.transform.api import (
     TransformOptions,
 )
 from tieredstorage_tpu_torch.transform.cuda import CudaTransformBackend
+from tieredstorage_tpu_torch.utils.tracing import Tracer
 
 
 def _inputs(seed: int, sizes: list[int]):
@@ -249,3 +252,171 @@ def test_concurrent_detransform_is_byte_exact():
     assert gcm.device_dispatches() - before == len(jobs)
     assert ours.dispatch_stats.windows == len(jobs)
     assert ours.dispatch_stats.d2h_fetches == len(jobs)
+
+
+# --------------------------------------------------- spans of the window path
+def _traced_backend(**configs) -> CudaTransformBackend:
+    backend = _cpu_backend(**configs)
+    backend.tracer = Tracer(enabled=True)
+    return backend
+
+
+def _parent_names(tracer) -> dict[str, list]:
+    """Each span's name -> the names of its parents, in ring order."""
+    spans = tracer.spans()
+    name_of = {s.span_id: s.name for s in spans}
+    out: dict[str, list] = {}
+    for s in spans:
+        out.setdefault(s.name, []).append(name_of.get(s.parent_id))
+    return out
+
+
+def _one(tracer, name):
+    (span,) = tracer.spans(name)
+    return span
+
+
+@pytest.mark.parametrize("sizes", [[4096] * 3, [4096, 4096, 1000]], ids=["fixed", "varlen"])
+def test_encrypt_window_spans_nest_under_their_stage_spans(sizes):
+    """One window: the context, the staging and the launch inside
+    `transform.encrypt_dispatch`, the wait and the wire assembly inside
+    `transform.encrypt_finish`, each once, with its attributes; a second
+    window under the same key and shape builds no context and allocates no
+    staging buffer."""
+    _, _, chunks, _ = _inputs(31, sizes)
+    enc = DataKeyAndAAD(os.urandom(32), b"aad")  # a key no cache holds
+    ours = _traced_backend()
+    wire = ours.transform(chunks, TransformOptions(encryption=enc))
+    tracer = ours.tracer
+    parents = _parent_names(tracer)
+    for name in ("gcm.context", "transform.stage", "transform.launch"):
+        assert parents[name] == ["transform.encrypt_dispatch"], name
+    for name in ("transform.wait", "transform.assemble"):
+        assert parents[name] == ["transform.encrypt_finish"], name
+    varlen = len(set(sizes)) > 1
+    n_bytes = gcm.bucket_max_bytes(max(sizes)) if varlen else sizes[0]
+    context = _one(tracer, "gcm.context").attributes
+    assert {k: context[k] for k in ("built", "varlen", "bytes")} == {
+        "built": 1, "varlen": int(varlen), "bytes": n_bytes}
+    stage = _one(tracer, "transform.stage").attributes
+    assert {k: stage[k] for k in ("allocated", "rows", "bytes")} == {
+        "allocated": 1, "rows": len(sizes), "bytes": sum(sizes)}
+    assert _one(tracer, "transform.launch").attributes["rows"] == len(sizes)
+    assemble = _one(tracer, "transform.assemble").attributes
+    assert (assemble["chunks"], assemble["bytes"]) == (len(sizes), sum(len(c) for c in wire))
+    for s in tracer.spans():
+        assert 0.0 <= s.attributes["cpu_s"], s.name
+
+    tracer.clear()
+    ours.transform(chunks, TransformOptions(encryption=enc))
+    assert _one(tracer, "gcm.context").attributes["built"] == 0
+    assert _one(tracer, "transform.stage").attributes["allocated"] == 0
+    assert ours.detransform(wire, DetransformOptions(encryption=enc)) == chunks
+
+
+def test_decrypt_window_spans_and_decompress_apart_from_decrypt():
+    """A compressed and encrypted window read back: the context, staging,
+    launch and wait inside `transform.decrypt` (no wire assembly), and
+    `transform.decompress` beside it, not inside it."""
+    rng = np.random.default_rng(32)
+    chunks = [bytes(rng.integers(0, 4, 3000, dtype=np.uint8)) for _ in range(3)]
+    enc = DataKeyAndAAD(rng.bytes(32), b"aad")
+    ours = _traced_backend()
+    wire = ours.transform(chunks, TransformOptions(compression=True, encryption=enc))
+    ours.tracer.clear()
+    back = ours.detransform(wire, DetransformOptions(
+        compression=True, encryption=enc, max_original_chunk_size=3000))
+    assert back == chunks
+    parents = _parent_names(ours.tracer)
+    for name in ("gcm.context", "transform.stage", "transform.launch", "transform.wait"):
+        assert parents[name] == ["transform.decrypt"], name
+    assert "transform.assemble" not in parents
+    assert parents["transform.decompress"] == [None] and parents["transform.decrypt"] == [None]
+    decompress = _one(ours.tracer, "transform.decompress").attributes
+    assert (decompress["chunks"], decompress["bytes_out"]) == (3, 9000)
+    assert decompress["bytes_in"] == _one(ours.tracer, "transform.decrypt").attributes["bytes_out"]
+    assert decompress["cpu_s"] >= 0.0
+
+
+def test_batched_flush_opens_the_same_spans():
+    """Two encrypt windows merged into one flush by the batcher: one
+    context, staging, launch, wait and wire assembly for the flush."""
+    from tieredstorage_tpu_torch.transform.batcher import WindowBatcher
+
+    ours = _traced_backend()
+    b = WindowBatcher(ours)
+    b._inflight += 1  # the fast path parked: both windows queue
+    enc = DataKeyAndAAD(os.urandom(32), b"aad")
+    _, _, chunks, _ = _inputs(33, [4096, 4096, 2048, 4096])
+    opts = TransformOptions(encryption=enc)
+    handles = [b.submit_encrypt(chunks[:2], opts), b.submit_encrypt(chunks[2:], opts)]
+    assert b.flush_now() == 1
+    wire = [c for h in handles for c in h.wait()]
+    names = [s.name for s in ours.tracer.spans()]
+    for name in ("gcm.context", "transform.stage", "transform.launch", "transform.wait",
+                 "transform.assemble"):
+        assert names.count(name) == 1, name
+    assert _one(ours.tracer, "gcm.context").attributes["built"] == 1
+    stage = _one(ours.tracer, "transform.stage").attributes
+    assert (stage["allocated"], stage["rows"], stage["bytes"]) == (1, 4, sum(map(len, chunks)))
+    assemble = _one(ours.tracer, "transform.assemble").attributes
+    assert (assemble["chunks"], assemble["bytes"]) == (4, sum(map(len, wire)))
+    assert ours.detransform(wire, DetransformOptions(encryption=enc)) == chunks
+
+
+def test_disabled_tracer_computes_nothing_on_the_window_path(monkeypatch):
+    """With the tracer off a window reaches neither the tracer's lock nor
+    the thread clock: the spans cost their disabled `span()` calls alone."""
+
+    class Poison:
+        def __enter__(self):
+            raise AssertionError("a disabled tracer took its lock")
+
+        def __exit__(self, *exc):  # pragma: no cover - never entered
+            return False
+
+    def refuse(*args):
+        raise AssertionError("a disabled tracer read a clock")
+
+    ours = _cpu_backend()
+    ours.tracer = Tracer(enabled=False)
+    ours.tracer._lock = Poison()
+    monkeypatch.setattr(time, "thread_time", refuse)
+    monkeypatch.setattr(threading, "get_native_id", refuse)
+    rng = np.random.default_rng(34)
+    chunks = [bytes(rng.integers(0, 4, 2000, dtype=np.uint8)) for _ in range(2)]
+    enc = DataKeyAndAAD(rng.bytes(32), b"")
+    wire = ours.transform(chunks, TransformOptions(compression=True, encryption=enc))
+    assert ours.detransform(wire, DetransformOptions(
+        compression=True, encryption=enc, max_original_chunk_size=2000)) == chunks
+
+
+def test_context_cache_keeps_the_64_most_recently_used():
+    """The lookup says whether it built; a hit refreshes a key's recency,
+    and the 65th distinct key evicts the least recently used one."""
+    key = os.urandom(32)
+    first, built = gcm.lookup_context(key, b"", 16)
+    assert built and gcm.lookup_context(key, b"", 16) == (first, False)
+    for n in range(2, 65):
+        assert gcm.lookup_context(key, b"", 16 * n)[1]
+    assert gcm.lookup_context(key, b"", 16) == (first, False)  # now the newest
+    assert gcm.lookup_context(key, b"", 16 * 65)[1]           # evicts 16 * 2
+    assert gcm.lookup_context(key, b"", 16) == (first, False)
+    assert gcm.lookup_context(key, b"", 32)[1]
+    assert gcm.make_context(key, b"", 16) is first
+
+
+def test_context_cache_hands_every_thread_one_context():
+    """Threads that miss one key at once each report their build, and all
+    get the one context the cache kept."""
+    key = os.urandom(32)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            got = list(pool.map(lambda _: gcm.lookup_varlen_context(key, b"a", 3000), range(32)))
+    finally:
+        sys.setswitchinterval(switch)
+    assert len({id(ctx) for ctx, _ in got}) == 1
+    assert 1 <= sum(built for _, built in got) <= 8
+    assert gcm.lookup_varlen_context(key, b"a", 3000) == (got[0][0], False)

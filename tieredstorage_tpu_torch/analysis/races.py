@@ -154,6 +154,10 @@ PORT_SHARED_LOCKS = {
     "tieredstorage_tpu_torch/ops/gcm.py:_CONSTS_MU":
         "the per-(context, device) constants uploaded once and shared by "
         "every thread that launches a window program on that device",
+    "tieredstorage_tpu_torch/ops/gcm.py:_ContextCache._lock":
+        "the GCM contexts most recently used, by (key, aad, size): every "
+        "thread that runs a window (request threads, the batcher's "
+        "flusher) looks its context up and stores the ones it built",
     "tieredstorage_tpu_torch/ops/crc32c.py:_CONSTS_MU":
         "the per-device CRC32C constants, shared by the scrubber's and the "
         "anti-entropy repairer's threads",

@@ -694,8 +694,11 @@ def _base_def() -> ConfigDef:
         "tracing.jax.profiler.enabled", "bool", default=False, importance="low",
         doc="Forward tracing spans into torch.profiler record_function "
             "ranges so they appear next to the CUDA kernels in a "
-            "torch.profiler (Kineto) trace; the key keeps the JAX "
-            "package's name (requires tracing.enabled).",
+            "torch.profiler (Kineto) trace. Kineto keeps such a range only "
+            "on the profiler session's own thread; spans recorded on other "
+            "threads (the broker's copier and reader pools) reach a profile "
+            "through utils.tracing.merge_profiler_trace instead. The key "
+            "keeps the JAX package's name (requires tracing.enabled).",
     ))
     d.define(ConfigKey(
         "tracing.max.spans", "int", default=10_000,

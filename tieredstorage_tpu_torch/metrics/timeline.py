@@ -22,9 +22,14 @@ joins the launches that served it through an explicit flow edge:
   batcher stamps ``time.monotonic`` and the flight recorder
   ``time.perf_counter`` (CLOCK_MONOTONIC on Linux), so a launch slice and
   the request slice it served share one time axis within a process. The
-  recorder pins a (wall, monotonic) epoch pair at construction — the
-  ``Tracer._ts_us`` idiom — so exported ``ts`` values are wall-clock
-  microseconds Perfetto can align across processes on one host.
+  recorder pins a (wall, monotonic) epoch pair at construction, as the
+  tracer does (both map through ``utils.tracing.wall_ts_us``), so exported
+  ``ts`` values are wall-clock microseconds Perfetto can align across
+  processes on one host, and with the tracer's spans and a Kineto export:
+  ``utils.tracing.merge_profiler_trace`` merges this export and the
+  tracer's spans into a ``torch.profiler`` trace, whichever threads
+  recorded them (the tracer's ``record_function`` forwarding reaches the
+  profile only from the profiler session's own thread).
 - **Flow join**: the chunk manager stamps ``gcm.batch:<id>`` stages on
   flight records (fetch/chunk_manager.py). ``chrome_trace_events`` emits
   a flow-start (``ph: "s"``) at that stage on the request's track and a
@@ -49,6 +54,7 @@ from collections import deque
 from typing import Callable, Iterable, Mapping, Optional
 
 from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
+from tieredstorage_tpu_torch.utils.tracing import wall_ts_us
 
 TIMELINE_METRIC_GROUP = "timeline-metrics"
 
@@ -101,8 +107,9 @@ class TimelineRecorder:
         self._now = time_source
         self._lock = new_lock("timeline.TimelineRecorder._lock")
         self._ring: deque[dict] = deque()
-        #: Epoch pin (Tracer._ts_us idiom): monotonic instants export as
-        #: wall-clock microseconds via one linear map fixed at construction,
+        #: Epoch pin (the tracer's, through `wall_ts_us`): monotonic
+        #: instants export as wall-clock microseconds via one linear map
+        #: fixed at construction,
         #: so two processes on one host land on one Perfetto axis. Wall
         #: clock is injectable (and read exactly once, here): durations and
         #: ordering stay monotonic; only the export axis is wall-pinned.
@@ -204,7 +211,7 @@ class TimelineRecorder:
 
     def ts_us(self, mono_s: float) -> float:
         """A monotonic instant as wall-clock microseconds (epoch-pinned)."""
-        return (self._epoch_wall + (mono_s - self._epoch_mono)) * 1e6
+        return wall_ts_us(mono_s, self._epoch_wall, self._epoch_mono)
 
     def status(self) -> dict:
         """The ``timeline_status`` payload: counters, epoch, events."""
@@ -275,7 +282,7 @@ def register_timeline_metrics(registry, recorder: TimelineRecorder) -> None:
 
 # ------------------------------------------------------------- chrome export
 def _wall_ts_us(mono_s: float, epoch: Mapping) -> float:
-    return (epoch["wall_s"] + (mono_s - epoch["mono_s"])) * 1e6
+    return wall_ts_us(mono_s, epoch["wall_s"], epoch["mono_s"])
 
 
 def flow_cat(instance: Optional[str] = None) -> str:

@@ -12,11 +12,10 @@ Build directory: `$TSTORCH_BUILD_DIR`, else `_build/` inside this package
 (listed in .gitignore). nvcc: `$NVCC`, else `nvcc` on PATH, else
 /usr/local/cuda/bin/nvcc.
 
-`LAUNCHES` counts the launches of each kernel (a plain integer per kernel,
-bumped only where the wrapper launches), so a caller can show that a path
-really went through the kernels; `LAUNCH_ROWS` splits the same launches by
-the rows (chunks) each covered, so it can show how many chunks a launch
-carried.
+`LAUNCH_ROWS` counts the launches of each kernel by the rows (chunks) each
+covered, bumped only where the wrapper launches: `launch_counts()` sums it
+per kernel, so a caller can show that a path really went through the
+kernels, and `launch_rows()` shows how many chunks a launch carried.
 """
 
 from __future__ import annotations
@@ -50,7 +49,6 @@ _SIGNATURES = {
     "huffman_decode": ("tst_huffman_decode", (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P)),
 }
 
-LAUNCHES: dict[str, int] = {name: 0 for name in _SIGNATURES}
 LAUNCH_ROWS: dict[str, collections.Counter] = {name: collections.Counter() for name in _SIGNATURES}
 _LOCK = new_lock("_cuda._LOCK")
 _LIB: list[ctypes.CDLL] = []
@@ -61,14 +59,14 @@ BUILD_LOG: dict[str, object] = {}
 
 def reset_launch_counts() -> None:
     with _LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-            LAUNCH_ROWS[name].clear()
+        for rows in LAUNCH_ROWS.values():
+            rows.clear()
 
 
 def launch_counts() -> dict[str, int]:
+    """Per kernel: its launches."""
     with _LOCK:
-        return dict(LAUNCHES)
+        return {name: sum(c.values()) for name, c in LAUNCH_ROWS.items()}
 
 
 def launch_rows() -> dict[str, dict[int, int]]:
@@ -189,5 +187,4 @@ def launch(name: str, *args, rows: int) -> None:
         msg = lib.tst_cuda_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
     with _LOCK:
-        LAUNCHES[name] += 1
         LAUNCH_ROWS[name][rows] += 1

@@ -23,6 +23,7 @@ caller donates it — the counterpart of XLA buffer donation.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import threading
@@ -72,7 +73,36 @@ def _derive_h(key: bytes) -> tuple[np.ndarray, int]:
     return round_keys, int.from_bytes(encrypt_block(round_keys, bytes(16)), "big")
 
 
-@functools.lru_cache(maxsize=64)
+class _ContextCache:
+    """The GCM contexts most recently used, under one lock. The caller
+    builds a missing context outside the lock, so a hit never waits behind
+    another key's build; two threads that miss one key at once both build,
+    and `put` keeps the first stored context and hands it to both."""
+
+    def __init__(self, maxsize: int = 64) -> None:
+        self._maxsize = maxsize
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = new_lock("gcm._ContextCache._lock")
+
+    def get(self, key: tuple):
+        """The cached context (now the most recently used), or None."""
+        with self._lock:
+            ctx = self._entries.get(key)
+            if ctx is not None:
+                self._entries.move_to_end(key)
+            return ctx
+
+    def put(self, key: tuple, ctx):
+        """Store a built context, evicting the least recently used beyond
+        the capacity; returns the context kept for the key."""
+        with self._lock:
+            ctx = self._entries.setdefault(key, ctx)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self._maxsize:
+                self._entries.popitem(last=False)
+            return ctx
+
+
 def _context_cached(key: bytes, aad: bytes, chunk_bytes: int) -> GcmContext:
     round_keys, h = _derive_h(key)
 
@@ -107,12 +137,25 @@ def _context_cached(key: bytes, aad: bytes, chunk_bytes: int) -> GcmContext:
     )
 
 
-def make_context(key: bytes, aad: bytes, chunk_bytes: int) -> GcmContext:
+_CONTEXTS = _ContextCache()
+
+
+def lookup_context(key: bytes, aad: bytes, chunk_bytes: int) -> tuple[GcmContext, bool]:
+    """`make_context`, and whether this call built the context (a miss of
+    the cache of the 64 most recently used)."""
     if len(key) != 32:
         raise ValueError("AES-256 key required")
     if chunk_bytes <= 0:
         raise ValueError("chunk_bytes must be positive")
-    return _context_cached(bytes(key), bytes(aad), chunk_bytes)
+    cache_key = (bytes(key), bytes(aad), chunk_bytes)
+    ctx = _CONTEXTS.get(cache_key)
+    if ctx is not None:
+        return ctx, False
+    return _CONTEXTS.put(cache_key, _context_cached(*cache_key)), True
+
+
+def make_context(key: bytes, aad: bytes, chunk_bytes: int) -> GcmContext:
+    return lookup_context(key, aad, chunk_bytes)[0]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # identity hash: weakly cacheable
@@ -128,7 +171,6 @@ class GcmVarlenContext:
     step_mat: np.ndarray = None
 
 
-@functools.lru_cache(maxsize=64)
 def _varlen_context_cached(key: bytes, aad: bytes, max_bytes: int) -> GcmVarlenContext:
     round_keys, h = _derive_h(key)
     m_max = _ceil_div(max_bytes, 16)
@@ -162,10 +204,24 @@ def bucket_max_bytes(n: int) -> int:
     return step * _ceil_div(n, step)
 
 
-def make_varlen_context(key: bytes, aad: bytes, max_bytes: int) -> GcmVarlenContext:
+_VARLEN_CONTEXTS = _ContextCache()
+
+
+def lookup_varlen_context(
+    key: bytes, aad: bytes, max_bytes: int
+) -> tuple[GcmVarlenContext, bool]:
+    """`make_varlen_context`, and whether this call built the context."""
     if len(key) != 32:
         raise ValueError("AES-256 key required")
-    return _varlen_context_cached(bytes(key), bytes(aad), bucket_max_bytes(max_bytes))
+    cache_key = (bytes(key), bytes(aad), bucket_max_bytes(max_bytes))
+    ctx = _VARLEN_CONTEXTS.get(cache_key)
+    if ctx is not None:
+        return ctx, False
+    return _VARLEN_CONTEXTS.put(cache_key, _varlen_context_cached(*cache_key)), True
+
+
+def make_varlen_context(key: bytes, aad: bytes, max_bytes: int) -> GcmVarlenContext:
+    return lookup_varlen_context(key, aad, max_bytes)[0]
 
 
 def context_from_numpy(src):
@@ -683,8 +739,8 @@ def gcm_window_packed(
     window is row-split over the members: data_packed is the list of
     per-member shards (`shard_rows`), or a tensor to split, and the result
     is the list of per-member outputs in row order. It is ONE logical
-    dispatch at any mesh size; `_cuda.LAUNCHES` counts each member's
-    kernel launches."""
+    dispatch at any mesh size; `_cuda.launch_counts()` counts each
+    member's kernel launches."""
     if mesh is not None:
         _require_tail_metadata(ivs)
         shards = _mesh_shards(mesh, data_packed)

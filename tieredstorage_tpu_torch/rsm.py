@@ -179,8 +179,9 @@ log = logging.getLogger(__name__)
 
 
 def _traced(name: str):
-    """Span around an RSM operation, tagged with topic/partition; the spans
-    also open torch.profiler ranges when `tracing.jax.profiler.enabled`.
+    """Span around an RSM operation, tagged with topic/partition and the
+    calling thread's CPU time (`cpu_s`); the spans also open torch.profiler
+    ranges when `tracing.jax.profiler.enabled`.
 
     Also the deadline entry point: the operation adopts the caller's
     ambient end-to-end Deadline or starts one from `deadline.default.ms`,
@@ -197,7 +198,7 @@ def _traced(name: str):
             tp = metadata.remote_log_segment_id.topic_id_partition.topic_partition
             with ensure_deadline(self.default_deadline_s), \
                     self.tracer.span(
-                        name, topic=tp.topic, partition=tp.partition
+                        name, thread_cpu=True, topic=tp.topic, partition=tp.partition
                     ) as span, \
                     self.flight_recorder.request(
                         name, trace_id=span.trace_id if span else None
@@ -1417,9 +1418,15 @@ class RemoteStorageManager:
         """Segment-object upload chokepoint: the ``storage.write`` injection
         seam (utils/faults.py) sits here, before the stream is consumed, so a
         fault run can fail/stall writes without corrupting partially-consumed
-        uploads."""
-        faults.fire("storage.write", str(key))
-        return self._storage.upload(stream, key)
+        uploads. Spanned `storage.upload`: the segment's stream is lazy, so
+        its transform spans nest inside, and the span's own time is the
+        store's work and the source reads."""
+        with self.tracer.span("storage.upload", thread_cpu=True, key=key.value) as span:
+            faults.fire("storage.write", str(key))
+            uploaded = self._storage.upload(stream, key)
+            if span is not None:
+                span.attributes["bytes"] = uploaded
+        return uploaded
 
     def _requires_compression(self, segment_data: LogSegmentData) -> bool:
         config = self._require_configured()

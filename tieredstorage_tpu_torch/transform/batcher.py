@@ -58,6 +58,7 @@ process-wide `device_dispatches()` counts them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hmac
 import threading
@@ -687,49 +688,59 @@ class WindowBatcher:
             return
 
         backend = self._backend
+        tracer = backend.tracer
         try:
             sizes = {s for e in live for s in e.sizes}
             varlen = len(sizes) != 1
-            if varlen:
-                ctx = gcm_ops.make_varlen_context(key[2], key[3], key[4])
-                n_bytes = ctx.max_bytes
-            else:
-                # One chunk size: the fixed window program, which writes
-                # fewer intermediates than the varlen sequence assembly.
-                ctx = gcm_ops.make_context(key[2], key[3], sizes.pop())
-                n_bytes = ctx.chunk_bytes
+            with tracer.span("gcm.context", thread_cpu=True) as span:
+                if varlen:
+                    ctx, built = gcm_ops.lookup_varlen_context(key[2], key[3], key[4])
+                    n_bytes = ctx.max_bytes
+                else:
+                    # One chunk size: the fixed window program, which writes
+                    # fewer intermediates than the varlen sequence assembly.
+                    ctx, built = gcm_ops.lookup_context(key[2], key[3], sizes.pop())
+                    n_bytes = ctx.chunk_bytes
+                if span is not None:
+                    span.attributes.update(built=int(built), varlen=int(varlen), bytes=n_bytes)
             rows = sum(len(e.sizes) for e in live)
-            shape = (bucket_rows(rows), n_bytes + TAG_SIZE)
-            pinned = backend.device.type == "cuda"
-            packed = backend._staging.acquire(shape, pinned)
-            out_host = backend._staging.acquire(shape, pinned)
-            pk = packed.numpy()
-            r = 0
-            for e in live:
-                for i, p in enumerate(e.payloads):
-                    pk[r, : e.sizes[i]] = np.frombuffer(p, np.uint8)
-                    pk[r, e.sizes[i] : n_bytes] = 0  # varlen GHASH needs a zero tail
-                    pk[r, n_bytes : n_bytes + IV_SIZE] = e.ivs[i]
-                    r += 1
-                pk[r - len(e.sizes) : r, n_bytes + IV_SIZE :] = (
-                    np.asarray(e.sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
-                    if varlen else 0
-                )
-            # Row-ladder padding: zero rows, and under varlen one 16-byte
-            # zero block per dummy row (zero-length rows are excluded by
-            # the varlen contract).
-            pk[rows:] = 0
-            if varlen:
-                pk[rows:, n_bytes + IV_SIZE] = 16
+            with tracer.span("transform.stage", thread_cpu=True) as span:
+                shape = (bucket_rows(rows), n_bytes + TAG_SIZE)
+                pinned = backend.device.type == "cuda"
+                packed, missed = backend._staging.acquire(shape, pinned)
+                out_host, missed_out = backend._staging.acquire(shape, pinned)
+                pk = packed.numpy()
+                r = 0
+                for e in live:
+                    for i, p in enumerate(e.payloads):
+                        pk[r, : e.sizes[i]] = np.frombuffer(p, np.uint8)
+                        pk[r, e.sizes[i] : n_bytes] = 0  # varlen GHASH needs a zero tail
+                        pk[r, n_bytes : n_bytes + IV_SIZE] = e.ivs[i]
+                        r += 1
+                    pk[r - len(e.sizes) : r, n_bytes + IV_SIZE :] = (
+                        np.asarray(e.sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
+                        if varlen else 0
+                    )
+                # Row-ladder padding: zero rows, and under varlen one 16-byte
+                # zero block per dummy row (zero-length rows are excluded by
+                # the varlen contract).
+                pk[rows:] = 0
+                if varlen:
+                    pk[rows:, n_bytes + IV_SIZE] = 16
+                if span is not None:
+                    span.attributes.update(allocated=int(missed or missed_out), rows=rows,
+                                           bytes=sum(e.n_bytes for e in live))
             t0 = self._now()
-            ready = call_with_retry(
-                lambda: self._launch_once(ctx, packed, out_host, decrypt, work_class, varlen),
-                policy=self._launch_policy,
-                site="device.launch",
-                on_retry=self._on_launch_retry,
-            )
-            if ready is not None:
-                ready.synchronize()
+            with tracer.span("transform.launch", thread_cpu=True, rows=rows):
+                ready = call_with_retry(
+                    lambda: self._launch_once(ctx, packed, out_host, decrypt, work_class, varlen),
+                    policy=self._launch_policy,
+                    site="device.launch",
+                    on_retry=self._on_launch_retry,
+                )
+            with tracer.span("transform.wait", thread_cpu=True):
+                if ready is not None:
+                    ready.synchronize()
             host = out_host.numpy()
             launch_s = self._now() - t0
         except BaseException as exc:  # noqa: BLE001 - every waiter must wake
@@ -763,37 +774,45 @@ class WindowBatcher:
 
         added_waits: list[float] = []
         r = 0
-        for e in live:
-            n = len(e.sizes)
-            if decrypt:
-                bad = [
-                    i
-                    for i in range(n)
-                    if not hmac.compare_digest(host[r + i, n_bytes:].tobytes(), e.tags[i])
-                ]
-                if bad:
-                    # Per-row error isolation: one forged row fails ITS
-                    # request; batch-mates still get their plaintext.
-                    e.error = AuthenticationError(f"GCM tag mismatch on chunks {bad}")
+        # Encrypt rows become wire chunks here (the unbatched path's
+        # `transform.assemble`); decrypt rows are verified and copied out.
+        assemble = contextlib.nullcontext() if decrypt else tracer.span(
+            "transform.assemble", thread_cpu=True)
+        with assemble as span:
+            for e in live:
+                n = len(e.sizes)
+                if decrypt:
+                    bad = [
+                        i
+                        for i in range(n)
+                        if not hmac.compare_digest(host[r + i, n_bytes:].tobytes(), e.tags[i])
+                    ]
+                    if bad:
+                        # Per-row error isolation: one forged row fails ITS
+                        # request; batch-mates still get their plaintext.
+                        e.error = AuthenticationError(f"GCM tag mismatch on chunks {bad}")
+                    else:
+                        e.result = [host[r + i, : e.sizes[i]].tobytes() for i in range(n)]
                 else:
-                    e.result = [host[r + i, : e.sizes[i]].tobytes() for i in range(n)]
-            else:
-                e.result = [
-                    e.ivs[i].tobytes()
-                    + host[r + i, : e.sizes[i]].tobytes()
-                    + host[r + i, n_bytes:].tobytes()
-                    for i in range(n)
-                ]
-            r += n
-            e.batch_id = batch_id
-            e.occupancy = occupancy
-            e.added_wait_ms = max(0.0, (t0 - e.enqueued_at) * 1000.0)
-            added_waits.append(e.added_wait_ms)
-            e.event.set()
-        # The event of the output buffer has completed and every caller's
-        # rows were copied out: both buffers may serve the next flush.
-        backend._staging.release(packed)
-        backend._staging.release(out_host)
+                    e.result = [
+                        e.ivs[i].tobytes()
+                        + host[r + i, : e.sizes[i]].tobytes()
+                        + host[r + i, n_bytes:].tobytes()
+                        for i in range(n)
+                    ]
+                r += n
+                e.batch_id = batch_id
+                e.occupancy = occupancy
+                e.added_wait_ms = max(0.0, (t0 - e.enqueued_at) * 1000.0)
+                added_waits.append(e.added_wait_ms)
+                e.event.set()
+            # The event of the output buffer has completed and every caller's
+            # rows were copied out: both buffers may serve the next flush.
+            backend._staging.release(packed)
+            backend._staging.release(out_host)
+            if span is not None:
+                span.attributes.update(
+                    chunks=r, bytes=sum(len(c) for e in live for c in e.result))
         with self._cond:
             self.class_added_wait_ms[work_class] += sum(added_waits)
             note_mutation("batcher.WindowBatcher.class_added_wait_ms")

@@ -72,8 +72,8 @@ from tieredstorage_tpu_torch.ops import gcm as gcm_ops
 from tieredstorage_tpu_torch.ops.gcm import (
     gcm_varlen_window_packed,
     gcm_window_packed,
-    make_context,
-    make_varlen_context,
+    lookup_context,
+    lookup_varlen_context,
 )
 from tieredstorage_tpu_torch.parallel.mesh import MeshPlan
 from tieredstorage_tpu_torch.security.aes import IV_SIZE, TAG_SIZE, DataKeyAndAAD
@@ -147,13 +147,15 @@ class _StagingPool:
         self._lock = new_lock("cuda._StagingPool._lock")
         self.allocations = 0
 
-    def acquire(self, shape: tuple, pinned: bool) -> torch.Tensor:
+    def acquire(self, shape: tuple, pinned: bool) -> tuple[torch.Tensor, bool]:
+        """(buffer, allocated): allocated is True on a miss of the pool, the
+        event `allocations` counts."""
         with self._lock:
             free = self._free[shape]
             if free:
-                return free.pop()
+                return free.pop(), False
             self.allocations += 1
-        return torch.empty(shape, dtype=torch.uint8, pin_memory=pinned)
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=pinned), True
 
     def release(self, buf: torch.Tensor) -> None:
         with self._lock:
@@ -166,7 +168,8 @@ def _spanned(name: str, count=len, n_bytes=None):
     """Trace a backend stage (the JAX backend's `_spanned`): `count` maps the
     first positional arg to the span's chunks attribute; `n_bytes` maps it to
     bytes_in (default: summed chunk lengths when the arg is a chunk list),
-    and a chunk-list result is summed into bytes_out."""
+    and a chunk-list result is summed into bytes_out. The span also records
+    the thread's CPU time (`cpu_s`)."""
 
     def chunk_bytes(value):
         if isinstance(value, (list, tuple)) and value and isinstance(
@@ -178,7 +181,7 @@ def _spanned(name: str, count=len, n_bytes=None):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, arg, *args, **kwargs):
-            with self.tracer.span(name, chunks=count(arg)) as span:
+            with self.tracer.span(name, thread_cpu=True, chunks=count(arg)) as span:
                 out = fn(self, arg, *args, **kwargs)
                 if span is not None:
                     bytes_in = (n_bytes or chunk_bytes)(arg)
@@ -518,19 +521,23 @@ class CudaTransformBackend(TransformBackend):
         """One packed host window uint8[B, n_bytes + 16] in a staging buffer:
         left-aligned payload rows with a zero tail (varlen GHASH requires
         it) and the per-row metadata the window program reads from the tail
-        columns ([iv 12 B][length u32 LE 4 B])."""
-        host = self._staging.acquire(
-            (len(payloads), n_bytes + TAG_SIZE), self.device.type == "cuda"
-        )
-        packed = host.numpy()
-        for i, p in enumerate(payloads):
-            packed[i, : sizes[i]] = np.frombuffer(p, dtype=np.uint8)
-            packed[i, sizes[i] : n_bytes] = 0
-        packed[:, n_bytes : n_bytes + IV_SIZE] = ivs
-        packed[:, n_bytes + IV_SIZE :] = (
-            np.asarray(sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
-            if varlen else 0
-        )
+        columns ([iv 12 B][length u32 LE 4 B]). Spanned `transform.stage`."""
+        with self.tracer.span("transform.stage", thread_cpu=True) as span:
+            host, allocated = self._staging.acquire(
+                (len(payloads), n_bytes + TAG_SIZE), self.device.type == "cuda"
+            )
+            packed = host.numpy()
+            for i, p in enumerate(payloads):
+                packed[i, : sizes[i]] = np.frombuffer(p, dtype=np.uint8)
+                packed[i, sizes[i] : n_bytes] = 0
+            packed[:, n_bytes : n_bytes + IV_SIZE] = ivs
+            packed[:, n_bytes + IV_SIZE :] = (
+                np.asarray(sizes, dtype="<u4").view(np.uint8).reshape(-1, 4)
+                if varlen else 0
+            )
+            if span is not None:
+                span.attributes.update(
+                    allocated=int(allocated), rows=len(payloads), bytes=sum(sizes))
         return host
 
     def _stage_packed(self, host: torch.Tensor, varlen: bool = True):
@@ -643,21 +650,29 @@ class CudaTransformBackend(TransformBackend):
         return _MemberEvents(events) if events else None
 
     def _run_window(self, enc, payloads, sizes, ivs, *, decrypt: bool) -> _StagedWindow:
+        """Context, staging and launch of one window, in the spans
+        `gcm.context`, `transform.stage` and `transform.launch`."""
         varlen = len(set(sizes)) != 1
-        if varlen:
-            ctx = make_varlen_context(enc.data_key, enc.aad, max(sizes))
-            n_bytes = ctx.max_bytes
-        else:
-            ctx = make_context(enc.data_key, enc.aad, sizes[0])
-            n_bytes = ctx.chunk_bytes
+        with self.tracer.span("gcm.context", thread_cpu=True) as span:
+            if varlen:
+                ctx, built = lookup_varlen_context(enc.data_key, enc.aad, max(sizes))
+                n_bytes = ctx.max_bytes
+            else:
+                ctx, built = lookup_context(enc.data_key, enc.aad, sizes[0])
+                n_bytes = ctx.chunk_bytes
+            if span is not None:
+                span.attributes.update(built=int(built), varlen=int(varlen), bytes=n_bytes)
         host = self._build_packed(payloads, sizes, ivs, n_bytes, varlen)
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
+        with self.tracer.span("transform.launch", thread_cpu=True) as span:
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    staged = self._stage_packed(host, varlen)
+                    out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
+            else:
                 staged = self._stage_packed(host, varlen)
                 out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
-        else:
-            staged = self._stage_packed(host, varlen)
-            out, ready = self._launch_packed(ctx, host, staged, varlen, decrypt=decrypt)
+            if span is not None:
+                span.attributes["rows"] = len(sizes)
         with self._stats_lock:
             self.dispatch_stats.windows += 1
             self.dispatch_stats.bytes_in += sum(sizes)
@@ -665,9 +680,11 @@ class CudaTransformBackend(TransformBackend):
         return _StagedWindow(ivs, sizes, n_bytes, host, out, ready)
 
     def _fetch(self, staged: _StagedWindow) -> np.ndarray:
-        """Wait for a window's result to reach its staging buffer."""
-        if staged.ready is not None:
-            staged.ready.synchronize()
+        """Wait for a window's result to reach its staging buffer (the
+        `transform.wait` span)."""
+        with self.tracer.span("transform.wait", thread_cpu=True):
+            if staged.ready is not None:
+                staged.ready.synchronize()
         with self._stats_lock:
             self.dispatch_stats.d2h_fetches += 1
             note_mutation("cuda.CudaTransformBackend.dispatch_stats")
@@ -684,16 +701,19 @@ class CudaTransformBackend(TransformBackend):
               n_bytes=lambda staged: sum(staged.sizes))
     def _encrypt_finish(self, staged: _StagedWindow) -> list[bytes]:
         """Wait on a staged window and materialize the wire format
-        (IV || ct || tag per chunk)."""
+        (IV || ct || tag per chunk), in the span `transform.assemble`."""
         host = self._fetch(staged)
         n_bytes = staged.n_bytes
-        out = [
-            staged.ivs[i].tobytes()
-            + host[i, : staged.sizes[i]].tobytes()
-            + host[i, n_bytes:].tobytes()
-            for i in range(len(staged.sizes))
-        ]
-        self._staging.release(staged.host)
+        with self.tracer.span("transform.assemble", thread_cpu=True) as span:
+            out = [
+                staged.ivs[i].tobytes()
+                + host[i, : staged.sizes[i]].tobytes()
+                + host[i, n_bytes:].tobytes()
+                for i in range(len(staged.sizes))
+            ]
+            self._staging.release(staged.host)
+            if span is not None:
+                span.attributes.update(chunks=len(out), bytes=sum(len(c) for c in out))
         return out
 
     # ----------------------------------------------------------- detransform
@@ -704,39 +724,42 @@ class CudaTransformBackend(TransformBackend):
         if opts.encryption is not None:
             out = self._decrypt_batch(out, opts)
         if opts.compression:
-            if opts.compression_codec == THUFF:
-                from tieredstorage_tpu_torch.transform import thuff
-
-                return thuff.decompress_batch(
-                    out, opts.max_original_chunk_size, device=self.device
-                )
-            if opts.compression_codec == TLZHUFF:
-                from tieredstorage_tpu_torch.transform import lzhuff
-
-                return lzhuff.decompress_batch(
-                    out, opts.max_original_chunk_size, device=self.device
-                )
-            if opts.compression_codec != ZSTD:
-                raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
-            if self._use_native():
-                out = native.zstd_decompress_batch(
-                    out, max_decompressed=opts.max_original_chunk_size
-                )
-            else:
-                if zstandard is None:
-                    raise ModuleNotFoundError(
-                        "The 'zstandard' package is required for the 'zstd' "
-                        "codec but is not installed"
-                    )
-                native.checked_frame_content_sizes(out, opts.max_original_chunk_size)
-                # One DCtx per chunk: zstandard (de)compressor objects are not
-                # thread-safe across the pool's workers.
-                out = list(
-                    self._zstd_pool().map(
-                        lambda c: zstandard.ZstdDecompressor().decompress(c), out
-                    )
-                )
+            out = self._decompress_batch(out, opts)
         return out
+
+    @_spanned("transform.decompress")
+    def _decompress_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:
+        if opts.compression_codec == THUFF:
+            from tieredstorage_tpu_torch.transform import thuff
+
+            return thuff.decompress_batch(
+                chunks, opts.max_original_chunk_size, device=self.device
+            )
+        if opts.compression_codec == TLZHUFF:
+            from tieredstorage_tpu_torch.transform import lzhuff
+
+            return lzhuff.decompress_batch(
+                chunks, opts.max_original_chunk_size, device=self.device
+            )
+        if opts.compression_codec != ZSTD:
+            raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
+        if self._use_native():
+            return native.zstd_decompress_batch(
+                chunks, max_decompressed=opts.max_original_chunk_size
+            )
+        if zstandard is None:
+            raise ModuleNotFoundError(
+                "The 'zstandard' package is required for the 'zstd' "
+                "codec but is not installed"
+            )
+        native.checked_frame_content_sizes(chunks, opts.max_original_chunk_size)
+        # One DCtx per chunk: zstandard (de)compressor objects are not
+        # thread-safe across the pool's workers.
+        return list(
+            self._zstd_pool().map(
+                lambda c: zstandard.ZstdDecompressor().decompress(c), chunks
+            )
+        )
 
     @_spanned("transform.decrypt")
     def _decrypt_batch(self, chunks: list[bytes], opts: DetransformOptions) -> list[bytes]:

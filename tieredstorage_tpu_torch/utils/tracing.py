@@ -10,11 +10,23 @@ Counterpart of tieredstorage_tpu/utils/tracing.py:
 - optional forwarding into `torch.profiler` (``use_jax_profiler``, the
   config key `tracing.jax.profiler.enabled` keeps the JAX package's name):
   each span opens a ``torch.profiler.record_function`` range and each event
-  a zero-length one, so spans show up in a Kineto trace next to the CUDA
-  kernels they launched;
+  a zero-length one. Kineto records such a range only on a thread that
+  existed when the profiler session started (the session's own thread, in
+  practice): the RSM's callers run on the broker's pools, started earlier,
+  so their ranges are missing from the profile. `merge_profiler_trace`
+  is the route for those threads;
+- optional per-span CPU time (``span(..., thread_cpu=True)``): the calling
+  thread's ``time.thread_time()`` over the span, as the ``cpu_s``
+  attribute. Wall time far above it means the thread waited (on the GIL, a
+  lock, the device or the store);
 - a bounded ring-buffer recorder (newest spans win; evictions are counted in
   `dropped_spans`) with per-name p50/p95/p99 summaries and a Chrome
   trace-event JSON exporter (loadable in Perfetto / ``chrome://tracing``).
+  The export's ``ts`` is wall-clock microseconds (a (wall, perf_counter)
+  epoch pinned at construction) and its ``tid`` the native thread id: the
+  axis and the thread ids of a Kineto export and of the scheduler timeline
+  (metrics/timeline.py), so `merge_profiler_trace` lays the spans, the
+  timeline's slices and the device's kernels on one axis.
 
 Usage:
     tracer = Tracer(enabled=True)
@@ -22,6 +34,11 @@ Usage:
         with tracer.span("transform"):
             ...
     tracer.write_chrome_trace("artifacts/trace.json")
+
+    with torch.profiler.profile(...) as prof:   # spans on any thread
+        ...
+    prof.export_chrome_trace("profile.json")
+    merged = merge_profiler_trace("profile.json", tracer)
 """
 
 from __future__ import annotations
@@ -35,7 +52,7 @@ import os
 import pathlib
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -94,10 +111,21 @@ class Span:
     span_id: str = ""
     parent_id: Optional[str] = None
     thread_id: int = 0
+    #: ``threading.get_native_id()`` of the recording thread: the export's
+    #: ``tid``, which is the thread id Kineto writes.
+    native_thread_id: int = 0
 
     @property
     def duration_s(self) -> float:
         return max(0.0, self.end_s - self.start_s)
+
+
+def wall_ts_us(clock_s: float, epoch_wall_s: float, epoch_clock_s: float) -> float:
+    """An instant of a monotonic clock (``perf_counter``, ``monotonic``: one
+    Linux clock) as wall-clock microseconds, through a (wall, clock) epoch
+    pinned once: durations and order stay the monotonic clock's, the axis is
+    the wall clock's, which Kineto's exports and other processes share."""
+    return (epoch_wall_s + (clock_s - epoch_clock_s)) * 1e6
 
 
 def _percentile(sorted_durations: list[float], q: float) -> float:
@@ -125,7 +153,7 @@ class Tracer:
     the newest spans instead of silently freezing the recorder."""
 
     def __init__(self, enabled: bool = False, *, use_jax_profiler: bool = False,
-                 max_spans: int = 10_000):
+                 max_spans: int = 10_000, wall_clock: Callable[[], float] = time.time):
         #: ``use_jax_profiler`` keeps the JAX package's name (the config key
         #: `tracing.jax.profiler.enabled`); here it opens torch.profiler
         #: ranges.
@@ -137,13 +165,13 @@ class Tracer:
         self.dropped_spans = 0
         self._lock = new_lock("tracing.Tracer._lock")
         self._local = threading.local()
-        # Pinned once so Chrome-trace timestamps from several tracers in one
-        # process (two RSMs in one test) land on one shared
-        # timeline. Monotonic, not wall clock: Perfetto only needs a
-        # consistent epoch, and an NTP step mid-run would skew span starts
-        # against their perf_counter-measured durations.
+        # Pinned once: exported timestamps are wall-clock microseconds (the
+        # axis of a Kineto export and of the scheduler timeline), mapped
+        # from perf_counter by this one pair, so a wall-clock step mid-run
+        # cannot skew span starts against their perf_counter durations. The
+        # wall clock is injectable and read here alone, as the timeline's.
+        self._epoch_wall = wall_clock()
         self._epoch_perf = time.perf_counter()
-        self._epoch_mono = time.monotonic()
 
     # ---------------------------------------------------------------- context
     def _stack(self) -> list[Span]:
@@ -200,7 +228,11 @@ class Tracer:
             self._spans.append(span)
 
     @contextlib.contextmanager
-    def span(self, name: str, **attributes) -> Iterator[Optional[Span]]:
+    def span(self, name: str, *, thread_cpu: bool = False,
+             **attributes) -> Iterator[Optional[Span]]:
+        """Record a span around the block. With ``thread_cpu`` the span also
+        gets ``cpu_s``: this thread's CPU time (``time.thread_time()``) over
+        the block. A disabled tracer reads no clock."""
         if not self.enabled:
             yield None
             return
@@ -210,7 +242,9 @@ class Tracer:
             name=name, start_s=time.perf_counter(), depth=len(stack),
             attributes=attributes, trace_id=trace_id, span_id=_gen_span_id(),
             parent_id=parent_id, thread_id=threading.get_ident(),
+            native_thread_id=threading.get_native_id(),
         )
+        cpu0 = time.thread_time() if thread_cpu else None
         stack.append(s)
         ctx = None
         if self.use_jax_profiler:
@@ -225,6 +259,8 @@ class Tracer:
             if ctx is not None:
                 ctx.__exit__(None, None, None)
             s.end_s = time.perf_counter()
+            if cpu0 is not None:
+                s.attributes["cpu_s"] = time.thread_time() - cpu0
             stack.pop()
             self._record(s)
 
@@ -240,6 +276,7 @@ class Tracer:
             name=name, start_s=now, end_s=now, depth=len(self._stack()),
             attributes=attributes, trace_id=trace_id, span_id=_gen_span_id(),
             parent_id=parent_id, thread_id=threading.get_ident(),
+            native_thread_id=threading.get_native_id(),
         )
         if self.use_jax_profiler:
             # Zero-length range: timeline parity with span(), so events land
@@ -296,12 +333,13 @@ class Tracer:
 
     # ---------------------------------------------------------------- export
     def _ts_us(self, perf_s: float) -> float:
-        return (self._epoch_mono + (perf_s - self._epoch_perf)) * 1e6
+        return wall_ts_us(perf_s, self._epoch_wall, self._epoch_perf)
 
     def chrome_trace_events(self) -> list[dict]:
         """Spans as Chrome trace-event dicts: complete events (``ph: "X"``)
         for timed spans, instant events (``ph: "i"``) for zero-duration
-        events; `args` carries the span identity so trees survive the export."""
+        events; `args` carries the span identity so trees survive the export.
+        ``ts`` is wall-clock microseconds, ``tid`` the native thread id."""
         events: list[dict] = []
         pid = os.getpid()
         for s in self.spans():
@@ -316,7 +354,7 @@ class Tracer:
                 "cat": "tieredstorage",
                 "ts": self._ts_us(s.start_s),
                 "pid": pid,
-                "tid": s.thread_id,
+                "tid": s.native_thread_id,
                 "args": args,
             }
             if s.duration_s > 0.0:
@@ -338,6 +376,44 @@ class Tracer:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(self.export_chrome_trace(), indent=1))
         return out
+
+
+def merge_profiler_trace(profile, tracer: Tracer, timeline_events=()) -> dict:
+    """A ``torch.profiler`` Chrome export with the tracer's spans (and the
+    scheduler timeline's events, when given: a `TimelineRecorder`'s
+    ``export_chrome_trace()["traceEvents"]``) merged in, for Perfetto.
+
+    ``profile`` is the export's path or its parsed dict (not modified).
+    Kineto writes ``ts`` relative to the file's ``baseTimeNanoseconds`` on
+    the wall clock, and native thread ids as the ``tid`` of its CPU events;
+    the tracer and the timeline export wall-clock microseconds, so rebasing
+    them by the base puts spans, timeline slices and kernels on one axis,
+    and a span on the track of the thread that recorded it. On a thread
+    the profiler session never registered (one started before it), Kineto
+    writes a CUDA runtime or driver call's ``tid`` as CUPTI's thread id,
+    ``pthread_self()`` cut to 32 bits: the calls of a thread the tracer saw
+    move to that thread's native track, beside the spans around them.
+    Unlike ``use_jax_profiler`` this covers spans of threads the profiler
+    session never saw."""
+    if isinstance(profile, dict):
+        doc = dict(profile)
+    else:
+        doc = json.loads(pathlib.Path(profile).read_text())
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    spans = tracer.spans()
+    native_of = {s.thread_id & 0xFFFFFFFF: s.native_thread_id for s in spans}
+    events = []
+    for ev in doc.get("traceEvents", ()):
+        if ev.get("cat") in ("cuda_runtime", "cuda_driver") and ev.get("tid") in native_of:
+            ev = {**ev, "tid": native_of[ev["tid"]]}
+        events.append(ev)
+    for ev in [*tracer.chrome_trace_events(), *timeline_events]:
+        ev = dict(ev)
+        if ev.get("ph") != "M":  # metadata carries no instant
+            ev["ts"] = float(ev["ts"]) - base_us
+        events.append(ev)
+    doc["traceEvents"] = events
+    return doc
 
 
 #: Process-wide default tracer; RSM wires it from `tracing.enabled` config.

@@ -155,15 +155,21 @@ class _LadderContexts:
     counterpart of the JAX gate's tree switch."""
 
     def __enter__(self):
-        self._saved = (cuda_backend.make_context, cuda_backend.make_varlen_context)
+        self._saved = (cuda_backend.lookup_context, cuda_backend.lookup_varlen_context)
         fixed, varlen = self._saved
-        cuda_backend.make_context = lambda *a: dataclasses.replace(fixed(*a), step_mat=None)
-        cuda_backend.make_varlen_context = lambda *a: dataclasses.replace(
-            varlen(*a), step_mat=None)
+
+        def ladder(lookup):
+            def wrapped(*a):
+                ctx, built = lookup(*a)
+                return dataclasses.replace(ctx, step_mat=None), built
+            return wrapped
+
+        cuda_backend.lookup_context = ladder(fixed)
+        cuda_backend.lookup_varlen_context = ladder(varlen)
         return self
 
     def __exit__(self, *exc):
-        cuda_backend.make_context, cuda_backend.make_varlen_context = self._saved
+        cuda_backend.lookup_context, cuda_backend.lookup_varlen_context = self._saved
         return False
 
 
