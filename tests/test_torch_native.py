@@ -223,6 +223,72 @@ def test_batch_frames_equal_jax_at_each_level(level):
     assert native.zstd_decompress_batch(ours) == chunks
 
 
+def _ragged_chunks(seed: int, sizes: list[int]) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    return [_text_chunk(seed + i, max(n, 64))[: n // 2] + rng.integers(0, 256, n - n // 2, dtype=np.uint8)
+            .tobytes() for i, n in enumerate(sizes)]
+
+
+#: Window layouts: uniform chunks with a short last one, ragged, one chunk,
+#: and an empty chunk among others.
+LAYOUTS = {"short_last": [65536] * 5 + [777], "ragged": [1000, 70000, 3, 40000, 65536],
+           "one": [123456], "empty_inside": [5000, 0, 5000]}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("level", [1, 3])
+def test_ahead_window_frames_equal_the_batch_and_jax_frames(layout, level):
+    """The window path's frames (one slot each of the window's buffer, read
+    as views, on the backend's workers) are the batch call's and the JAX
+    package's frames byte for byte, and so is one chunk compressed alone
+    into a buffer slot."""
+    chunks = _ragged_chunks(len(LAYOUTS[layout]) + level, LAYOUTS[layout])
+    backend = _port_backend()
+    frames = backend._compress_ahead(
+        chunks, TransformOptions(compression=True, compression_level=level)).result()
+    assert all(isinstance(f, memoryview) for f in frames)
+    assert [bytes(f) for f in frames] == native.zstd_compress_batch(chunks, level=level) \
+        == jax_native.zstd_compress_batch(chunks, level=level)
+    out = np.zeros(native.zstd_bound(len(chunks[0])) + 16, np.uint8)
+    n = native.zstd_compress_into(memoryview(chunks[0]), level, out, 16, out.size - 16)
+    assert out[16 : 16 + n].tobytes() == bytes(frames[0]) and not out[:16].any()
+    backend.close()
+
+
+def test_compress_into_refuses_a_slot_outside_its_buffer():
+    out = np.zeros(100, np.uint8)
+    with pytest.raises(ValueError, match="outside"):
+        native.zstd_compress_into(b"abc", 3, out, 90, 20)
+    with pytest.raises(native.NativeTransformError):
+        native.zstd_compress_into(bytes(5000), 3, out, 0, 8)  # the frame cannot fit
+    with pytest.raises(ValueError, match="contiguous"):
+        native.zstd_compress_into(b"abc", 3, np.zeros((10, 10), np.uint8), 0, 10)
+
+
+@pytest.mark.parametrize("sizes", [[65536] * 7 + [999], [70000, 1000, 65536, 3, 40000, 9, 12345, 777]],
+                         ids=["short_last", "ragged"])
+def test_compressed_windows_equal_jax_chunk_for_chunk(jax_tpu_backend, sizes):
+    """Four windows, zstd then AES-GCM under fixed IVs, through the port's
+    compress-ahead window path and the JAX backend's: the same wire chunks,
+    window for window."""
+    from tieredstorage_tpu.security.aes import DataKeyAndAAD as JaxDataKeyAndAAD
+
+    rng = np.random.default_rng(len(sizes))
+    chunks = _ragged_chunks(len(sizes), sizes)
+    key, aad, ivs = rng.bytes(32), rng.bytes(16), [rng.bytes(12) for _ in sizes]
+    windows = [chunks[i : i + 2] for i in range(0, len(chunks), 2)]
+    ours = _port_backend()
+    got = list(ours.transform_windows(iter(windows), TransformOptions(
+        compression=True, encryption=DataKeyAndAAD(key, aad), ivs=ivs)))
+    want = list(jax_tpu_backend.transform_windows(iter(windows), JaxTransformOptions(
+        compression=True, encryption=JaxDataKeyAndAAD(key, aad), ivs=ivs)))
+    assert len(got) == len(windows) == 4 and got == want
+    assert ours.detransform([c for w in got for c in w], DetransformOptions(
+        compression=True, encryption=DataKeyAndAAD(key, aad),
+        max_original_chunk_size=max(sizes))) == chunks
+    ours.close()
+
+
 # ----------------------------------------------------- F2: the decompress guard
 def _frame(n: int) -> bytes:
     return zstandard.ZstdCompressor(write_content_size=True).compress(bytes(n))

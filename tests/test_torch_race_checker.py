@@ -32,6 +32,9 @@ PORT_ONLY_GUARDS = {
 }
 #: SHARED_CLASSES entries of port-only classes.
 PORT_ONLY_SHARED = {"tieredstorage_tpu_torch/transform/cuda.py:_StagingPool"}
+#: Thread entries of port-only code: the tasks of a window's host zstd on the
+#: CUDA backend's workers.
+PORT_ONLY_ENTRIES = {"tieredstorage_tpu_torch/transform/host_zstd.py:WindowCompression._run"}
 
 FIXTURES = harvest("tests.test_race_checker")
 
@@ -91,11 +94,13 @@ def test_single_thread_and_unguarded_sites_are_jaxs(real_models):
 
 
 def test_thread_entries_are_jaxs(real_models):
-    """The spawned-thread entry points: JAX's, after the map. (The nvcc
-    waiters of ops/_cuda.py ride a bounded executor through a nested
-    function, which is not an entry the model resolves.)"""
+    """The spawned-thread entry points: JAX's, after the map, and the
+    port-only ones. (The nvcc waiters of ops/_cuda.py ride a bounded
+    executor through a nested function, which is not an entry the model
+    resolves.)"""
     jax_model, _, port_model, _ = real_models
-    assert port_model.thread_entries == {map_text(k) for k in jax_model.thread_entries}
+    assert port_model.thread_entries == \
+        {map_text(k) for k in jax_model.thread_entries} | PORT_ONLY_ENTRIES
 
 
 def test_shared_classes_are_jaxs_plus_the_staging_pool(real_models):

@@ -182,4 +182,4 @@ def test_small_segment_matches_the_jax_probe(tmp_path):
         assert names - PORT_ONLY_SPANS == jax_spans[label], label
         assert names & PORT_ONLY_SPANS == {
             "gcm.context", "transform.stage", "transform.launch", "transform.wait",
-            "transform.assemble", "storage.upload"}, label
+            "transform.assemble", "storage.upload", "transform.compress_wait"}, label

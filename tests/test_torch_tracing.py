@@ -301,7 +301,39 @@ def test_disabled_tracer_reads_no_clock_with_thread_cpu(monkeypatch):
     for _ in range(3):
         with tracer.span("op", thread_cpu=True, a=1) as s:
             assert s is None
+            assert tracer.current_span() is None and tracer.record("r", 0.0, 1.0) is None
     assert tracer.dropped_spans == 0
+
+
+def test_a_recorded_span_keeps_its_times_and_joins_the_given_parent():
+    """`record` keeps the start and end it was given; from another thread
+    it becomes a child of the `parent` it was handed, else of the recording
+    thread's own context."""
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("copy") as copy:
+        assert tracer.current_span() is copy
+        with tracer.span("wait"):
+            inside = tracer.record("here", 1.0, 2.5, a=1)
+            under_copy = tracer.record("window", 0.5, 3.0, parent=copy)
+    assert tracer.current_span() is None
+    got = {}
+
+    def worker():
+        got["joined"] = tracer.record("window", 3.0, 4.0, parent=copy, b=2)
+        got["alone"] = tracer.record("alone", 5.0, 6.0)
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    thread.join(timeout=10)
+    assert (inside.start_s, inside.end_s, inside.attributes, inside.depth) == (1.0, 2.5, {"a": 1}, 2)
+    assert inside.trace_id == copy.trace_id and inside.parent_id != copy.span_id
+    for s in (under_copy, got["joined"]):
+        assert (s.trace_id, s.parent_id, s.depth) == (copy.trace_id, copy.span_id, 1)
+    joined, alone = got["joined"], got["alone"]
+    assert joined.duration_s == 1.0 and joined.attributes == {"b": 2}
+    assert joined.thread_id == thread.ident
+    assert alone.trace_id != copy.trace_id and alone.parent_id is None and alone.depth == 0
+    assert [s.name for s in tracer.spans()] == ["here", "window", "wait", "copy", "window", "alone"]
 
 
 def test_export_is_on_the_wall_clock_with_native_thread_ids():
@@ -441,12 +473,14 @@ def test_merge_rebases_spans_and_timeline_events_to_the_profile_base():
 
 def test_merge_moves_cuda_calls_onto_the_native_track_of_a_traced_thread():
     """Kineto writes a CUDA runtime call's `tid` as CUPTI's 32-bit
-    `pthread_self()`: the merge moves the calls of a thread the tracer saw
-    onto that thread's native track, and leaves every other event as is."""
+    `pthread_self()`, a signed number written without its sign: the merge
+    moves the calls of a thread the tracer saw onto that thread's native
+    track, and leaves every other event as is."""
     tracer = port_tracing.Tracer(enabled=True)
     with tracer.span("transform.launch"):
         pass
-    cupti_tid = threading.get_ident() & 0xFFFFFFFF
+    low = threading.get_ident() & 0xFFFFFFFF
+    cupti_tid = low if low < 1 << 31 else (1 << 32) - low
     other = {"name": "cudaMemcpyAsync", "cat": "cuda_runtime", "ph": "X", "ts": 1.0,
              "dur": 1.0, "pid": 1, "tid": cupti_tid + 1}
     call = {**other, "name": "cudaLaunchKernel", "tid": cupti_tid}
@@ -456,3 +490,26 @@ def test_merge_moves_cuda_calls_onto_the_native_track_of_a_traced_thread():
     moved, kept, cpu, span = merged["traceEvents"]
     assert moved == {**call, "tid": threading.get_native_id()} and span["tid"] == moved["tid"]
     assert (kept, cpu) == (other, op)
+
+
+@pytest.mark.parametrize("ident,written", [(0x7F12_623FE6C0, 0x623FE6C0),
+                                           (0x7F12_C3FFF6C0, 0x3C000940)],
+                         ids=["low_half_positive", "low_half_negative"])
+def test_merge_finds_a_thread_whose_32_bit_id_kineto_wrote_without_its_sign(ident, written):
+    """Kineto writes CUPTI's 32-bit thread id as a signed number without its
+    sign, as a card run showed (a copier whose `pthread_self()` ended in
+    0xC3FFF6C0 had its CUDA calls under tid 0x3C000940): the merge finds
+    the thread's calls either way."""
+    tracer = port_tracing.Tracer(enabled=True)
+    with tracer.span("transform.launch") as traced:
+        pass
+    traced.thread_id, traced.native_thread_id = ident, 4242
+    call = {"name": "cudaLaunchKernel", "cat": "cuda_runtime", "ph": "X", "ts": 1.0,
+            "dur": 1.0, "pid": 1, "tid": written}
+    stray = {**call, "tid": ident & 0xFFFFFFFF} if written != ident & 0xFFFFFFFF else None
+    events = [call] + ([stray] if stray else [])
+    merged = port_tracing.merge_profiler_trace({"baseTimeNanoseconds": 0, "traceEvents": events},
+                                               tracer)
+    assert merged["traceEvents"][0] == {**call, "tid": 4242}
+    if stray:
+        assert merged["traceEvents"][1] == stray

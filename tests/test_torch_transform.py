@@ -378,7 +378,11 @@ def test_disabled_tracer_computes_nothing_on_the_window_path(monkeypatch):
     def refuse(*args):
         raise AssertionError("a disabled tracer read a clock")
 
+    # The backend's one zstd worker is started before the poison: a thread
+    # reads its native id as it starts. The window itself stays cold.
+    monkeypatch.setattr("tieredstorage_tpu_torch.transform.cuda.usable_cpus", lambda: 1)
     ours = _cpu_backend()
+    ours._zstd_pool().submit(int).result()
     ours.tracer = Tracer(enabled=False)
     ours.tracer._lock = Poison()
     monkeypatch.setattr(time, "thread_time", refuse)
@@ -420,3 +424,247 @@ def test_context_cache_hands_every_thread_one_context():
     assert len({id(ctx) for ctx, _ in got}) == 1
     assert 1 <= sum(built for _, built in got) <= 8
     assert gcm.lookup_varlen_context(key, b"a", 3000) == (got[0][0], False)
+
+
+# ------------------------------------------- host zstd one window ahead
+from tieredstorage_tpu_torch import native  # noqa: E402
+from tieredstorage_tpu_torch.transform import cuda as cuda_backend  # noqa: E402
+from tieredstorage_tpu_torch.transform import host_zstd  # noqa: E402
+
+
+@pytest.fixture
+def native_zstd():
+    if native.load() is None:
+        pytest.skip(f"native transform library unavailable: {native.load_error()}")
+
+
+def _windows(seed: int, n_windows: int, per: int = 4, size: int = 20000):
+    rng = np.random.default_rng(seed)
+    return [[bytes([w, c]) + rng.integers(0, 8, size, dtype=np.uint8).tobytes()
+             for c in range(per)] for w in range(n_windows)]
+
+
+def _wire_reference(windows, key, aad, ivs, level=3):
+    """The synchronous path: the batch call's frames, sealed by `cryptography`."""
+    frames = [f for w in windows for f in native.zstd_compress_batch(w, level=level)]
+    return [iv + AESGCM(key).encrypt(iv, f, aad) for iv, f in zip(ivs, frames)]
+
+
+class _Calls:
+    """`native.zstd_compress_into` counted: calls by window tag, and the
+    most that ran at once."""
+
+    def __init__(self, monkeypatch, gate=None):
+        self.lock = threading.Lock()
+        self.running = self.most = 0
+        self.tags: list = []
+        self.entered = threading.Semaphore(0)
+        inner = native.zstd_compress_into
+
+        def counted(chunk, *args):
+            tag = bytes(chunk[:1])
+            with self.lock:
+                self.running += 1
+                self.most = max(self.most, self.running)
+                self.tags.append(tag)
+            try:
+                self.entered.release()
+                if gate is not None and gate[0](tag):
+                    assert gate[1].wait(30)
+                return inner(chunk, *args)
+            finally:
+                with self.lock:
+                    self.running -= 1
+
+        monkeypatch.setattr(native, "zstd_compress_into", counted)
+
+
+def test_compressed_windows_record_their_wait_and_the_worker_count(native_zstd, monkeypatch):
+    monkeypatch.setattr(cuda_backend, "usable_cpus", lambda: 4)
+    ours = _cpu_backend()
+    ours.tracer = Tracer(enabled=True)
+    windows = _windows(40, 3)
+    rng = np.random.default_rng(40)
+    key, ivs = rng.bytes(32), [rng.bytes(12) for _ in range(12)]
+    opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(key, b""), ivs=ivs)
+    wire = [c for w in ours.transform_windows(iter(windows), opts) for c in w]
+    assert wire == _wire_reference(windows, key, b"", ivs)
+    waits = ours.tracer.spans("transform.compress_wait")
+    assert [s.attributes["ahead"] for s in waits] == [0, 1, 1]
+    assert all(s.attributes["ready"] in (0, 1) and "cpu_s" in s.attributes for s in waits)
+    spans = ours.tracer.spans("transform.compress")
+    assert len(spans) == 3 and {s.attributes["workers"] for s in spans} == {3}
+    assert all(s.attributes["cpu_s"] >= 0 and s.duration_s > 0 for s in spans)
+    assert sorted(s.attributes["bytes_in"] for s in spans) == [sum(map(len, w)) for w in windows]
+    assert sum(s.attributes["bytes_out"] for s in spans) == sum(len(c) - 28 for c in wire)
+    assert all(s.attributes["chunks"] == 4 for s in spans)
+    ours.close()
+
+
+@pytest.mark.parametrize("failing", [1, 2])
+def test_a_failing_window_raises_its_error_when_it_is_reached(native_zstd, monkeypatch, failing):
+    """Window k+1's compression fails while window k is sealed: the
+    backend's NativeTransformError surfaces at window k+1's turn, after
+    window k was dispatched and before window k+1 was."""
+    inner = native.zstd_compress_into
+
+    def failing_window(chunk, level, out, offset, capacity):
+        if bytes(chunk[:1]) == bytes([failing]):
+            return inner(chunk, level, out, offset, 8)  # too small for any frame
+        return inner(chunk, level, out, offset, capacity)
+
+    monkeypatch.setattr(native, "zstd_compress_into", failing_window)
+    ours = _cpu_backend(**{"pipeline.depth": 1})
+    windows = _windows(41, 4)
+    opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(os.urandom(32), b""))
+    gen = ours.transform_windows(iter(windows), opts)
+    got = []
+    with pytest.raises(native.NativeTransformError, match="zstd compress failed on chunk 0"):
+        for w in gen:
+            got.append(w)
+    assert ours.dispatch_stats.windows == failing and len(got) == failing - 1
+
+
+def test_a_missing_codec_raises_jaxs_error_at_the_first_window(monkeypatch):
+    monkeypatch.setattr(CudaTransformBackend, "_use_native", staticmethod(lambda: False))
+    monkeypatch.setattr(cuda_backend, "zstandard", None)
+    ours = _cpu_backend()
+    opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(os.urandom(32), b""))
+    with pytest.raises(ModuleNotFoundError, match="'zstandard' package is required"):
+        list(ours.transform_windows(iter(_windows(42, 3)), opts))
+    assert ours.dispatch_stats.windows == 0
+
+
+def test_closing_after_the_first_window_leaves_no_worker_task(native_zstd, monkeypatch):
+    """The copy is closed while window 2's chunks are compressing on both
+    workers: the close waits for those two, drops the two no worker began,
+    and afterwards no task of any window is queued or running."""
+    monkeypatch.setattr(cuda_backend, "usable_cpus", lambda: 3)
+    gate = threading.Event()
+    calls = _Calls(monkeypatch, gate=(lambda tag: tag == b"\x02", gate))
+    made: list = []
+    init = host_zstd.WindowCompression.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(host_zstd.WindowCompression, "__init__", record)
+    ours = _cpu_backend(**{"pipeline.depth": 1})
+    opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(os.urandom(32), b""))
+    gen = ours.transform_windows(iter(_windows(43, 4)), opts)
+    assert len(next(gen)) == 4  # window 0, sealed while window 2 compresses
+    assert len(made) == 3
+    while calls.tags.count(b"\x02") < 2:  # both workers are inside window 2
+        assert calls.entered.acquire(timeout=30)
+    closer = threading.Thread(target=gen.close)
+    closer.start()
+    closer.join(timeout=0.3)
+    assert closer.is_alive()  # it waits for the two chunks begun
+    gate.set()
+    closer.join(timeout=30)
+    assert not closer.is_alive()
+    time.sleep(0.1)
+    assert calls.running == 0 and calls.tags.count(b"\x02") == 2
+    assert b"\x03" not in calls.tags  # window 3 was never read
+    for compression in made:
+        assert all(f.done() for f in compression._frames)
+    ours.close()
+
+
+def test_concurrent_copies_share_the_bounded_workers(native_zstd, monkeypatch):
+    """More concurrent copies than workers, under a short switch interval:
+    every copy's wire chunks are the synchronous path's, in order, and no
+    more chunks compress at once than the workers the backend was given
+    (the usable CPUs but one)."""
+    monkeypatch.setattr(cuda_backend, "usable_cpus", lambda: 3)
+    calls = _Calls(monkeypatch)
+    before = set(threading.enumerate())
+    ours = _cpu_backend(**{"pipeline.depth": 2})
+    copies = 5
+    inputs = []
+    for c in range(copies):
+        rng = np.random.default_rng(100 + c)
+        key, aad = rng.bytes(32), rng.bytes(8)
+        windows = _windows(100 + c, 5, per=3, size=6000)
+        ivs = [rng.bytes(12) for _ in range(15)]
+        inputs.append((windows, key, aad, ivs))
+    results: dict = {}
+
+    def copy(c: int) -> None:
+        windows, key, aad, ivs = inputs[c]
+        opts = TransformOptions(compression=True, encryption=DataKeyAndAAD(key, aad), ivs=ivs)
+        results[c] = [list(w) for w in ours.transform_windows(iter(windows), opts)]
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=copy, args=(c,)) for c in range(copies)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    for c, (windows, key, aad, ivs) in enumerate(inputs):
+        want = _wire_reference(windows, key, aad, ivs)
+        assert results[c] == [want[i : i + 3] for i in range(0, len(want), 3)]
+    assert 1 <= calls.most <= 2 and len(calls.tags) == copies * 15
+    started = [t for t in threading.enumerate() if t not in before]
+    assert 1 <= len(started) <= 2 and all(t.name.startswith("zstd") for t in started)
+    ours.close()
+
+
+def test_windows_are_submitted_once_the_window_before_is_dispatched(native_zstd, monkeypatch):
+    """Window k+1's chunks go to the workers right after window k is
+    dispatched, not while the copier stages window k; the device codecs
+    and the uncompressed windows never reach the workers."""
+    events: list = []
+    submit, dispatch = CudaTransformBackend._compress_ahead, CudaTransformBackend._dispatch_encrypt_window
+
+    def submitted(self, chunks, opts):
+        events.append(("submit", chunks[0][:1]))
+        return submit(self, chunks, opts)
+
+    def dispatched(self, chunks, opts):
+        events.append(("dispatch", bytes(chunks[0][:0])))
+        return dispatch(self, chunks, opts)
+
+    monkeypatch.setattr(CudaTransformBackend, "_compress_ahead", submitted)
+    monkeypatch.setattr(CudaTransformBackend, "_dispatch_encrypt_window", dispatched)
+    ours = _cpu_backend(**{"pipeline.depth": 2})
+    enc = DataKeyAndAAD(os.urandom(32), b"")
+    assert len(list(ours.transform_windows(
+        iter(_windows(44, 3)), TransformOptions(compression=True, encryption=enc)))) == 3
+    assert events == [("submit", b"\x00"), ("dispatch", b""), ("submit", b"\x01"), ("dispatch", b""),
+                      ("submit", b"\x02"), ("dispatch", b"")]
+    events.clear()
+    assert len(list(ours.transform_windows(iter(_windows(44, 2)), TransformOptions(encryption=enc)))) == 2
+    assert events == [("dispatch", b"")] * 2
+    ours.close()
+
+
+@pytest.mark.parametrize("usable,workers", [(1, 1), (2, 1), (8, 7)])
+def test_the_workers_leave_the_copier_a_cpu(monkeypatch, usable, workers):
+    monkeypatch.setattr(cuda_backend, "usable_cpus", lambda: usable)
+    ours = _cpu_backend()
+    assert ours.zstd_workers == workers and ours._zstd_pool()._max_workers == workers
+    ours.close()
+
+
+@pytest.mark.parametrize("cpu_max,cpus,expected", [
+    ("max 100000\n", 8, 8), ("200000 100000\n", 8, 2), ("150000 100000", 8, 2),
+    ("50000 100000", 8, 1), ("800000 100000", 3, 3), (None, 5, 5), ("", 4, 4),
+])
+def test_usable_cpus_are_the_affinity_capped_by_the_cpu_quota(cpu_max, cpus, expected):
+    assert host_zstd.usable_cpu_count(set(range(cpus)), cpu_max) == expected
+
+
+def test_usable_cpus_read_the_affinity_and_cpu_max(monkeypatch, tmp_path):
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0, 2, 5})
+    monkeypatch.setattr(host_zstd, "CPU_MAX", tmp_path / "missing")
+    assert host_zstd.usable_cpus() == 3
+    (tmp_path / "cpu.max").write_text("200000 100000\n")
+    monkeypatch.setattr(host_zstd, "CPU_MAX", tmp_path / "cpu.max")
+    assert host_zstd.usable_cpus() == 2

@@ -17,6 +17,7 @@ from __future__ import annotations
 PORT_ONLY_SPANS = frozenset({
     "gcm.context", "transform.stage", "transform.launch", "transform.wait",
     "transform.assemble", "transform.decompress", "storage.upload",
+    "transform.compress_wait",
 })
 #: Attributes only the port's spans carry (`Tracer.span(thread_cpu=True)`).
 PORT_ONLY_ATTRIBUTES = frozenset({"cpu_s"})

@@ -6,11 +6,13 @@
 // (core/.../transform/CompressionChunkEnumeration.java:50-63) and the JDK's
 // AES-GCM intrinsics (EncryptionChunkEnumeration.java:66-81). This library is
 // the equivalent native layer for the port's host side: whole chunk batches
-// cross the Python boundary once and are compressed/encrypted by a C++
-// thread pool. Both libraries are resolved at run time with dlopen, so the
+// cross the Python boundary once and are compressed/encrypted on threads
+// the call starts, or, for the segment windows of the CUDA backend, one
+// chunk at a time on the caller's own thread (ts_zstd_compress_into), which
+// the caller's bounded workers schedule. Both libraries are resolved at run time with dlopen, so the
 // build needs neither zstd.h nor the OpenSSL headers, and links neither:
 // zstd through libzstd.so.1, AES-256-GCM through libcrypto.so.3 (or .so.1.1).
-// Only the stable ABI of each is used: five zstd functions and the two
+// Only the stable ABI of each is used: eight zstd functions and the two
 // content-size sentinels, the EVP cipher calls and three control codes.
 //
 // Wire format parity with the reference:
@@ -43,6 +45,9 @@ constexpr unsigned long long kZstdContentSizeError = 0ULL - 2;
 struct ZstdApi {
   size_t (*compress_bound)(size_t);
   size_t (*compress)(void *, size_t, const void *, size_t, int);
+  void *(*create_cctx)();
+  size_t (*free_cctx)(void *);
+  size_t (*compress_cctx)(void *, void *, size_t, const void *, size_t, int);
   size_t (*decompress)(void *, size_t, const void *, size_t);
   unsigned (*is_error)(size_t);
   unsigned long long (*frame_content_size)(const void *, size_t);
@@ -58,13 +63,18 @@ const ZstdApi &zstd() {
     a.compress_bound = reinterpret_cast<size_t (*)(size_t)>(sym("ZSTD_compressBound"));
     a.compress = reinterpret_cast<size_t (*)(void *, size_t, const void *, size_t, int)>(
         sym("ZSTD_compress"));
+    a.create_cctx = reinterpret_cast<void *(*)()>(sym("ZSTD_createCCtx"));
+    a.free_cctx = reinterpret_cast<size_t (*)(void *)>(sym("ZSTD_freeCCtx"));
+    a.compress_cctx =
+        reinterpret_cast<size_t (*)(void *, void *, size_t, const void *, size_t, int)>(
+            sym("ZSTD_compressCCtx"));
     a.decompress = reinterpret_cast<size_t (*)(void *, size_t, const void *, size_t)>(
         sym("ZSTD_decompress"));
     a.is_error = reinterpret_cast<unsigned (*)(size_t)>(sym("ZSTD_isError"));
     a.frame_content_size = reinterpret_cast<unsigned long long (*)(const void *, size_t)>(
         sym("ZSTD_getFrameContentSize"));
-    a.ok = a.compress_bound && a.compress && a.decompress && a.is_error &&
-           a.frame_content_size;
+    a.ok = a.compress_bound && a.compress && a.create_cctx && a.free_cctx &&
+           a.compress_cctx && a.decompress && a.is_error && a.frame_content_size;
     return a;
   }();
   return api;
@@ -140,7 +150,8 @@ const CryptoApi &crypto() {
 }
 
 // ---------------------------------------------------------------------------
-// Thread pool helper: run fn(chunk_index) over [0, n) on up to n_threads.
+// Run fn(chunk_index) over [0, n) on up to n_threads threads started for
+// this call (hardware_concurrency() of them when n_threads is 0).
 // ---------------------------------------------------------------------------
 
 template <typename Fn>
@@ -162,6 +173,15 @@ void parallel_for(int n, int n_threads, Fn fn) {
   }
   for (auto &th : threads) th.join();
 }
+
+// One compression context per thread, reused by every chunk the thread
+// compresses and freed when the thread exits.
+struct ThreadCCtx {
+  void *ctx = nullptr;
+  ~ThreadCCtx() {
+    if (ctx != nullptr) zstd().free_cctx(ctx);
+  }
+};
 
 constexpr size_t kIvSize = 12;
 constexpr size_t kTagSize = 16;
@@ -210,6 +230,24 @@ int ts_zstd_compress_batch(const uint8_t *in, const uint64_t *in_offsets,
     out_sizes[i] = written;
   });
   return err.load();
+}
+
+// Compress one chunk on the calling thread into dst (dst_cap bytes), with
+// the thread's own compression context. ZSTD_compressCCtx ignores every
+// parameter but the level and ZSTD_compress is it over a fresh context, so
+// the frame is ZSTD_compress's byte for byte (content size in the header).
+// Returns the frame's size, -1 when libzstd is unavailable, -2 when the
+// compression fails.
+int64_t ts_zstd_compress_into(const uint8_t *src, uint64_t size, int level,
+                              uint8_t *dst, uint64_t dst_cap) {
+  const ZstdApi &api = zstd();
+  if (!api.ok) return -1;
+  thread_local ThreadCCtx cctx;
+  if (cctx.ctx == nullptr) cctx.ctx = api.create_cctx();
+  if (cctx.ctx == nullptr) return -2;
+  size_t written = api.compress_cctx(cctx.ctx, dst, dst_cap, src, size, level);
+  if (api.is_error(written)) return -2;
+  return static_cast<int64_t>(written);
 }
 
 // Decompress n zstd frames (content size must be in the frame header).

@@ -9,8 +9,12 @@ libcrypto with dlopen at run time, so it builds with a C++ compiler alone:
 no `zstd.h`, no OpenSSL headers and no link-time dependency on either. A
 host without `libzstd.so.1` builds it but does not load it: `load()` is
 None and `load_error()` says so, the meaning the JAX package gives an
-unloaded library (its zstd route is absent). Whole chunk windows cross the
-Python boundary once and run on the library's C++ thread pool.
+unloaded library (its zstd route is absent). The batch calls take a whole
+chunk list across the Python boundary at once and run it on threads that
+each call starts (`n_threads`, 0 = the machine's hardware threads).
+`zstd_compress_into` compresses one chunk on the calling thread, with the
+interpreter lock released, into a slot of a buffer the caller owns: the
+CUDA backend's window path runs it on its own bounded workers.
 
 The zstd frame's content size is read by this module's own header parser
 (RFC 8878 §3.1.1.1), so the decompression guard needs no `zstandard`.
@@ -78,6 +82,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ts_zstd_compress_batch.restype = ctypes.c_int
     lib.ts_zstd_compress_batch.argtypes = common_zstd + [
         ctypes.c_int, _u8p, ctypes.c_uint64, _u64p, ctypes.c_int,
+    ]
+    lib.ts_zstd_compress_into.restype = ctypes.c_int64
+    lib.ts_zstd_compress_into.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64,
     ]
     lib.ts_zstd_decompress_batch.restype = ctypes.c_int
     lib.ts_zstd_decompress_batch.argtypes = common_zstd + [
@@ -171,6 +179,9 @@ class NativeAuthenticationError(NativeTransformError):
 
 
 def zstd_compress_batch(chunks: list[bytes], level: int = 3, n_threads: int = 0) -> list[bytes]:
+    """One zstd frame per chunk, on `n_threads` threads started for this
+    call (0 = the machine's hardware threads), the chunks joined into one
+    input buffer and each frame copied out as `bytes`."""
     lib = load()
     if lib is None:
         raise NativeTransformError(f"native library unavailable: {_load_error}")
@@ -190,6 +201,34 @@ def zstd_compress_batch(chunks: list[bytes], level: int = 3, n_threads: int = 0)
         out[i * stride : i * stride + int(out_sizes[i])].tobytes()
         for i in range(len(chunks))
     ]
+
+
+def zstd_bound(size: int) -> int:
+    """The largest frame libzstd can make of `size` bytes."""
+    lib = load()
+    if lib is None:
+        raise NativeTransformError(f"native library unavailable: {_load_error}")
+    return int(lib.ts_zstd_bound(size))
+
+
+def zstd_compress_into(chunk, level: int, out: np.ndarray, offset: int, capacity: int) -> int:
+    """Compress one chunk (any buffer, read in place) on this thread into
+    ``out[offset : offset + capacity]``, as `zstd_compress_batch` would frame
+    it; returns the frame's size. The library runs with the interpreter lock
+    released and reuses one compression context per thread."""
+    lib = load()
+    if lib is None:
+        raise NativeTransformError(f"native library unavailable: {_load_error}")
+    if out.dtype != np.uint8 or not out.flags.c_contiguous or out.ndim != 1:
+        raise ValueError("out must be a contiguous 1-D uint8 array")
+    if offset < 0 or capacity < 0 or offset + capacity > out.size:
+        raise ValueError(f"slot [{offset}, {offset + capacity}) outside out[{out.size}]")
+    src = np.frombuffer(chunk, dtype=np.uint8)
+    written = lib.ts_zstd_compress_into(
+        src.ctypes.data, src.size, level, out.ctypes.data + offset, capacity)
+    if written < 0:
+        raise NativeTransformError("zstd compress failed")
+    return int(written)
 
 
 #: Absolute sanity ceiling on a single frame's declared content size, used

@@ -21,10 +21,13 @@ Wire format is the JAX package's and the reference's: per chunk
 `IV || ciphertext || tag` (after an optional per-chunk compression frame).
 Compression follows the JAX backend's seam: zstd through the native host
 library when it builds (tieredstorage_tpu_torch/native, the JAX package's
-route, so frames match), else through `zstandard`; the device codecs
-tpu-huff-v1 and tpu-lzhuff-v1 run on the backend's device (the Huffman
-decoder is the CUDA kernel of csrc/huffman.cu there), never on the CPU
-behind a CUDA backend's back.
+route, so frames match), else through `zstandard`, on the backend's
+workers, one per CPU the process may use but one (transform/host_zstd.py):
+`transform_windows` submits window k+1's chunks there as soon as it has
+dispatched window k, and waits for k+1's frames only when it reaches it.
+The device codecs tpu-huff-v1 and tpu-lzhuff-v1 run on the backend's
+device (the Huffman decoder is the CUDA kernel of csrc/huffman.cu there),
+never on the CPU behind a CUDA backend's back.
 
 The device comes from `transform.device` (default `cuda:0`; `cpu` runs the
 plain PyTorch versions of the kernels). A CUDA device without CUDA fails at
@@ -88,6 +91,7 @@ from tieredstorage_tpu_torch.transform.api import (
     TransformOptions,
     resolve_device,
 )
+from tieredstorage_tpu_torch.transform.host_zstd import WindowCompression, usable_cpus
 from tieredstorage_tpu_torch.utils.locks import new_lock, note_mutation
 from tieredstorage_tpu_torch.utils.tracing import NOOP_TRACER
 
@@ -261,6 +265,9 @@ class CudaTransformBackend(TransformBackend):
         self.dispatch_stats = DispatchStats()
         self._staging = _StagingPool()
         self._pool: Optional[ThreadPoolExecutor] = None
+        #: Host zstd workers: one per CPU this process may use but one, which
+        #: is left to the copier that holds the interpreter lock.
+        self.zstd_workers = max(1, usable_cpus() - 1)
         self._pool_lock = new_lock("cuda.CudaTransformBackend._pool_lock")
         #: Cross-request window batcher (transform/batcher.py), built by
         #: `configure()` from `transform.batch.enabled` or explicitly by
@@ -396,9 +403,12 @@ class CudaTransformBackend(TransformBackend):
             note_mutation("cuda.CudaTransformBackend.dispatch_stats")
 
     def _zstd_pool(self) -> ThreadPoolExecutor:
+        """The backend's host zstd workers: `zstd_workers` persistent
+        threads, shared by every concurrent copy and read of the backend."""
         with self._pool_lock:
             if self._pool is None:
-                self._pool = ThreadPoolExecutor(max_workers=min(32, os.cpu_count() or 4))
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.zstd_workers, thread_name_prefix="zstd")
             return self._pool
 
     def close(self) -> None:
@@ -425,30 +435,56 @@ class CudaTransformBackend(TransformBackend):
         """Pipelined staging: `_encrypt_dispatch` only ENQUEUES window k (the
         host→device copy, the window program, the device→host copy and its
         event) and returns; `_encrypt_finish`, pipeline_depth windows later,
-        waits on that one event. Steady-state cost is max(stage times)."""
+        waits on that one event. Steady-state cost is max(stage times).
+        Host zstd runs one window ahead (`_compressed_ahead`)."""
         if opts.encryption is None:
             for window in windows:
                 yield self.transform(window, opts)
             return
+        sliced = _sliced_ivs(windows, opts)
         pending: collections.deque = collections.deque()
-        iv_offset = 0
-        for window in windows:
-            chunks = list(window)
-            # Deterministic IVs (tests) are a flat per-chunk sequence: slice
-            # the window's share so windowed == monolithic byte-for-byte.
-            w_opts = opts
-            if opts.ivs is not None:
-                w_opts = dataclasses.replace(
-                    opts, ivs=opts.ivs[iv_offset : iv_offset + len(chunks)]
-                )
-                iv_offset += len(chunks)
-            if opts.compression:
-                chunks = self._compress_batch(chunks, w_opts)
-            pending.append(self._dispatch_encrypt_window(chunks, w_opts) if chunks else None)
-            while len(pending) > max(1, self.pipeline_depth):
-                yield self._finish_or_empty(pending.popleft())
+        if opts.compression and opts.compression_codec == ZSTD:
+            yield from self._compressed_ahead(sliced, pending)
+        else:
+            try:
+                for chunks, w_opts in sliced:
+                    if opts.compression:
+                        chunks = self._device_compress(chunks, w_opts)
+                    pending.append(self._dispatch_encrypt_window(chunks, w_opts) if chunks else None)
+                    while len(pending) > max(1, self.pipeline_depth):
+                        yield self._finish_or_empty(pending.popleft())
+            finally:
+                sliced.close()
         while pending:
             yield self._finish_or_empty(pending.popleft())
+
+    def _compressed_ahead(self, sliced, pending: collections.deque):
+        """The windows' host zstd one window ahead, on the backend's workers:
+        window k+1 is read and submitted as soon as window k is dispatched,
+        so it compresses while the copier finishes the windows before and
+        hands them on, and not while the copier stages window k. The wait
+        for a window's frames is the span `transform.compress_wait`
+        (`ready` 1 when they were all there on arrival, `ahead` 0 for the
+        first window). Closed early, it drops the submitted window's chunks
+        that no worker began and waits for the rest."""
+        queued, ahead = None, False
+        try:
+            window = next(sliced, None)
+            if window is not None:
+                queued = (self._compress_ahead(*window), window[1])
+            while queued is not None:
+                (compression, w_opts), queued = queued, None
+                chunks = self._await_frames(compression, ahead)
+                pending.append(self._dispatch_encrypt_window(chunks, w_opts) if chunks else None)
+                window = next(sliced, None)
+                if window is not None:
+                    queued, ahead = (self._compress_ahead(*window), window[1]), True
+                while len(pending) > max(1, self.pipeline_depth):
+                    yield self._finish_or_empty(pending.popleft())
+        finally:
+            if queued is not None:
+                queued[0].abandon()
+            sliced.close()
 
     def _dispatch_encrypt_window(self, chunks: list[bytes], opts: TransformOptions):
         """Dispatch one encrypt window asynchronously: through the batcher
@@ -467,8 +503,55 @@ class CudaTransformBackend(TransformBackend):
             return staged.wait()
         return self._encrypt_finish(staged)
 
-    @_spanned("transform.compress")
+    def _compress_ahead(self, chunks: list, opts: TransformOptions) -> WindowCompression:
+        """Submit one window's host zstd to the backend's workers: frames of
+        the native library into one buffer of the window (read as views),
+        else of `zstandard`. A missing codec raises when the frames are
+        read, as a failing chunk does."""
+        level = opts.compression_level
+        pool = self._zstd_pool()
+        if self._use_native() and chunks:
+            stride = native.zstd_bound(max(len(c) for c in chunks))
+            out = np.empty(len(chunks) * stride, dtype=np.uint8)
+            frames = memoryview(out)
+
+            def compress_one(i: int) -> memoryview:
+                try:
+                    n = native.zstd_compress_into(chunks[i], level, out, i * stride, stride)
+                except native.NativeTransformError:
+                    raise native.NativeTransformError(
+                        f"zstd compress failed on chunk {i}") from None
+                return frames[i * stride : i * stride + n]
+        else:
+
+            def compress_one(i: int) -> bytes:
+                if zstandard is None:
+                    raise ModuleNotFoundError(
+                        "The 'zstandard' package is required for the 'zstd' codec "
+                        "but is not installed"
+                    )
+                return zstandard.ZstdCompressor(
+                    level=level, write_content_size=True).compress(chunks[i])
+
+        return WindowCompression(pool, chunks, compress_one, self.tracer,
+                                 workers=self.zstd_workers)
+
+    def _await_frames(self, compression: WindowCompression, ahead: bool) -> list:
+        with self.tracer.span("transform.compress_wait", thread_cpu=True,
+                              ahead=int(ahead)) as span:
+            if span is not None:
+                span.attributes["ready"] = int(compression.ready())
+            return compression.result()
+
     def _compress_batch(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
+        """One window compressed while the caller waits: host zstd on the
+        backend's workers, frames as `bytes`."""
+        if opts.compression_codec == ZSTD:
+            return [bytes(f) for f in self._compress_ahead(chunks, opts).result()]
+        return self._device_compress(chunks, opts)
+
+    @_spanned("transform.compress")
+    def _device_compress(self, chunks: list[bytes], opts: TransformOptions) -> list[bytes]:
         if opts.compression_codec == THUFF:
             from tieredstorage_tpu_torch.transform import thuff
 
@@ -477,24 +560,7 @@ class CudaTransformBackend(TransformBackend):
             from tieredstorage_tpu_torch.transform import lzhuff
 
             return lzhuff.compress_batch(chunks, device=self.device)
-        if opts.compression_codec != ZSTD:
-            raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
-        level = opts.compression_level
-        if self._use_native():
-            return native.zstd_compress_batch(chunks, level=level)
-        if zstandard is None:
-            raise ModuleNotFoundError(
-                "The 'zstandard' package is required for the 'zstd' codec "
-                "but is not installed"
-            )
-        return list(
-            self._zstd_pool().map(
-                lambda c: zstandard.ZstdCompressor(
-                    level=level, write_content_size=True
-                ).compress(c),
-                chunks,
-            )
-        )
+        raise ValueError(f"Codec {opts.compression_codec!r} not implemented")
 
     @staticmethod
     def _use_native() -> bool:
@@ -806,6 +872,20 @@ class CudaTransformBackend(TransformBackend):
             return [host[i, : sizes[i]].tobytes() for i in range(len(sizes))]
         finally:
             self._staging.release(staged.host)
+
+
+def _sliced_ivs(windows, opts: TransformOptions):
+    """(chunks, options) of each window. Deterministic IVs (tests) are a flat
+    per-chunk sequence: each window gets its share, so that windowed ==
+    monolithic byte-for-byte."""
+    iv_offset = 0
+    for window in windows:
+        chunks = list(window)
+        w_opts = opts
+        if opts.ivs is not None:
+            w_opts = dataclasses.replace(opts, ivs=opts.ivs[iv_offset : iv_offset + len(chunks)])
+            iv_offset += len(chunks)
+        yield chunks, w_opts
 
 
 def _retainable(out):

@@ -264,6 +264,33 @@ class Tracer:
             stack.pop()
             self._record(s)
 
+    def current_span(self) -> Optional[Span]:
+        """The innermost span open on this thread (None when disabled)."""
+        if not self.enabled:
+            return None
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def record(self, name: str, start_s: float, end_s: float, *,
+               parent: Optional[Span] = None, **attributes) -> Optional[Span]:
+        """Record a span whose ``perf_counter`` start and end were read
+        elsewhere (work spread over several threads), as a child of
+        ``parent`` when one is given, else of this thread's context."""
+        if not self.enabled:
+            return None
+        if parent is not None:
+            trace_id, parent_id, depth = parent.trace_id, parent.span_id, parent.depth + 1
+        else:
+            (trace_id, parent_id), depth = self._parent_context(), len(self._stack())
+        s = Span(
+            name=name, start_s=start_s, end_s=end_s, depth=depth,
+            attributes=attributes, trace_id=trace_id, span_id=_gen_span_id(),
+            parent_id=parent_id, thread_id=threading.get_ident(),
+            native_thread_id=threading.get_native_id(),
+        )
+        self._record(s)
+        return s
+
     def event(self, name: str, **attributes) -> Optional[Span]:
         """Record an instantaneous (zero-duration) span — state transitions
         like circuit-breaker trips or upload rollbacks that have no useful
@@ -378,6 +405,15 @@ class Tracer:
         return out
 
 
+def _cupti_thread_id(ident: int) -> int:
+    """The ``tid`` Kineto writes for a CUDA call of the thread whose
+    ``pthread_self()`` is ``ident``: its low 32 bits as an int32, without
+    the sign (a thread whose low half has the top bit set shows as 2**32
+    less that half)."""
+    low = ident & 0xFFFFFFFF
+    return low if low < 1 << 31 else (1 << 32) - low
+
+
 def merge_profiler_trace(profile, tracer: Tracer, timeline_events=()) -> dict:
     """A ``torch.profiler`` Chrome export with the tracer's spans (and the
     scheduler timeline's events, when given: a `TimelineRecorder`'s
@@ -391,8 +427,9 @@ def merge_profiler_trace(profile, tracer: Tracer, timeline_events=()) -> dict:
     and a span on the track of the thread that recorded it. On a thread
     the profiler session never registered (one started before it), Kineto
     writes a CUDA runtime or driver call's ``tid`` as CUPTI's thread id,
-    ``pthread_self()`` cut to 32 bits: the calls of a thread the tracer saw
-    move to that thread's native track, beside the spans around them.
+    ``pthread_self()`` cut to 32 bits, read as a signed number and written
+    without its sign: the calls of a thread the tracer saw move to that
+    thread's native track, beside the spans around them.
     Unlike ``use_jax_profiler`` this covers spans of threads the profiler
     session never saw."""
     if isinstance(profile, dict):
@@ -401,7 +438,7 @@ def merge_profiler_trace(profile, tracer: Tracer, timeline_events=()) -> dict:
         doc = json.loads(pathlib.Path(profile).read_text())
     base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
     spans = tracer.spans()
-    native_of = {s.thread_id & 0xFFFFFFFF: s.native_thread_id for s in spans}
+    native_of = {_cupti_thread_id(s.thread_id): s.native_thread_id for s in spans}
     events = []
     for ev in doc.get("traceEvents", ()):
         if ev.get("cat") in ("cuda_runtime", "cuda_driver") and ev.get("tid") in native_of:
